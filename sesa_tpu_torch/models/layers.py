@@ -1,0 +1,27 @@
+"""Shared building blocks (counterpart of sesa_tpu/models/layers.py; only
+what the bs_roformer path needs)."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def kaiming_uniform(shape, fan_in: int, generator: torch.Generator,
+                    dtype=torch.float32) -> torch.Tensor:
+    """torch-style fan-in uniform U(-1/sqrt(fan_in), 1/sqrt(fan_in)), drawn
+    on the CPU from ``generator``."""
+    bound = math.sqrt(1.0 / fan_in) if fan_in > 0 else 0.0
+    u = torch.rand(tuple(shape), generator=generator, dtype=dtype)
+    return (u * 2.0 - 1.0) * bound
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+    """lucidrains RMSNorm: F.normalize(x, dim=-1) * sqrt(dim) * gamma.
+
+    l2-normalisation with the norm clamped at 1e-12 (torch F.normalize), not
+    a mean-square norm with eps added.
+    """
+    norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    return x / norm.clamp_min(1e-12) * (x.shape[-1] ** 0.5) * gamma

@@ -1,0 +1,20 @@
+"""model_type string -> model module dispatch (counterpart of
+sesa_tpu/models/registry.py). Only ``bs_roformer`` is ported so far."""
+
+from __future__ import annotations
+
+import importlib
+
+MODEL_TYPES = {
+    "bs_roformer": "sesa_tpu_torch.models.bs_roformer",
+}
+
+
+def get_model(model_type: str):
+    """Return the model module for a model_type string."""
+    if model_type not in MODEL_TYPES:
+        raise ValueError(
+            f"model type {model_type!r} is not ported to sesa_tpu_torch yet "
+            f"(ported: {sorted(MODEL_TYPES)}); see ROADMAP.md queue 1 for the "
+            "order of the remaining models")
+    return importlib.import_module(MODEL_TYPES[model_type])

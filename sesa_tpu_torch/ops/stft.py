@@ -1,0 +1,59 @@
+"""RI-contract STFT / iSTFT (counterpart of sesa_tpu/ops/stft.py).
+
+The JAX package builds its transform from DFT matrices because the TPU has
+no FFT and no complex dtype. Here the transform is ``torch.stft`` /
+``torch.istft`` (cuFFT on the card) on complex64, while the public contract
+stays the JAX one: spectra are real tensors ``(..., F, frames, 2)`` with a
+trailing (real, imag) axis, and ``istft_ri`` takes ``length=``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from sesa_tpu_torch.ops.windows import hann_window
+
+__all__ = ["hann_window", "stft_ri", "istft_ri"]
+
+
+def _window(window, win_length, n_fft, like):
+    if win_length is None:
+        win_length = n_fft if window is None else window.shape[0]
+    if window is None:
+        window = torch.ones(win_length, dtype=torch.float32, device=like.device)
+    return window.to(device=like.device, dtype=torch.float32), win_length
+
+
+def stft_ri(x: torch.Tensor, n_fft: int, hop_length: int,
+            window: Optional[torch.Tensor] = None,
+            win_length: Optional[int] = None, center: bool = True,
+            normalized: bool = False, pad_mode: str = "reflect") -> torch.Tensor:
+    """``(..., T)`` real -> ``(..., n_fft // 2 + 1, frames, 2)`` real."""
+    window, win_length = _window(window, win_length, n_fft, x)
+    lead = x.shape[:-1]
+    spec = torch.stft(x.reshape(-1, x.shape[-1]).float(), n_fft, hop_length,
+                      win_length=win_length, window=window, center=center,
+                      pad_mode=pad_mode, normalized=normalized, onesided=True,
+                      return_complex=True)
+    ri = torch.view_as_real(spec)  # (B, F, frames, 2)
+    return ri.reshape(lead + ri.shape[1:])
+
+
+def istft_ri(spec: torch.Tensor, n_fft: int, hop_length: int,
+             window: Optional[torch.Tensor] = None,
+             win_length: Optional[int] = None, center: bool = True,
+             normalized: bool = False,
+             length: Optional[int] = None) -> torch.Tensor:
+    """``(..., F, frames, 2)`` real -> ``(..., length)`` real."""
+    window, win_length = _window(window, win_length, n_fft, spec)
+    lead = spec.shape[:-3]
+    f, frames = spec.shape[-3:-1]
+    if f != n_fft // 2 + 1:
+        raise ValueError(f"expected {n_fft // 2 + 1} freq bins, got {f}")
+    c = torch.view_as_complex(spec.reshape((-1, f, frames, 2)).float().contiguous())
+    sig = torch.istft(c, n_fft, hop_length, win_length=win_length,
+                      window=window, center=center, normalized=normalized,
+                      onesided=True, length=length)
+    return sig.reshape(lead + sig.shape[-1:])

@@ -1,0 +1,170 @@
+"""Inference sessions (counterpart of sesa_tpu/runtime/session.py): a model,
+its config, its weights on the device and a DemixSpec in one object whose
+``separate`` runs a whole song."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from sesa_tpu_torch import get_device
+from sesa_tpu_torch.configs import load_config
+from sesa_tpu_torch.convert import convert_checkpoint, load_torch_state_dict
+from sesa_tpu_torch.models import get_model
+from sesa_tpu_torch.runtime.demix import DemixSpec, apply_tta, demix
+from sesa_tpu_torch.tree import tree_map
+
+
+def denormalize_audio(audio: np.ndarray, norm: Dict[str, float]) -> np.ndarray:
+    return audio * norm["std"] + norm["mean"]
+
+
+def prefer_target_instrument(config) -> List[str]:
+    """reference utils.py:480-499 (tolerant of configs without training)."""
+    training = dict(config).get("training", {}) or {}
+    if training.get("target_instrument"):
+        return [training["target_instrument"]]
+    if training.get("instruments"):
+        return list(training["instruments"])
+    return ["restored"]
+
+
+@dataclasses.dataclass
+class InferenceSession:
+    model_type: str
+    config: object
+    params: object
+    spec: DemixSpec
+    device: torch.device
+    compute_dtype: Optional[torch.dtype] = torch.bfloat16
+    # separations rerun in f32 because bf16 gave non-finite output
+    rescues: int = 0
+
+    @classmethod
+    def create(cls, model_type: str, config_path, checkpoint_path: str = "", *,
+               chunk_size: Optional[int] = None, num_overlap: Optional[int] = None,
+               batch_size: Optional[int] = None, num_channels: Optional[int] = None,
+               compute_dtype: Optional[torch.dtype] = torch.bfloat16, device=None,
+               seed: int = 0) -> "InferenceSession":
+        """Load config and weights (or init from ``seed`` without a checkpoint)
+        and move the weights to ``device``: CUDA unless "cpu" is asked for."""
+        dev = get_device(device)
+        config = load_config(model_type, config_path)
+        model = get_model(model_type)
+        if checkpoint_path:
+            params = convert_checkpoint(model_type, load_torch_state_dict(checkpoint_path),
+                                        config)
+        else:
+            params = model.init(torch.Generator().manual_seed(seed), config)
+        params = tree_map(lambda p: p.to(device=dev, dtype=torch.float32), params)
+
+        audio_cfg = config.get("audio", {}) or {}
+        inference_cfg = config.get("inference", {}) or {}
+        spec = DemixSpec(
+            chunk_size=int(chunk_size or audio_cfg.get("chunk_size") or 352800),
+            num_overlap=int(num_overlap or inference_cfg.get("num_overlap", 2)),
+            batch_size=int(batch_size or inference_cfg.get("batch_size", 4)),
+            num_stems=len(prefer_target_instrument(config)),
+            num_channels=int(num_channels or audio_cfg.get("num_channels", 2)),
+        )
+        return cls(model_type, config, params, spec, dev, compute_dtype)
+
+    @property
+    def instruments(self) -> List[str]:
+        return prefer_target_instrument(self.config)
+
+    @property
+    def sample_rate(self) -> int:
+        sr = (self.config.get("audio", {}) or {}).get("sample_rate")
+        if sr is None:
+            sr = (self.config.get("model", {}) or {}).get("sr", 44100)
+        return int(sr)
+
+    def _model_apply(self, compute_dtype):
+        model = get_model(self.model_type)
+        config, stems = self.config, self.spec.num_stems
+
+        def apply_fn(params, chunks):
+            with torch.inference_mode():
+                out = model.apply(params, config, chunks, compute_dtype=compute_dtype)
+            if out.ndim == 3:  # single-stem models may squeeze
+                out = out[:, None]
+            if out.shape[1] != stems:
+                raise ValueError(f"model gave {out.shape[1]} stems, config names {stems}")
+            return out
+
+        return apply_fn
+
+    def separate(self, mix: np.ndarray, *, use_tta: bool = False,
+                 progress_cb: Optional[Callable[[float], None]] = None
+                 ) -> Dict[str, np.ndarray]:
+        """(channels, T) -> {instrument: (channels, T)} separated stems.
+
+        Mirrors reference run_folder (inference.py:84-132): optional
+        mono-statistics normalisation, demix, optional TTA, denormalise. A
+        bf16 separation with non-finite output is rerun in f32 and counted
+        in ``rescues`` (sesa_tpu session.py:212-220).
+        """
+        mix = np.asarray(mix, dtype=np.float32)
+        if mix.ndim == 1:
+            mix = mix[None]
+        if mix.shape[0] == 1 and self.spec.num_channels == 2:
+            mix = np.repeat(mix, 2, axis=0)
+
+        norm = affine = None
+        if bool((self.config.get("inference", {}) or {}).get("normalize", False)):
+            mono = mix.mean(0)
+            norm = {"mean": float(mono.mean()), "std": float(mono.std())}
+            affine = (norm["mean"], norm["std"])
+
+        kw = dict(device=self.device, affine=affine)
+        apply_fn = self._model_apply(self.compute_dtype)
+        stems = demix(apply_fn, self.params, mix, self.spec, progress_cb=progress_cb, **kw)
+        lossy = self.compute_dtype not in (None, torch.float32)
+        if lossy and not np.isfinite(stems).all():
+            print("non-finite output under bf16; retrying in float32")
+            self.rescues += 1
+            self.compute_dtype = None
+            apply_fn = self._model_apply(None)
+            stems = demix(apply_fn, self.params, mix, self.spec, progress_cb=progress_cb, **kw)
+        if use_tta:
+            stems = apply_tta(apply_fn, self.params, mix, stems, self.spec, **kw)
+        # final scrub after the rescue decision (reference utils.py:459)
+        stems = np.nan_to_num(stems)
+
+        out = {}
+        for i, name in enumerate(self.instruments):
+            out[name] = stems[i] if norm is None else denormalize_audio(stems[i], norm)
+        return out
+
+    def separate_with_extras(self, mix: np.ndarray, *, use_tta: bool = False,
+                             extract_instrumental: bool = False,
+                             demud_phaseremix_inst: bool = False,
+                             progress_cb=None) -> Dict[str, np.ndarray]:
+        """separate() plus the reference CLI's derived outputs (reference
+        inference.py:103-126): instrumental = mix − vocals, and the demud
+        phase-remix re-separation."""
+        mix = np.asarray(mix, dtype=np.float32)
+        if mix.ndim == 1:
+            mix = mix[None]
+        if mix.shape[0] == 1 and self.spec.num_channels == 2:
+            mix = np.repeat(mix, 2, axis=0)
+        mix_orig = mix.copy()
+
+        waveforms = self.separate(mix, use_tta=use_tta, progress_cb=progress_cb)
+        instruments = list(waveforms)
+        instr = "vocals" if "vocals" in instruments else instruments[0]
+        if demud_phaseremix_inst:
+            if not any(i.lower() == "instrumental" for i in instruments):
+                second = self.separate(mix_orig - 2 * waveforms[instr], use_tta=use_tta)
+                waveforms["instrumental_phaseremix"] = mix_orig + second[instr]
+            else:
+                mix_mod = 2 * waveforms[instr] - mix_orig
+                second = self.separate(mix_mod, use_tta=use_tta)
+                waveforms["instrumental_phaseremix"] = mix_orig + mix_mod - second[instr]
+        if extract_instrumental and "instrumental" not in waveforms:
+            waveforms["instrumental"] = mix_orig - waveforms[instr]
+        return waveforms

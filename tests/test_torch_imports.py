@@ -1,0 +1,45 @@
+"""sesa_tpu_torch imports neither JAX nor anything of the JAX package."""
+
+import os
+import re
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "sesa_tpu_torch")
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "sys.modules['jax'] = None\n"
+        "import sesa_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(sesa_tpu_torch.__path__,"
+        " 'sesa_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = [m for m in sys.modules if m == 'sesa_tpu' or m.startswith('sesa_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) >= 20
+
+
+def test_sources_name_no_jax_package():
+    pattern = re.compile(r"^\s*(from|import)\s+(jax|sesa_tpu)(\.|\s|$)", re.M)
+    offenders = []
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(root, f)
+                with open(path) as fh:
+                    if pattern.search(fh.read()):
+                        offenders.append(os.path.relpath(path, REPO))
+    assert not offenders, offenders
+
+
+def test_chip_smoke_names_no_jax_package():
+    with open(os.path.join(REPO, "chip_smoke.py")) as fh:
+        src = fh.read()
+    assert not re.search(r"^\s*(from|import)\s+(jax|sesa_tpu)(\.|\s|$)", src, re.M)
