@@ -1,24 +1,37 @@
 """Drive sesa_tpu_torch on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase: the check of the port
+    python3 chip_smoke.py --kernels-only  # phases 1-2, a first check of new kernels
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
-1. build: compiles every CUDA source of ``sesa_tpu_torch/csrc`` with nvcc.
-2. kernels: at the flagship shapes, launches K1 (fused attention block,
-   time leg and freq leg) and K2 (fused feed-forward) and holds each against
-   its plain PyTorch version on the same inputs; times the kernel, the plain
-   version and a library composite (cuBLAS + SDPA), and computes each
-   kernel's bound from its shapes.
-3. main path: separates a generated 60 s stereo song through
+1. build: compiles every CUDA source of ``sesa_tpu_torch/csrc`` with nvcc,
+   one process per source, all in parallel.
+2. kernels: at the main paths' shapes, launches K1 (fused attention block,
+   time and freq legs), K2 (fused feed-forward, roformer RMSNorm/GELU form
+   and conformer LayerNorm/SiLU form), K4 (conformer attention, time and
+   freq legs) and K5 (conformer conv module, both legs), holds each against
+   its plain PyTorch version on the same inputs, times the kernel, the plain
+   version and a library composite (cuBLAS, SDPA, cuDNN), and computes each
+   kernel's bound from its shapes. K4 and K5 are also checked at small
+   ragged shapes (other head widths, clipping, short and even kernels).
+3. flagship: separates a generated 60 s stereo song through
    ``sesa_tpu_torch.cli.main`` with the flagship bs_roformer (dim 512,
    depth 12, 8 heads x 64, seeded weights) in bf16, and checks the stems,
    the f32-rescue count and the kernels' launch counts.
-4. model parity: one chunk batch through ``bs_roformer.apply`` with the
-   kernels against the same call with the kernels' plain versions, both bf16
-   on the card.
-5. profile: device time by kernel over one warm model call (torch.profiler).
+4. mel-band conformer: the same song through ``cli.main --model_type
+   mel_band_conformer`` at bench.py's ``_melconf_setup`` shape (dim 384,
+   depth 8, 60 mel bands, 8 heads x 64, conv kernel 31) in bf16; checks as
+   in 3, with K2, K4 and K5 launched at every conformer block.
+5. model parity: one chunk batch through bs_roformer and mel_band_conformer
+   with the kernels against the same call with the kernels' plain versions,
+   both bf16 on the card (and against f32, for the record).
+6. mel-band roformer: one model call of 6 chunks at bench.py's
+   ``_melband_setup`` shape (dim 384, depth 12, 60 mel bands) with the
+   kernels (K1, K2) and with their plain versions.
+7. profile: device time by kernel over one warm model call of the flagship
+   and of the mel-band conformer (torch.profiler).
 
 Prints the ``kernels`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
@@ -26,6 +39,7 @@ Prints the ``kernels`` JSON line, the card's name and power limit, and last
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -42,11 +56,22 @@ FLAGSHIP_MODEL = dict(dim=512, depth=12, stereo=True, num_stems=1,
                       time_transformer_depth=1, freq_transformer_depth=1,
                       dim_head=64, heads=8, stft_n_fft=2048, stft_hop_length=512,
                       stft_win_length=2048, mask_estimator_depth=2)
+# bench.py _melconf_setup (the other keys at mel_band_conformer's defaults:
+# 8 heads x 64, ff_mult 4, conv expansion 2, kernel 31, mask depth 1)
+MELCONF_MODEL = dict(dim=384, depth=8, stereo=True, num_stems=1, num_bands=60,
+                     time_conformer_depth=1, freq_conformer_depth=1,
+                     stft_n_fft=2048, stft_hop_length=512, stft_win_length=2048)
+# bench.py _melband_setup
+MELBAND_MODEL = dict(dim=384, depth=12, stereo=True, num_stems=1, num_bands=60,
+                     sample_rate=44100, time_transformer_depth=1, freq_transformer_depth=1,
+                     dim_head=64, heads=8, stft_n_fft=2048, stft_hop_length=512,
+                     stft_win_length=2048, mask_estimator_depth=1)
 CHUNK, OVERLAP, BATCH, SR, SONG_S = 352800, 2, 6, 44100, 60
-FRAMES, BANDS = CHUNK // 512 + 1, 62  # 690 frames, 62 bands per chunk
-TOKENS = BATCH * FRAMES * BANDS  # 256,680 tokens per model call
+FRAMES, BANDS, MEL_BANDS = CHUNK // 512 + 1, 62, 60  # 690 frames; 62 / 60 bands
+TOKENS = BATCH * FRAMES * BANDS  # 256,680 tokens per flagship model call
+MEL_TOKENS = BATCH * FRAMES * MEL_BANDS  # 248,400 tokens per mel model call
 
-# K1 / K2 against their plain versions, both bf16 on the card: the two
+# kernels against their plain versions, both bf16 on the card: the two
 # round at the same points, but the kernels sum in another order and the
 # flash softmax rounds unnormalised probabilities, so they differ by about
 # one bf16 ulp. Bounds: max |kernel - plain| <= 5% of max |plain|, and the
@@ -99,9 +124,39 @@ def compare(name, out, ref, x):
     return max_err
 
 
+def snr_db(a, ref):
+    return float(10 * math.log10(float(ref.double().pow(2).sum())
+                                 / float((a.double() - ref.double()).pow(2).sum())))
+
+
+def _bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def counters():
+    """The launch counter of every kernel wrapper, by kernel."""
+    from sesa_tpu_torch.ops.attention import fused_attention_block, fused_conformer_attention
+    from sesa_tpu_torch.ops.convblock import fused_conformer_conv
+    from sesa_tpu_torch.ops.ff import fused_ff_residual
+
+    return {"K1": fused_attention_block, "K2": fused_ff_residual,
+            "K4": fused_conformer_attention, "K5": fused_conformer_conv}
+
+
+def reset_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in counters().items()}
+
+
 # ---------------------------------------------------------------------------
-# library composites: the same functions through cuBLAS and SDPA, timed only
-# here as a yardstick (the port never calls them)
+# library composites: the same functions through cuBLAS, SDPA and cuDNN,
+# timed only here as a yardstick (the port never calls them)
 # ---------------------------------------------------------------------------
 
 def k1_library(x, gamma, wqkv, wg, bg, wo, heads, scale, rope):
@@ -124,6 +179,60 @@ def k2_library(x, gamma, w1, b1, w2, b2):
 
     xn = F.normalize(x, dim=-1) * (x.shape[-1] ** 0.5) * gamma
     return F.linear(F.gelu(F.linear(xn, w1, b1), approximate="tanh"), w2, b2) + x
+
+
+def k2ln_library(x, gamma, w1, b1, w2, b2, beta):
+    import torch.nn.functional as F
+
+    xn = F.layer_norm(x, (x.shape[-1],), gamma, beta)
+    return F.linear(F.silu(F.linear(xn, w1, b1)), w2, b2) * 0.5 + x
+
+
+def k4_library(x, ln_w, ln_b, wqkv, rel, wo, bo, heads):
+    """LayerNorm, cuBLAS qkv, the Shaw bias as torch.matmul against the
+    gathered (n, n, dh) table, SDPA with that bias as attn_mask, cuBLAS out;
+    in batch slices that keep an f32 (n, n) bias under 2 GiB."""
+    import torch
+    import torch.nn.functional as F
+
+    from sesa_tpu_torch.ops.attention import shaw_rel_index
+
+    b, n, d = x.shape
+    dh = rel.shape[1]
+    scale = dh ** -0.5
+    xn = F.layer_norm(x, (d,), ln_w, ln_b)
+    q, k, v = F.linear(xn, wqkv).reshape(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
+    table = rel[torch.as_tensor(shaw_rel_index(n, (rel.shape[0] - 1) // 2), device=x.device)]
+    step = max(1, (2 << 30) // (heads * n * n * 4))
+    outs = []
+    for s0 in range(0, b, step):
+        qs = q[s0:s0 + step]
+        c = qs.shape[0]
+        bias = torch.matmul(qs.permute(2, 0, 1, 3).reshape(n, c * heads, dh),
+                            table.transpose(1, 2))  # (n, c*h, n)
+        bias = bias.reshape(n, c, heads, n).permute(1, 2, 0, 3) * scale
+        outs.append(F.scaled_dot_product_attention(qs, k[s0:s0 + step], v[s0:s0 + step],
+                                                   attn_mask=bias, scale=scale))
+    o = torch.cat(outs).permute(0, 2, 1, 3).reshape(b, n, -1)
+    return F.linear(o, wo, bo) + x
+
+
+def k5_library(x, p):
+    import torch
+    import torch.nn.functional as F
+
+    from sesa_tpu_torch.ops.convblock import conv_pad
+
+    d = x.shape[-1]
+    xn = F.layer_norm(x, (d,), p["norm"]["weight"], p["norm"]["bias"])
+    h = F.glu(F.linear(xn, p["pw1"]["weight"][:, :, 0], p["pw1"]["bias"]), dim=-1)
+    w = p["dw"]["weight"]
+    h = F.conv1d(F.pad(h.transpose(1, 2), conv_pad(w.shape[-1])), w, p["dw"]["bias"],
+                 groups=w.shape[0])
+    bn = p["bn"]
+    scale = bn["weight"] * torch.rsqrt(bn["running_var"] + 1e-5)
+    h = F.silu(h * scale[:, None] + (bn["bias"] - bn["running_mean"] * scale)[:, None])
+    return F.linear(h.transpose(1, 2), p["pw2"]["weight"][:, :, 0], p["pw2"]["bias"]) + x
 
 
 # ---------------------------------------------------------------------------
@@ -153,22 +262,62 @@ def _weights(gen, shape, fan_in, device):
     return w.to(device=device, dtype=torch.bfloat16)
 
 
+def _near_one(gen, shape, device, spread=0.1):
+    import torch
+
+    return (1 + spread * torch.randn(shape, generator=gen)).to(device, torch.bfloat16)
+
+
+def _conv_params(gen, d, e, k, device):
+    """Random conformer conv-module parameters in bf16, BatchNorm away from
+    its identity init."""
+    import torch
+
+    bf = torch.bfloat16
+    return {"norm": {"weight": _near_one(gen, d, device), "bias": _weights(gen, d, 100, device)},
+            "pw1": {"weight": _weights(gen, (2 * e, d, 1), d, device),
+                    "bias": _weights(gen, 2 * e, d, device)},
+            "dw": {"weight": _weights(gen, (e, 1, k), k, device),
+                   "bias": _weights(gen, e, k, device)},
+            "bn": {"weight": _near_one(gen, e, device), "bias": _weights(gen, e, 100, device),
+                   "running_mean": _weights(gen, e, 100, device),
+                   "running_var": (1 + 0.5 * torch.rand(e, generator=gen)).to(device, bf)},
+            "pw2": {"weight": _weights(gen, (d, e, 1), e, device),
+                    "bias": _weights(gen, d, e, device)}}
+
+
+def _k4_args(gen, b, n, d, heads, dh, max_pos, device):
+    import torch
+
+    hd = heads * dh
+    x = (0.5 * torch.randn((b, n, d), generator=gen)).to(device, torch.bfloat16)
+    rel = (0.5 * torch.randn((2 * max_pos + 1, dh), generator=gen)).to(device, torch.bfloat16)
+    return (x, _near_one(gen, d, device), _weights(gen, d, 100, device),
+            _weights(gen, (3 * hd, d), d, device), rel, _weights(gen, (d, hd), hd, device),
+            _weights(gen, d, hd, device), heads)
+
+
 def phase_kernels():
     import torch
 
-    from sesa_tpu_torch.ops.attention import fused_attention_block, fused_attention_block_plain
+    from sesa_tpu_torch.ops.attention import (fused_attention_block, fused_attention_block_plain,
+                                              fused_conformer_attention,
+                                              fused_conformer_attention_plain)
+    from sesa_tpu_torch.ops.convblock import fused_conformer_conv, fused_conformer_conv_plain
     from sesa_tpu_torch.ops.ff import fused_ff_residual, fused_ff_residual_plain
     from sesa_tpu_torch.ops.rope import default_freqs, rope_tables
 
     dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1)
+    rows = []
+
+    # K1 at the flagship shapes
     d, heads, dh = FLAGSHIP_MODEL["dim"], FLAGSHIP_MODEL["heads"], FLAGSHIP_MODEL["dim_head"]
     hd = heads * dh
-    gen = torch.Generator().manual_seed(1)
-    gamma = (1 + 0.1 * torch.randn(d, generator=gen)).to(dev, torch.bfloat16)
+    gamma = _near_one(gen, d, dev)
     wqkv = _weights(gen, (3 * hd, d), d, dev)
     wg, bg = _weights(gen, (heads, d), d, dev), _weights(gen, (heads,), d, dev)
     wo = _weights(gen, (d, hd), hd, dev)
-    rows = []
     for leg, b, n in (("time", BATCH * BANDS, FRAMES), ("freq", BATCH * FRAMES, BANDS)):
         # rms_norm makes the branch independent of the scale of x; a smaller
         # x keeps the rounding of the residual add from hiding the branch
@@ -195,34 +344,100 @@ def phase_kernels():
         del x
         torch.cuda.empty_cache()
 
-    hidden = 4 * d
-    x = torch.randn((TOKENS, d), generator=gen).to(dev, torch.bfloat16)
-    w1, b1 = _weights(gen, (hidden, d), d, dev), _weights(gen, (hidden,), d, dev)
-    w2, b2 = _weights(gen, (d, hidden), hidden, dev), _weights(gen, (d,), hidden, dev)
-    args = (x, gamma, w1, b1, w2, b2)
-    out = fused_ff_residual(*args)
+    # K2, both forms: roformer at the flagship shape, conformer at the mel one
+    for form, tokens, d in (("rms", TOKENS, FLAGSHIP_MODEL["dim"]),
+                            ("ln", MEL_TOKENS, MELCONF_MODEL["dim"])):
+        hidden = 4 * d
+        x = torch.randn((tokens, d), generator=gen).to(dev, torch.bfloat16)
+        w1, b1 = _weights(gen, (hidden, d), d, dev), _weights(gen, (hidden,), d, dev)
+        w2, b2 = _weights(gen, (d, hidden), hidden, dev), _weights(gen, (d,), hidden, dev)
+        args = (x, _near_one(gen, d, dev), w1, b1, w2, b2)
+        if form == "rms":
+            kw, lib, label, key = {}, lambda: k2_library(*args), "rms/GELU", "K2"
+        else:
+            beta = _weights(gen, d, 100, dev)
+            kw = dict(beta=beta, norm="ln", act="swish", out_scale=0.5)
+            lib, label, key = lambda: k2ln_library(*args, beta), "ln/SiLU/0.5", "K2ln"
+        out = fused_ff_residual(*args, **kw)
+        torch.cuda.synchronize()
+        err = compare(f"K2 {label} (tokens={tokens}, d={d}, hidden={hidden})", out,
+                      fused_ff_residual_plain(*args, **kw), x)
+        del out
+        rows.append(dict(name=f"fused_ff_residual {label} (tokens={tokens}, d={d}, "
+                              f"hidden={hidden})",
+                         route="cuda", source="sesa_tpu_torch/csrc/ff.cu",
+                         replaces="sesa_tpu/ops/ff.py:74", max_abs_err=err,
+                         ms=time_ms(lambda: fused_ff_residual(*args, **kw)),
+                         plain_ms=time_ms(lambda: fused_ff_residual_plain(*args, **kw), reps=2,
+                                          warmup=1),
+                         library_ms=time_ms(lib),
+                         **_bound(4 * tokens * d * hidden,
+                                  2 * (2 * tokens * d + 2 * hidden * d + hidden + 3 * d)),
+                         kernel=key))
+        del x, args
+        torch.cuda.empty_cache()
+
+    # K4 and K5 at the mel-band conformer shapes
+    d, heads, dh, max_pos, k = MELCONF_MODEL["dim"], 8, 64, 512, 31
+    hd, e = heads * dh, 2 * d
+    conv_p = _conv_params(gen, d, e, k, dev)
+    for leg, b, n in (("time", BATCH * MEL_BANDS, FRAMES), ("freq", BATCH * FRAMES, MEL_BANDS)):
+        args = _k4_args(gen, b, n, d, heads, dh, max_pos, dev)
+        x, tokens = args[0], b * n
+        out = fused_conformer_attention(*args)
+        torch.cuda.synchronize()
+        err = compare(f"K4 {leg} leg (b={b}, n={n})", out, fused_conformer_attention_plain(*args),
+                      x)
+        del out
+        flops = 2 * tokens * d * 4 * hd + 6 * b * heads * n * n * dh
+        nbytes = 2 * (2 * tokens * d + 4 * hd * d + 3 * d + (2 * max_pos + 1) * dh)
+        rows.append(dict(name=f"fused_conformer_attention ({leg} leg, b={b}, n={n})",
+                         route="cuda", source="sesa_tpu_torch/csrc/conformer_attention.cu",
+                         replaces="sesa_tpu/ops/attention.py:641", max_abs_err=err,
+                         ms=time_ms(lambda: fused_conformer_attention(*args)),
+                         plain_ms=time_ms(lambda: fused_conformer_attention_plain(*args),
+                                          reps=2, warmup=1),
+                         library_ms=time_ms(lambda: k4_library(*args)),
+                         **_bound(flops, nbytes), kernel="K4"))
+        torch.cuda.empty_cache()
+
+        out = fused_conformer_conv(x, conv_p)
+        torch.cuda.synchronize()
+        err = compare(f"K5 {leg} leg (b={b}, n={n})", out, fused_conformer_conv_plain(x, conv_p),
+                      x)
+        del out
+        flops = 2 * tokens * (d * 2 * e + e * d) + 2 * tokens * k * e
+        nbytes = 2 * (2 * tokens * d + 3 * d * e + k * e + 4 * e + 3 * d)
+        rows.append(dict(name=f"fused_conformer_conv ({leg} leg, b={b}, n={n}, k={k})",
+                         route="cuda", source="sesa_tpu_torch/csrc/convblock.cu",
+                         replaces="sesa_tpu/ops/convblock.py:110", max_abs_err=err,
+                         ms=time_ms(lambda: fused_conformer_conv(x, conv_p)),
+                         plain_ms=time_ms(lambda: fused_conformer_conv_plain(x, conv_p),
+                                          reps=2, warmup=1),
+                         library_ms=time_ms(lambda: k5_library(x, conv_p)),
+                         **_bound(flops, nbytes), kernel="K5"))
+        del args, x
+        torch.cuda.empty_cache()
+
+    # K4 and K5 at small ragged shapes: the other head widths, clipping of the
+    # Shaw distances, short sequences, a short and an even conv kernel
+    for b, n, d, heads, dh, max_pos in ((3, 130, 64, 2, 32, 64), (5, 40, 64, 2, 32, 16),
+                                        (2, 70, 128, 1, 128, 512), (2, 200, 128, 2, 64, 80)):
+        args = _k4_args(gen, b, n, d, heads, dh, max_pos, dev)
+        compare(f"K4 small (b={b}, n={n}, d={d}, {heads}x{dh}, P={max_pos})",
+                fused_conformer_attention(*args), fused_conformer_attention_plain(*args),
+                args[0])
+    for b, n, d, k in ((3, 100, 64, 7), (2, 33, 128, 8), (4, 64, 64, 31)):
+        p = _conv_params(gen, d, 2 * d, k, dev)
+        x = (0.5 * torch.randn((b, n, d), generator=gen)).to(dev, torch.bfloat16)
+        compare(f"K5 small (b={b}, n={n}, d={d}, k={k})", fused_conformer_conv(x, p),
+                fused_conformer_conv_plain(x, p), x)
     torch.cuda.synchronize()
-    err = compare(f"K2 (tokens={TOKENS}, d={d}, hidden={hidden})", out,
-                  fused_ff_residual_plain(*args), x)
-    rows.append(dict(name=f"fused_ff_residual (tokens={TOKENS}, d={d}, hidden={hidden})",
-                     route="cuda", source="sesa_tpu_torch/csrc/ff.cu",
-                     replaces="sesa_tpu/ops/ff.py:74", max_abs_err=err,
-                     ms=time_ms(lambda: fused_ff_residual(*args)),
-                     plain_ms=time_ms(lambda: fused_ff_residual_plain(*args), reps=2, warmup=1),
-                     library_ms=time_ms(lambda: k2_library(*args)),
-                     **_bound(4 * TOKENS * d * hidden,
-                              2 * (2 * TOKENS * d + 2 * hidden * d + hidden + 2 * d)),
-                     kernel="K2"))
+
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} ms by "
             f"{r['bound_by']}, plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms)")
     return rows
-
-
-def _bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
-    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def _song(seconds):
@@ -236,20 +451,26 @@ def _song(seconds):
     return (np.stack([voice + band, 0.8 * voice + band]) + noise).astype(np.float32)
 
 
-def phase_main_path(work):
+def _model_calls():
+    """Model calls for one SONG_S song: chunks of the padded song / BATCH."""
+    length = SONG_S * SR + 2 * (CHUNK - CHUNK // OVERLAP)
+    return -(-(-(-length // (CHUNK // OVERLAP))) // BATCH)
+
+
+def drive_cli(work, model_type, model_cfg, song, expected):
+    """Separate ``song`` through cli.main; check the stems, the rescues and
+    the launch counts (counters set to 0 just before, read just after); time
+    a second, warm separation on the session."""
     import numpy as np
     import torch
 
     from sesa_tpu_torch import cli
     from sesa_tpu_torch.audio_io import read_audio, write_audio
-    from sesa_tpu_torch.ops.attention import fused_attention_block
-    from sesa_tpu_torch.ops.ff import fused_ff_residual
 
-    song = _song(SONG_S)
     os.makedirs(os.path.join(work, "in"))
     write_audio(os.path.join(work, "in", "song.wav"), song, SR)
     cfg = {"audio": {"chunk_size": CHUNK, "num_channels": 2, "sample_rate": SR},
-           "model": FLAGSHIP_MODEL,
+           "model": model_cfg,
            "training": {"instruments": ["vocals", "other"], "target_instrument": "vocals"},
            "inference": {"num_overlap": OVERLAP, "batch_size": BATCH, "normalize": False}}
     cfg_path = os.path.join(work, "config.json")
@@ -258,124 +479,177 @@ def phase_main_path(work):
     out_dir = os.path.join(work, "out")
 
     sessions = []
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_attention_block.launches = 0
-    fused_ff_residual.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
-    rc = cli.main(["--model_type", "bs_roformer", "--config_path", cfg_path,
+    rc = cli.main(["--model_type", model_type, "--config_path", cfg_path,
                    "--input_folder", os.path.join(work, "in"), "--store_dir", out_dir,
                    "--compute_dtype", "bf16"], session_out=sessions)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k2 = fused_attention_block.launches, fused_ff_residual.launches
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     if rc != 0:
-        raise RuntimeError(f"cli.main returned {rc}")
+        raise RuntimeError(f"{model_type}: cli.main returned {rc}")
     session = sessions[0]
 
     stems, _ = read_audio(os.path.join(out_dir, "song_vocals.wav"))
     if stems.shape != song.shape or not np.isfinite(stems).all():
-        raise RuntimeError(f"bad stems: shape {stems.shape}, finite {np.isfinite(stems).all()}")
+        raise RuntimeError(f"{model_type}: bad stems: shape {stems.shape}, "
+                           f"finite {np.isfinite(stems).all()}")
     if session.rescues != 0:
-        raise RuntimeError(f"{session.rescues} bf16 -> f32 rescues on the main path")
-    length = song.shape[-1] + 2 * (CHUNK - CHUNK // OVERLAP)
-    calls = -(-(-(-length // (CHUNK // OVERLAP))) // BATCH)
-    layers = FLAGSHIP_MODEL["depth"] * (FLAGSHIP_MODEL["time_transformer_depth"]
-                                        + FLAGSHIP_MODEL["freq_transformer_depth"])
-    if k1 != layers * calls or k2 != layers * calls:
-        raise RuntimeError(f"launches K1 {k1}, K2 {k2}; expected {layers} x {calls} model calls")
+        raise RuntimeError(f"{model_type}: {session.rescues} bf16 -> f32 rescues")
+    if launches != expected:
+        raise RuntimeError(f"{model_type}: launches {launches}, expected {expected}")
 
-    # a second separation on the warm session, timed alone
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     session.separate(song)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t1
-    res = dict(song_s=SONG_S, model_calls=calls, k1_launches=k1, k2_launches=k2,
-               cli_wall_s=wall, rtf_cli=SONG_S / wall, separate_warm_s=warm,
-               rtf_warm=SONG_S / warm, peak_cuda_mem_gib=peak / 2 ** 30,
-               rescues=session.rescues)
-    log(f"[main path] {json.dumps(res)}")
-    return res, session, song
+    res = dict(model_type=model_type, song_s=SONG_S, model_calls=_model_calls(),
+               launches=launches, cli_wall_s=wall, rtf_cli=SONG_S / wall,
+               separate_warm_s=warm, rtf_warm=SONG_S / warm,
+               peak_cuda_mem_gib=peak / 2 ** 30, rescues=session.rescues)
+    log(f"[{model_type}] {json.dumps(res)}")
+    return res, session
 
 
-def phase_model_parity(session, song):
-    import numpy as np
+def _chunks(song):
     import torch
 
-    from sesa_tpu_torch.models import bs_roformer
-    from sesa_tpu_torch.models import roformer_core as core
-    from sesa_tpu_torch.ops.attention import fused_attention_block_plain
+    step = CHUNK // OVERLAP
+    return torch.stack([torch.from_numpy(song[:, i * step:i * step + CHUNK])
+                        for i in range(BATCH)]).cuda()
+
+
+def _plain_swaps(model_type):
+    """(module, attribute, plain version) for every kernel the model reaches."""
+    from sesa_tpu_torch.models import conformer_core, roformer_core
+    from sesa_tpu_torch.ops.attention import (fused_attention_block_plain,
+                                              fused_conformer_attention_plain)
+    from sesa_tpu_torch.ops.convblock import fused_conformer_conv_plain
     from sesa_tpu_torch.ops.ff import fused_ff_residual_plain
 
-    step = CHUNK // OVERLAP
-    chunks = torch.stack([torch.from_numpy(song[:, i * step:i * step + CHUNK])
-                          for i in range(BATCH)]).cuda()
+    if model_type == "mel_band_conformer":
+        return [(conformer_core, "fused_ff_residual", fused_ff_residual_plain),
+                (conformer_core, "fused_conformer_attention", fused_conformer_attention_plain),
+                (conformer_core, "fused_conformer_conv", fused_conformer_conv_plain)]
+    return [(roformer_core, "fused_attention_block", fused_attention_block_plain),
+            (roformer_core, "fused_ff_residual", fused_ff_residual_plain)]
+
+
+def model_parity(model_type, params, config, song, with_f32=True):
+    """One chunk batch with the kernels against the same call with the
+    kernels' plain versions (both bf16 on the card), and against f32."""
+    import torch
+
+    from sesa_tpu_torch.models import get_model
+
+    model = get_model(model_type)
+    chunks = _chunks(song)
+    swaps = _plain_swaps(model_type)
     with torch.inference_mode():
-        kern = bs_roformer.apply(session.params, session.config, chunks,
-                                 compute_dtype=torch.bfloat16)
-        k_attn, k_ff = core.fused_attention_block, core.fused_ff_residual
-        core.fused_attention_block, core.fused_ff_residual = \
-            fused_attention_block_plain, fused_ff_residual_plain
+        reset_counts()
+        kern = model.apply(params, config, chunks, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        saved = [getattr(m, a) for m, a, _ in swaps]
+        for m, a, plain in swaps:
+            setattr(m, a, plain)
         try:
-            plain = bs_roformer.apply(session.params, session.config, chunks,
-                                      compute_dtype=torch.bfloat16)
+            plain = model.apply(params, config, chunks, compute_dtype=torch.bfloat16)
         finally:
-            core.fused_attention_block, core.fused_ff_residual = k_attn, k_ff
-        f32 = bs_roformer.apply(session.params, session.config, chunks)
+            for (m, a, _), fn in zip(swaps, saved):
+                setattr(m, a, fn)
+        f32 = model.apply(params, config, chunks) if with_f32 else None
 
-    def snr(a, ref):
-        return float(10 * torch.log10(ref.pow(2).sum() / (a - ref).pow(2).sum()))
-
-    res = dict(snr_kernel_vs_plain_db=snr(kern, plain), snr_kernel_vs_f32_db=snr(kern, f32),
-               snr_plain_vs_f32_db=snr(plain, f32), finite=bool(torch.isfinite(kern).all()))
-    log(f"[model parity] {json.dumps(res)}")
+    res = dict(model_type=model_type, launches=launches,
+               snr_kernel_vs_plain_db=snr_db(kern, plain),
+               finite=bool(torch.isfinite(kern).all()))
+    if f32 is not None:
+        res.update(snr_kernel_vs_f32_db=snr_db(kern, f32), snr_plain_vs_f32_db=snr_db(plain, f32))
+    log(f"[parity] {json.dumps(res)}")
     if not res["finite"]:
-        raise RuntimeError("model parity: non-finite output")
+        raise RuntimeError(f"{model_type} parity: non-finite output")
     if not res["snr_kernel_vs_plain_db"] >= MODEL_SNR_FLOOR_DB:  # NaN fails too
-        raise RuntimeError(f"model parity: SNR {res['snr_kernel_vs_plain_db']:.1f} dB "
+        raise RuntimeError(f"{model_type} parity: SNR {res['snr_kernel_vs_plain_db']:.1f} dB "
                            f"below {MODEL_SNR_FLOOR_DB} dB")
     return res
 
 
-def phase_profile(session, song):
-    """Device time by kernel over one warm flagship model call (torch.profiler)."""
+def phase_melband(song):
+    """mel_band_roformer at the _melband_setup shape: one model call of 6
+    chunks with the kernels (K1 and K2 once per layer) and with the plain
+    versions."""
     import torch
+
+    from sesa_tpu_torch.configs import AttrDict
+    from sesa_tpu_torch.models import mel_band_roformer
+    from sesa_tpu_torch.tree import tree_map
+
+    config = AttrDict({"model": MELBAND_MODEL})
+    params = mel_band_roformer.init(torch.Generator().manual_seed(2), config)
+    params = tree_map(lambda p: p.cuda(), params)
+    res = model_parity("mel_band_roformer", params, config, song, with_f32=False)
+    layers = MELBAND_MODEL["depth"] * 2
+    expected = {"K1": layers, "K2": layers, "K4": 0, "K5": 0}
+    if res["launches"] != expected:
+        raise RuntimeError(f"mel_band_roformer: launches {res['launches']}, expected {expected}")
+    return res
+
+
+def phase_profile(model_type, session, song):
+    """Device time by kernel over one warm model call (torch.profiler), and
+    the host wall of the same call without the profiler."""
+    import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from sesa_tpu_torch.models import bs_roformer
+    from sesa_tpu_torch.models import get_model
 
-    step = CHUNK // OVERLAP
-    chunks = torch.stack([torch.from_numpy(song[:, i * step:i * step + CHUNK])
-                          for i in range(BATCH)]).cuda()
+    model = get_model(model_type)
+    chunks = _chunks(song)
     with torch.inference_mode():
-        bs_roformer.apply(session.params, session.config, chunks, compute_dtype=torch.bfloat16)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            bs_roformer.apply(session.params, session.config, chunks,
-                              compute_dtype=torch.bfloat16)
+        walls = []
+        for _ in range(3):  # the first call warms up; the wall is the best of the next two
             torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            model.apply(session.params, session.config, chunks, compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.apply(session.params, session.config, chunks, compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+    # kernel events only: an aten op's device time is its kernels' time again
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0)
-        if dev_us > 0:
+        if e.device_type == DeviceType.CUDA and dev_us > 0:
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    log(f"[profile] one model call ({BATCH} chunks): wall {wall_ms:.1f} ms under the profiler, "
-        f"device busy {busy:.1f} ms")
-    for ms, count, key in rows[:14]:
+    busy, wall = sum(r[0] for r in rows), min(walls[1:])
+    sesa = sum(r[0] for r in rows if r[2].startswith(("sesa::", "void sesa::")))
+    log(f"[profile {model_type}] one model call ({BATCH} chunks): wall {wall:.1f} ms, device "
+        f"busy {busy:.1f} ms ({sesa:.1f} ms in the port's kernels), idle share "
+        f"{1 - busy / wall:.3f}")
+    for ms, count, key in rows[:16]:
         log(f"  {ms:9.2f} ms  {count:5d}x  {key[:90]}")
-    return dict(wall_ms=wall_ms, device_busy_ms=busy,
-                top=[dict(ms=ms, count=c, kernel=k[:120]) for ms, c, k in rows[:20]])
+    return dict(wall_ms=wall, device_busy_ms=busy, sesa_kernels_ms=sesa,
+                idle_share=1 - busy / wall,
+                top=[dict(ms=ms, count=c, kernel=k[:120]) for ms, c, k in rows[:30]])
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="build and check the kernels, then stop without result lines")
+    args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -390,22 +664,42 @@ def main() -> int:
         f"torch {torch.__version__} cuda {torch.version.cuda}; {card}")
     t0 = time.perf_counter()
     phase_build()
-    rows = phase_kernels()
+    out = dict(card=card, kernel_rows=phase_kernels())
+    if args.kernels_only:
+        log(f"[total] {time.perf_counter() - t0:.1f}s; --kernels-only: no result lines")
+        return 0
+    song = _song(SONG_S)
+    sessions = {}
+    calls = _model_calls()
+    layers = FLAGSHIP_MODEL["depth"] * (FLAGSHIP_MODEL["time_transformer_depth"]
+                                        + FLAGSHIP_MODEL["freq_transformer_depth"])
     with tempfile.TemporaryDirectory() as work:
-        main_res, session, song = phase_main_path(work)
-    parity = phase_model_parity(session, song)
-    profile_res = phase_profile(session, song)
-    launches = {"K1": main_res["k1_launches"], "K2": main_res["k2_launches"]}
+        out["flagship"], sessions["bs_roformer"] = drive_cli(
+            work, "bs_roformer", FLAGSHIP_MODEL, song,
+            {"K1": layers * calls, "K2": layers * calls, "K4": 0, "K5": 0})
+    blocks = MELCONF_MODEL["depth"] * (MELCONF_MODEL["time_conformer_depth"]
+                                       + MELCONF_MODEL["freq_conformer_depth"])
+    with tempfile.TemporaryDirectory() as work:
+        out["melconf"], sessions["mel_band_conformer"] = drive_cli(
+            work, "mel_band_conformer", MELCONF_MODEL, song,
+            {"K1": 0, "K2": 2 * blocks * calls, "K4": blocks * calls, "K5": blocks * calls})
+    out["parity"] = [model_parity(mt, s.params, s.config, song) for mt, s in sessions.items()]
+    out["melband"] = phase_melband(song)
+    out["profile"] = {mt: phase_profile(mt, s, song) for mt, s in sessions.items()}
+    out["seconds"] = time.perf_counter() - t0
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    log(f"[total] {out['seconds']:.1f}s")
+
+    launches = {"K1": out["flagship"]["launches"]["K1"], "K2": out["flagship"]["launches"]["K2"],
+                "K2ln": out["melconf"]["launches"]["K2"], "K4": out["melconf"]["launches"]["K4"],
+                "K5": out["melconf"]["launches"]["K5"]}
     kernels = [dict(name=r["name"], route=r["route"], source=r["source"],
                     replaces=r["replaces"], launches=launches[r["kernel"]],
                     max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                    library_ms=r["library_ms"]) for r in rows]
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, kernels=kernels, main_path=main_res, model_parity=parity,
-                       profile=profile_res, seconds=time.perf_counter() - t0), f, indent=1)
-    log(f"[total] {time.perf_counter() - t0:.1f}s")
+                    library_ms=r["library_ms"]) for r in out["kernel_rows"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,10 @@
 """Carry parameters from the JAX package into the port.
 
-The port keeps the JAX package's bs_roformer parameter tree (grouped band
-weights, torch-layout projection weights, the same key names), so the
-mapping is a copy of every leaf, checked against the tree the spec
-describes. Leaves are numpy arrays (``np.asarray`` of the JAX arrays); this
-module imports no JAX.
+The port keeps the JAX package's parameter trees (grouped band weights,
+torch-layout projection weights, the same key names) for bs_roformer,
+mel_band_roformer and mel_band_conformer, so the mapping is a copy of every
+leaf, checked against the tree the port's own init builds. Leaves are numpy
+arrays (``np.asarray`` of the JAX arrays); this module imports no JAX.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sesa_tpu_torch.models import bs_roformer
+from sesa_tpu_torch.models import bs_roformer, get_model
 from sesa_tpu_torch.tree import tree_map
 
 
@@ -30,15 +30,26 @@ def _shapes(tree, prefix=""):
     return {prefix.rstrip("/"): tuple(np.shape(tree))}
 
 
-def params_from_jax(params_np, spec: bs_roformer.RoformerSpec):
-    """JAX bs_roformer parameter tree (numpy leaves) -> the port's tree.
+def _expected(model, config):
+    gen = torch.Generator().manual_seed(0)
+    if isinstance(model, bs_roformer.RoformerSpec):
+        mel = model.mel_mlp_convention  # mel_band_roformer's spec
+        return bs_roformer.init_from_spec(gen, model, transformer_norm_output=mel,
+                                          final_norm=not mel)
+    return get_model(model).init(gen, config)
 
-    Raises ``ValueError`` when the tree's keys or shapes differ from those
-    ``spec`` describes (checked against the port's own init).
+
+def params_from_jax(params_np, model, config=None):
+    """A JAX parameter tree (numpy leaves) -> the port's tree.
+
+    ``model`` is a ``RoformerSpec`` (bs_roformer; mel_band_roformer when its
+    ``mel_mlp_convention`` is set) or a model type string, with ``config``,
+    such as ``"mel_band_conformer"``. Raises ``ValueError`` when the tree's
+    keys or shapes differ from those of the port's own init.
     """
-    expected = _shapes(bs_roformer.init_from_spec(torch.Generator().manual_seed(0), spec))
+    expected = _shapes(_expected(model, config))
     got = _shapes(params_np)
     if got != expected:
         diff = sorted(set(got.items()) ^ set(expected.items()), key=str)[:8]
-        raise ValueError(f"JAX parameter tree does not match the spec: {diff}")
+        raise ValueError(f"JAX parameter tree does not match the model: {diff}")
     return tree_map(lambda a: torch.from_numpy(np.array(a, dtype=np.float32)), params_np)

@@ -35,19 +35,6 @@ namespace sesa {
 
 constexpr int AT_BK = 64;  // keys per tile; 16 query rows per warp
 
-// Stage rows [pos0, pos0 + ROWS) of one head's q, k or v in shared memory;
-// rows at or beyond n repeat row n - 1 (masked keys, unwritten queries).
-template <int DH, int ROWS, int THREADS>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* qkv, int row_stride,
-                                           int col0, int seq0, int pos0, int n) {
-  constexpr int CPR = DH / 8, LD = DH + 8;  // 16-byte chunks per row
-#pragma unroll
-  for (int c = threadIdx.x; c < ROWS * CPR; c += THREADS) {
-    const int r = c / CPR, d0 = (c % CPR) * 8, pos = min(pos0 + r, n - 1);
-    cp_async16(dst + r * LD + d0, qkv + (size_t)(seq0 + pos) * row_stride + col0 + d0);
-  }
-}
-
 template <int DH, int BQ>
 constexpr int attn_smem_bytes() { return (BQ + 4 * AT_BK) * (DH + 8) * 2; }
 

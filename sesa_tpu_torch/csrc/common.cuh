@@ -70,6 +70,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Stage rows [pos0, pos0 + ROWS) of one head's q, k or v in shared memory
+// (the attention cores of K1 and K4); rows at or beyond n repeat row n - 1
+// (masked keys, unwritten queries).
+template <int DH, int ROWS, int THREADS>
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* qkv, int row_stride,
+                                           int col0, int seq0, int pos0, int n) {
+  constexpr int CPR = DH / 8, LD = DH + 8;  // 16-byte chunks per row
+#pragma unroll
+  for (int c = threadIdx.x; c < ROWS * CPR; c += THREADS) {
+    const int r = c / CPR, d0 = (c % CPR) * 8, pos = min(pos0 + r, n - 1);
+    cp_async16(dst + r * LD + d0, qkv + (size_t)(seq0 + pos) * row_stride + col0 + d0);
+  }
+}
+
 // D[64 x 128] += A[64 x 16] . B[128 x 16]^T, both operands K-major in shared
 // memory (128-byte swizzle descriptors), f32 accumulators in the m64nNk16
 // layout: d[4j + e] is row 16 * warp + g (+8 for e >= 2), column 8j + 2t (+1
@@ -122,6 +136,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
+// x * sigmoid(x) (SiLU, swish) with the fast exp: a few f32 ulps, far below
+// the bf16 rounding that follows
+__device__ __forceinline__ float silu(float x) { return x / (1.0f + __expf(-x)); }
 
 // tanh-approximate GELU, the form jax.nn.gelu(approximate=True) computes;
 // tanh(u) = 1 - 2 / (exp(2u) + 1) with the fast exp and divide (a few f32

@@ -1,7 +1,7 @@
 // One templated tensor-core GEMM with a fused epilogue:
 //   C[M, N] = epilogue( A[M, K] . B[N, K]^T )
 // B keeps the torch (out_features, in_features) layout, so both operands are
-// K-contiguous. The projections of K1 and K2 are its instances.
+// K-contiguous. The projections of K1, K2, K4 and K5 are its instances.
 //
 // Epilogues
 //   EPI_QKV_GATES cols < n1: bf16(acc) into C1, with rope applied to the q and
@@ -9,7 +9,12 @@
 //                 sigmoid(acc + bias2) as f32 into C2 (the per-head gates).
 //                 B rows >= n1 come from B2.
 //   EPI_BIAS_GELU bf16(gelu_tanh(acc + bias1)) into C1.
-//   EPI_RESID     y = (acc [+ bias1]) [* out_scale]; C1 = bf16(bf16(y) + resid).
+//   EPI_RESID     y = (acc [+ bias1]) [* out_scale]; C1 = bf16(bf16(y) [+ resid]).
+//   EPI_BIAS_SILU bf16(silu(acc + bias1)) into C1.
+//   EPI_GLU       B rows come interleaved (a0, g0, a1, g1, ...), so each
+//                 thread's adjacent column pair is one (a, g):
+//                 C1[:, c] = bf16((a + bias1[2c]) * sigmoid(g + bias1[2c+1])),
+//                 C1 is (M, N / 2).
 //
 // Tiling: 128 x 128 x 64 block tiles, two warpgroups of 4 warps, each
 // computing 64 x 128 of C with wgmma.m64n128k16 from shared memory. All 256
@@ -25,7 +30,8 @@
 
 namespace sesa {
 
-enum Epilogue { EPI_QKV_GATES = 0, EPI_BIAS_GELU = 1, EPI_RESID = 2 };
+enum Epilogue { EPI_QKV_GATES = 0, EPI_BIAS_GELU = 1, EPI_RESID = 2, EPI_BIAS_SILU = 3,
+                EPI_GLU = 4 };
 
 struct GemmArgs {
   const bf16* A;      // (M, K)
@@ -33,7 +39,7 @@ struct GemmArgs {
   const bf16* B2;     // (N - n1, K), EPI_QKV_GATES only
   const bf16* bias1;  // (N,) or null
   const bf16* bias2;  // (N - n1,), EPI_QKV_GATES only
-  const bf16* resid;  // (M, N), EPI_RESID only
+  const bf16* resid;  // (M, N) or null, EPI_RESID only
   const bf16* cos_t;  // (seq_len, rot_w) or null, EPI_QKV_GATES only
   const bf16* sin_t;
   bf16* C1;           // (M, ldc1)
@@ -156,6 +162,13 @@ gemm_nt_kernel(const GemmArgs p) {
       } else if (EPI == EPI_BIAS_GELU) {
         v0 = gelu_tanh(v0 + bf2f(p.bias1[col]));
         v1 = gelu_tanh(v1 + bf2f(p.bias1[col + 1]));
+      } else if (EPI == EPI_BIAS_SILU) {
+        v0 = silu(v0 + bf2f(p.bias1[col]));
+        v1 = silu(v1 + bf2f(p.bias1[col + 1]));
+      } else if (EPI == EPI_GLU) {  // one output column per (a, g) pair
+        const float a = v0 + bf2f(p.bias1[col]), gt = v1 + bf2f(p.bias1[col + 1]);
+        tile[r * TLD + (c >> 1)] = f2bf(a * sigmoidf_(gt));
+        continue;
       } else {
         if (p.bias1) { v0 += bf2f(p.bias1[col]); v1 += bf2f(p.bias1[col + 1]); }
         if (p.out_scale != 1.0f) { v0 *= p.out_scale; v1 *= p.out_scale; }
@@ -164,13 +177,18 @@ gemm_nt_kernel(const GemmArgs p) {
     }
   }
   __syncthreads();
-  // bf16 columns of this tile: those below n1 (QKV) or N; all multiples of 8
-  const int ncols = min(W_BN, (EPI == EPI_QKV_GATES ? p.n1 : p.N) - n0);
-  for (int c = tid; c < W_BM * (W_BN / 8); c += W_THREADS) {
-    const int r = c / (W_BN / 8), c8 = (c % (W_BN / 8)) * 8, row = m0 + r;
+  // bf16 columns of this tile: those below n1 (QKV), N / 2 (GLU) or N; all
+  // multiples of 8
+  constexpr int OUT_BN = EPI == EPI_GLU ? W_BN / 2 : W_BN;
+  const int n0o = EPI == EPI_GLU ? n0 / 2 : n0;
+  const int ncols =
+      min(OUT_BN, (EPI == EPI_QKV_GATES ? p.n1 : EPI == EPI_GLU ? p.N / 2 : p.N) - n0o);
+  for (int c = tid; c < W_BM * (OUT_BN / 8); c += W_THREADS) {
+    const int r = c / (OUT_BN / 8), c8 = (c % (OUT_BN / 8)) * 8, row = m0 + r;
     if (row >= p.M || c8 >= ncols) continue;
     uint4 v = *reinterpret_cast<const uint4*>(tile + r * TLD + c8);
-    if (EPI == EPI_RESID) {  // bf16(y) + x, rounded: the TPU kernel's residual add
+    // bf16(y) + x, rounded: the TPU kernels' residual add
+    if (EPI == EPI_RESID && p.resid != nullptr) {
       const uint4 x = *reinterpret_cast<const uint4*>(p.resid + (size_t)row * p.N + n0 + c8);
       uint32_t* vp = reinterpret_cast<uint32_t*>(&v);
       const uint32_t* xp = reinterpret_cast<const uint32_t*>(&x);
@@ -181,7 +199,7 @@ gemm_nt_kernel(const GemmArgs p) {
         vp[i] = pack_bf16x2(a.x + b.x, a.y + b.y);
       }
     }
-    *reinterpret_cast<uint4*>(p.C1 + (size_t)row * p.ldc1 + n0 + c8) = v;
+    *reinterpret_cast<uint4*>(p.C1 + (size_t)row * p.ldc1 + n0o + c8) = v;
   }
 }
 

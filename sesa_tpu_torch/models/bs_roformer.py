@@ -73,10 +73,13 @@ class RoformerSpec:
     use_fno: bool = False
     fno_modes: int = 16
     experimental_forward: bool = False
+    # the mel files' MLP constructor (mel_band_roformer, mel_band_conformer) has
+    # mask_estimator_depth hidden layers; the bs file's has one fewer
+    mel_mlp_convention: bool = False
 
     @property
     def mask_hidden_layers(self) -> int:
-        return self.mask_estimator_depth - 1
+        return self.mask_estimator_depth - 1 + int(self.mel_mlp_convention)
 
     @property
     def audio_channels(self) -> int:
@@ -260,7 +263,7 @@ def apply(params, config, x, compute_dtype=None):
 
 def _make_take(state_dict):
     sd = {k: (v.detach().cpu() if isinstance(v, torch.Tensor)
-              else torch.as_tensor(np.asarray(v))) for k, v in state_dict.items()}
+              else torch.as_tensor(np.array(v))) for k, v in state_dict.items()}
     used = set()
 
     def take(key):

@@ -1,5 +1,5 @@
 """Shared building blocks (counterpart of sesa_tpu/models/layers.py; only
-what the bs_roformer path needs)."""
+what the ported models need)."""
 
 from __future__ import annotations
 
@@ -25,3 +25,20 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
     """
     norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
     return x / norm.clamp_min(1e-12) * (x.shape[-1] ** 0.5) * gamma
+
+
+def layer_norm(x: torch.Tensor, params, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis with the biased variance; ``params``
+    holds ``weight`` and optionally ``bias`` (or is None)."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    if params is not None and "weight" in params:
+        y = y * params["weight"]
+        if "bias" in params:
+            y = y + params["bias"]
+    return y
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)

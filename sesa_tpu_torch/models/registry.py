@@ -1,5 +1,5 @@
 """model_type string -> model module dispatch (counterpart of
-sesa_tpu/models/registry.py). Only ``bs_roformer`` is ported so far."""
+sesa_tpu/models/registry.py). Only the ported model types are listed."""
 
 from __future__ import annotations
 
@@ -7,6 +7,8 @@ import importlib
 
 MODEL_TYPES = {
     "bs_roformer": "sesa_tpu_torch.models.bs_roformer",
+    "mel_band_roformer": "sesa_tpu_torch.models.mel_band_roformer",
+    "mel_band_conformer": "sesa_tpu_torch.models.mel_band_conformer",
 }
 
 

@@ -37,8 +37,18 @@ SIGNATURES = {
         "sesa_attn_out": [_P, _P, _P, _P, _I, _I, _I, _P],
     },
     "ff": {
-        "sesa_ff_up": [_P] * 6 + [_I] * 3 + [_P],
+        "sesa_ff_up": [_P] * 7 + [_I] * 4 + [_P],
         "sesa_ff_down": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    },
+    "conformer_attention": {
+        "sesa_conf_attn_proj": [_P] * 6 + [_I] * 3 + [_P],
+        "sesa_conf_attn_core": [_P] * 3 + [_I] * 5 + [_F, _P],
+        "sesa_conf_attn_out": [_P] * 5 + [_I] * 3 + [_P],
+    },
+    "convblock": {
+        "sesa_conv_up": [_P] * 7 + [_I] * 3 + [_P],
+        "sesa_conv_dw": [_P] * 5 + [_I] * 4 + [_P],
+        "sesa_conv_down": [_P] * 5 + [_I] * 3 + [_P],
     },
 }
 

@@ -1,20 +1,26 @@
-"""Attention for the roformer family (counterpart of sesa_tpu/ops/attention.py).
-
+"""Attention for the roformer and conformer families (counterpart of
+sesa_tpu/ops/attention.py).
 ``sdpa`` is the plain einsum pair with an f32 softmax. ``fused_attention_block``
 is kernel K1: the whole roformer attention block (RMSNorm, qkv, rope,
-attention, per-head gates, out projection, residual). On a CUDA tensor it
-launches the hand-written kernel chain of ``csrc/attention.cu``; on a CPU
-tensor it runs ``fused_attention_block_plain``, which repeats the TPU
-kernel's arithmetic with its bf16 rounding points.
+attention, per-head gates, out projection, residual).
+``fused_conformer_attention`` is kernel K4: the conformer attention block
+(LayerNorm, qkv, attention with the Shaw relative-position bias, out
+projection with bias, residual). On a CUDA tensor each launches its
+hand-written kernel chain (``csrc/attention.cu``,
+``csrc/conformer_attention.cu``); on a CPU tensor it runs its ``*_plain``
+version, which repeats the TPU kernel's arithmetic with its bf16 rounding
+points.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from sesa_tpu_torch.ops import _build
+from sesa_tpu_torch.ops.ff import layer_norm_rounded
 from sesa_tpu_torch.ops.rope import apply_rope
 
 
@@ -125,3 +131,106 @@ def fused_attention_block(x, gamma, wqkv, wg, bg, wo, heads, scale, rope=None):
 
 
 fused_attention_block.launches = 0
+
+
+def shaw_rel_index(n: int, max_pos: int) -> np.ndarray:
+    """(n, n) rows clip(i - j, -P, P) + P of the Shaw table for query i and
+    key j (lucidrains conformer: the distance is i - j)."""
+    seq = np.arange(n)
+    return np.clip(seq[:, None] - seq[None, :], -max_pos, max_pos) + max_pos
+
+
+def fused_conformer_attention_plain(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo, heads,
+                                    scale=None):
+    """Plain PyTorch K4 with the TPU kernel's rounding points.
+
+    x (b, n, d); weights in torch (out, in) layout: wqkv (3·h·dh, d) = the
+    rows of to_q then to_kv, wo (d, h·dh), bo (d,); rel_pos_emb the Shaw
+    table (2P + 1, dh). Products accumulate in f32. In the working dtype the
+    values are rounded where sesa_tpu/ops/attention.py
+    ``_conformer_attn_kernel`` rounds them: xn after LayerNorm·γ + β, qkv,
+    the table, p before P·V, the attention output and the output before the
+    residual add. Sequences run in slices that keep each (n, n) f32 tensor
+    near 256 MB.
+    """
+    dt = x.dtype
+    b, n, d = x.shape
+    dh = wqkv.shape[0] // (3 * heads)
+    if scale is None:
+        scale = dh ** -0.5
+    f32 = torch.float32
+    max_pos = (rel_pos_emb.shape[0] - 1) // 2
+
+    xn = layer_norm_rounded(x, ln_w, ln_b)
+    qkv = (xn.to(f32) @ wqkv.to(f32).T).to(dt)
+    q, k, v = qkv.reshape(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4)  # (b, h, n, dh)
+    # only the table rows that the distances of n positions reach
+    lo, hi = max(max_pos - (n - 1), 0), min(max_pos + n - 1, 2 * max_pos)
+    table = rel_pos_emb[lo:hi + 1].to(dt).to(f32)
+    idx = torch.as_tensor(shaw_rel_index(n, max_pos) - lo, device=x.device)
+    step = max(1, 2 ** 26 // (heads * n * max(n, hi + 1 - lo)))
+    outs = []
+    for s0 in range(0, b, step):
+        qs = q[s0:s0 + step].to(f32)
+        s = qs @ k[s0:s0 + step].to(f32).transpose(-1, -2)
+        qe = qs @ table.T  # (c, h, n, rows)
+        s = s + torch.gather(qe, -1, idx.expand(qe.shape[:2] + (n, n)))
+        p = torch.softmax(s * scale, dim=-1).to(dt)
+        outs.append((p.to(f32) @ v[s0:s0 + step].to(f32)).to(dt))
+    ao = torch.cat(outs).permute(0, 2, 1, 3).reshape(b, n, heads * dh)
+    out = (ao.to(f32) @ wo.to(f32).T + bo.to(f32)).to(dt)
+    return out + x
+
+
+def fused_conformer_attention(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo, heads, scale=None):
+    """x (b, n, d) -> x + conformer-attention(layer_norm(x)): kernel K4.
+
+    CPU tensors run :func:`fused_conformer_attention_plain`. CUDA tensors
+    must be bf16, contiguous, with d and h·dh multiples of 64 and dh in
+    {32, 64, 128}; anything else raises. P comes from the table's rows.
+    Each call adds one to ``fused_conformer_attention.launches``.
+    """
+    if x.device.type == "cpu":
+        return fused_conformer_attention_plain(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo,
+                                               heads, scale)
+    b, n, d = x.shape
+    hd = wqkv.shape[0] // 3
+    dh = hd // heads
+    if dh not in (32, 64, 128) or d % 64 or hd % 64 or wqkv.shape[0] != 3 * hd:
+        raise ValueError(f"fused_conformer_attention: unsupported d={d}, heads={heads}, "
+                         f"dim_head={dh} (the kernel takes dim_head 32, 64 or 128 and d, "
+                         "heads * dim_head multiples of 64)")
+    tokens = b * n
+    if -(-tokens // 128) > 65535 or b > 65535:
+        raise ValueError(f"fused_conformer_attention: {b} sequences of {n} exceed one launch")
+    rows = rel_pos_emb.shape[0]
+    if rows % 2 == 0:
+        raise ValueError(f"fused_conformer_attention: the Shaw table has {rows} rows, "
+                         "expected 2P + 1")
+    if scale is None:
+        scale = dh ** -0.5
+    for name, t, shape in (("x", x, (b, n, d)), ("ln_w", ln_w, (d,)), ("ln_b", ln_b, (d,)),
+                           ("wqkv", wqkv, (3 * hd, d)), ("rel_pos_emb", rel_pos_emb, (rows, dh)),
+                           ("wo", wo, (d, hd)), ("bo", bo, (d,))):
+        _build.check_tensor("fused_conformer_attention", name, t, shape, torch.bfloat16)
+
+    lib = _build.load("conformer_attention")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    xn = torch.empty((tokens, d), dtype=x.dtype, device=x.device)
+    qkv = torch.empty((tokens, 3 * hd), dtype=x.dtype, device=x.device)
+    ao = torch.empty((tokens, hd), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    _build.check(lib.sesa_conf_attn_proj(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
+                                         xn.data_ptr(), wqkv.data_ptr(), qkv.data_ptr(),
+                                         tokens, d, 3 * hd, stream), "sesa_conf_attn_proj")
+    _build.check(lib.sesa_conf_attn_core(qkv.data_ptr(), rel_pos_emb.data_ptr(), ao.data_ptr(),
+                                         b, n, heads, dh, (rows - 1) // 2, float(scale),
+                                         stream), "sesa_conf_attn_core")
+    _build.check(lib.sesa_conf_attn_out(ao.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+                                        x.data_ptr(), out.data_ptr(), tokens, d, hd, stream),
+                 "sesa_conf_attn_out")
+    fused_conformer_attention.launches += 1
+    return out
+
+
+fused_conformer_attention.launches = 0

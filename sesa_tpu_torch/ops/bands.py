@@ -30,6 +30,9 @@ class BandPlan:
     band_perm: np.ndarray  # (num_bands,) group-stacked order -> band order
     scatter_feats: np.ndarray  # (sum m*w,) feature index per stacked output
     coverage: np.ndarray  # (num_features,) float32 bands per feature
+    # (num_features, max coverage) stacked outputs that land on each feature,
+    # padded with len(scatter_feats); column 0 of a partition inverts the packing
+    gather_idx: np.ndarray
 
 
 def make_band_plan(band_feats: Sequence[np.ndarray], num_features: int) -> BandPlan:
@@ -45,6 +48,13 @@ def make_band_plan(band_feats: Sequence[np.ndarray], num_features: int) -> BandP
     scatter_feats = np.concatenate([idx.reshape(-1) for idx in group_feat_idx])
     coverage = np.zeros(num_features, dtype=np.float32)
     np.add.at(coverage, scatter_feats, 1.0)
+    # slot of each stacked output among those landing on its feature, in
+    # stacked order
+    by_feat = np.argsort(scatter_feats, kind="stable")
+    feats_sorted = scatter_feats[by_feat]
+    slot = np.arange(len(by_feat)) - np.searchsorted(feats_sorted, feats_sorted, side="left")
+    gather_idx = np.full((num_features, max(int(coverage.max()), 1)), len(by_feat), np.int64)
+    gather_idx[feats_sorted, slot] = by_feat
     return BandPlan(
         num_bands=len(band_feats),
         num_features=num_features,
@@ -53,6 +63,7 @@ def make_band_plan(band_feats: Sequence[np.ndarray], num_features: int) -> BandP
         band_perm=np.argsort(stacked_order).astype(np.int32),
         scatter_feats=scatter_feats.astype(np.int32),
         coverage=coverage,
+        gather_idx=gather_idx,
     )
 
 
@@ -124,11 +135,10 @@ def mask_estimator_init(generator: torch.Generator, plan: BandPlan, dim: int,
 
 
 def mask_estimator_apply(plan: BandPlan, params, x: torch.Tensor) -> torch.Tensor:
-    """x (B, T, NB, D) -> (B, T, F2) mask over packed RI features. Band
-    layouts must partition the features (BS-RoFormer); the overlapping mel
-    layouts come with mel_band_roformer (ROADMAP queue 1)."""
-    if not np.all(plan.coverage == 1.0):
-        raise NotImplementedError("overlapping band layouts are not ported yet")
+    """x (B, T, NB, D) -> (B, T, F2) mask over packed RI features.
+
+    Overlapping bands (the mel layouts) are averaged by coverage; for a
+    partition (BS-RoFormer) that is one permutation."""
     h = x
     for layer in params["hidden"]:
         h = torch.tanh(torch.einsum("btnd,ndh->btnh", h, layer["weight"]) + layer["bias"])
@@ -143,7 +153,13 @@ def mask_estimator_apply(plan: BandPlan, params, x: torch.Tensor) -> torch.Tenso
         flats.append((a * torch.sigmoid(b)).reshape(x.shape[:2] + (m * w,)))
     flat = torch.cat(flats, dim=-1)
 
-    # a partition: invert the band packing with one permutation
-    inv = np.empty(plan.num_features, np.int64)
-    inv[plan.scatter_feats] = np.arange(len(plan.scatter_feats))
-    return flat.index_select(-1, _index(inv, x.device))
+    if np.all(plan.coverage == 1.0):
+        # a partition: invert the band packing with one permutation
+        return flat.index_select(-1, _index(plan.gather_idx[:, 0], x.device))
+    # overlapping bands: per-feature gather-sum over the padded index table,
+    # whose empty slots point at an appended zero column, then / coverage
+    flatz = torch.cat([flat, flat.new_zeros(flat.shape[:-1] + (1,))], dim=-1)
+    out = flatz.index_select(-1, _index(plan.gather_idx.reshape(-1), x.device))
+    out = out.reshape(flat.shape[:-1] + plan.gather_idx.shape).sum(-1)
+    cov = torch.as_tensor(np.maximum(plan.coverage, 1e-8), device=x.device)
+    return out / cov

@@ -106,9 +106,13 @@ def test_unported_variants_raise(flag):
 
 
 def test_registry_knows_only_ported_models():
+    from sesa_tpu_torch.models import mel_band_conformer, mel_band_roformer
+
     assert get_model("bs_roformer") is bs_roformer
+    assert get_model("mel_band_roformer") is mel_band_roformer
+    assert get_model("mel_band_conformer") is mel_band_conformer
     with pytest.raises(ValueError, match="ROADMAP"):
-        get_model("mel_band_roformer")
+        get_model("mdx23c")
 
 
 def test_seeded_init_is_deterministic():

@@ -19,11 +19,15 @@ def test_every_module_imports_with_jax_blocked():
         "for n in names: importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'sesa_tpu' or m.startswith('sesa_tpu.')]\n"
         "assert not bad, bad\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 20
+    names = set(r.stdout.split())
+    assert len(names) >= 25
+    assert {f"sesa_tpu_torch.{m}" for m in (
+        "ops.mel", "ops.convblock", "models.conformer_core", "models.mel_band_roformer",
+        "models.mel_band_conformer")} <= names
 
 
 def test_sources_name_no_jax_package():
