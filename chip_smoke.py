@@ -11,11 +11,13 @@ and prints no result line):
 2. kernels: at the main paths' shapes, launches K1 (fused attention block,
    time and freq legs), K2 (fused feed-forward, roformer RMSNorm/GELU form
    and conformer LayerNorm/SiLU form), K4 (conformer attention, time and
-   freq legs) and K5 (conformer conv module, both legs), holds each against
-   its plain PyTorch version on the same inputs, times the kernel, the plain
-   version and a library composite (cuBLAS, SDPA, cuDNN), and computes each
-   kernel's bound from its shapes. K4 and K5 are also checked at small
-   ragged shapes (other head widths, clipping, short and even kernels).
+   freq legs), K5 (conformer conv module, both legs), K6 (Apollo conv
+   block) and K7 (packed-qkv rope attention), holds each against its plain
+   PyTorch version on the same inputs, times the kernel, the plain version
+   and a library composite (cuBLAS, SDPA, cuDNN), and computes each kernel's
+   bound from its shapes. K4 to K7 are also checked at small ragged shapes
+   (other head widths, clipping, short and even kernels, partial and no
+   rope, sequences beyond one tile).
 3. flagship: separates a generated 60 s stereo song through
    ``sesa_tpu_torch.cli.main`` with the flagship bs_roformer (dim 512,
    depth 12, 8 heads x 64, seeded weights) in bf16, and checks the stems,
@@ -24,14 +26,23 @@ and prints no result line):
    mel_band_conformer`` at bench.py's ``_melconf_setup`` shape (dim 384,
    depth 8, 60 mel bands, 8 heads x 64, conv kernel 31) in bf16; checks as
    in 3, with K2, K4 and K5 launched at every conformer block.
-5. model parity: one chunk batch through bs_roformer and mel_band_conformer
-   with the kernels against the same call with the kernels' plain versions,
-   both bf16 on the card (and against f32, for the record).
-6. mel-band roformer: one model call of 6 chunks at bench.py's
+5. apollo: the same song restored through ``cli.main --model_type apollo``
+   at bench.py's ``_apollo_setup`` shape (20 ms window, feature_dim 256, 6
+   layers, chunks of 19 s, batch 2) in bf16, with K7 launched once and K6
+   three times per layer.
+6. chain: on the three loaded sessions, the device-resident chain of
+   bench.py's ``bench_ensemble_pipeline``: the flagship's and the mel-band
+   conformer's vocals kept on the card -> ``ensemble_phase_fix_device``
+   (avg_wave + phase fix against the mix) -> Apollo, one host copy at the
+   end; the device ensemble + phase fix is held against the host functions.
+7. model parity: one chunk batch through bs_roformer, mel_band_conformer and
+   apollo with the kernels against the same call with the kernels' plain
+   versions, both bf16 on the card (and against f32, for the record).
+8. mel-band roformer: one model call of 6 chunks at bench.py's
    ``_melband_setup`` shape (dim 384, depth 12, 60 mel bands) with the
    kernels (K1, K2) and with their plain versions.
-7. profile: device time by kernel over one warm model call of the flagship
-   and of the mel-band conformer (torch.profiler).
+9. profile: device time by kernel over one warm model call of the flagship,
+   the mel-band conformer and apollo (torch.profiler).
 
 Prints the ``kernels`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
@@ -66,6 +77,12 @@ MELBAND_MODEL = dict(dim=384, depth=12, stereo=True, num_stems=1, num_bands=60,
                      sample_rate=44100, time_transformer_depth=1, freq_transformer_depth=1,
                      dim_head=64, heads=8, stft_n_fft=2048, stft_hop_length=512,
                      stft_win_length=2048, mask_estimator_depth=1)
+# bench.py _apollo_setup: 20 ms window at 44.1 kHz, 80 bands, 8 heads x 32,
+# chunks of 19 s, batch 2 (x stereo = 4 rows)
+APOLLO_MODEL = dict(sr=44100, win=20, feature_dim=256, layer=6)
+APOLLO_CHUNK, APOLLO_BATCH = 19 * 44100, 2
+APOLLO_BPRIME, APOLLO_BANDS = 2 * APOLLO_BATCH, 80
+APOLLO_FRAMES = APOLLO_CHUNK // 441 + 1  # 1901 frames per chunk
 CHUNK, OVERLAP, BATCH, SR, SONG_S = 352800, 2, 6, 44100, 60
 FRAMES, BANDS, MEL_BANDS = CHUNK // 512 + 1, 62, 60  # 690 frames; 62 / 60 bands
 TOKENS = BATCH * FRAMES * BANDS  # 256,680 tokens per flagship model call
@@ -79,6 +96,10 @@ MEL_TOKENS = BATCH * FRAMES * MEL_BANDS  # 248,400 tokens per mel model call
 KERNEL_MAX_REL, KERNEL_BRANCH_RMS_REL = 0.05, 0.05
 # whole model, kernels vs plain versions, bf16 on the card
 MODEL_SNR_FLOOR_DB = 20.0
+# the chain's device ensemble + phase fix against the host functions, over
+# the STFT bins away from DC and Nyquist and the frames away from the ends
+# (f32 both; they differ by the FFT libraries' rounding)
+CHAIN_FIX_SNR_FLOOR_DB = 40.0
 
 
 def log(msg):
@@ -137,12 +158,14 @@ def _bound(flops, nbytes):
 
 def counters():
     """The launch counter of every kernel wrapper, by kernel."""
-    from sesa_tpu_torch.ops.attention import fused_attention_block, fused_conformer_attention
-    from sesa_tpu_torch.ops.convblock import fused_conformer_conv
+    from sesa_tpu_torch.ops.attention import (fused_attention_block, fused_conformer_attention,
+                                              fused_rope_attention)
+    from sesa_tpu_torch.ops.convblock import fused_apollo_conv, fused_conformer_conv
     from sesa_tpu_torch.ops.ff import fused_ff_residual
 
     return {"K1": fused_attention_block, "K2": fused_ff_residual,
-            "K4": fused_conformer_attention, "K5": fused_conformer_conv}
+            "K4": fused_conformer_attention, "K5": fused_conformer_conv,
+            "K6": fused_apollo_conv, "K7": fused_rope_attention}
 
 
 def reset_counts():
@@ -235,6 +258,34 @@ def k5_library(x, p):
     return F.linear(h.transpose(1, 2), p["pw2"]["weight"][:, :, 0], p["pw2"]["bias"]) + x
 
 
+def k6_library(x, p):
+    """cuDNN's grouped conv1d, an RMSNorm in torch ops, two cuBLAS F.linear
+    and F.silu."""
+    import torch
+    import torch.nn.functional as F
+
+    k = p["dw_w"].shape[-1]
+    y = F.conv1d(x.transpose(1, 2), p["dw_w"], p["dw_b"], padding=(k - 1) // 2,
+                 groups=x.shape[-1]).transpose(1, 2)
+    yf = y.float()
+    yn = (yf * torch.rsqrt(yf.pow(2).mean(-1, keepdim=True) + 1e-5)).to(x.dtype) * p["norm"]
+    return F.linear(F.silu(F.linear(yn, p["pw1_w"], p["pw1_b"])), p["pw2_w"], p["pw2_b"]) + x
+
+
+def k7_library(qkv, heads, scale, rope):
+    """The head split, rope in torch ops, SDPA and the re-pack."""
+    import torch.nn.functional as F
+
+    from sesa_tpu_torch.ops.rope import apply_rope
+
+    b, n, packed = qkv.shape
+    q, k, v = qkv.reshape(b, n, 3, heads, packed // (3 * heads)).permute(2, 0, 3, 1, 4)
+    if rope is not None:
+        q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+    o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+    return o.permute(0, 2, 1, 3).reshape(b, n, packed // 3)
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -286,6 +337,31 @@ def _conv_params(gen, d, e, k, device):
                     "bias": _weights(gen, d, e, device)}}
 
 
+def _apollo_conv_params(gen, d, k, device):
+    """Random Apollo ICB-block parameters in bf16 (torch layouts)."""
+    return {"dw_w": _weights(gen, (d, 1, k), k, device), "dw_b": _weights(gen, d, k, device),
+            "norm": _near_one(gen, d, device),
+            "pw1_w": _weights(gen, (4 * d, d), d, device),
+            "pw1_b": _weights(gen, 4 * d, d, device),
+            "pw2_w": _weights(gen, (d, 4 * d), 4 * d, device),
+            "pw2_b": _weights(gen, d, 4 * d, device)}
+
+
+def _k7_args(gen, b, n, heads, dh, rot, device):
+    """(qkv, heads, scale, rope) with rope tables of width ``rot`` (None: no
+    rope) from the default frequencies."""
+    import torch
+
+    from sesa_tpu_torch.ops.rope import default_freqs, rope_tables
+
+    qkv = torch.randn((b, n, 3 * heads * dh), generator=gen).to(device, torch.bfloat16)
+    rope = None
+    if rot is not None:
+        rope = tuple(r.to(device, torch.bfloat16).contiguous() for r in
+                     rope_tables(torch.from_numpy(default_freqs(rot)).to(device), n))
+    return qkv, heads, dh ** -0.5, rope
+
+
 def _k4_args(gen, b, n, d, heads, dh, max_pos, device):
     import torch
 
@@ -302,8 +378,10 @@ def phase_kernels():
 
     from sesa_tpu_torch.ops.attention import (fused_attention_block, fused_attention_block_plain,
                                               fused_conformer_attention,
-                                              fused_conformer_attention_plain)
-    from sesa_tpu_torch.ops.convblock import fused_conformer_conv, fused_conformer_conv_plain
+                                              fused_conformer_attention_plain,
+                                              fused_rope_attention, fused_rope_attention_plain)
+    from sesa_tpu_torch.ops.convblock import (fused_apollo_conv, fused_apollo_conv_plain,
+                                              fused_conformer_conv, fused_conformer_conv_plain)
     from sesa_tpu_torch.ops.ff import fused_ff_residual, fused_ff_residual_plain
     from sesa_tpu_torch.ops.rope import default_freqs, rope_tables
 
@@ -434,6 +512,66 @@ def phase_kernels():
                 fused_conformer_conv_plain(x, p), x)
     torch.cuda.synchronize()
 
+    # K6 at Apollo's shape: 4 x 80 band sequences of 1901 frames, d 256, k 7
+    b, n, d, k = APOLLO_BPRIME * APOLLO_BANDS, APOLLO_FRAMES, APOLLO_MODEL["feature_dim"], 7
+    tokens, hidden = b * n, 4 * d
+    p = _apollo_conv_params(gen, d, k, dev)
+    x = (0.5 * torch.randn((b, n, d), generator=gen)).to(dev, torch.bfloat16)
+    out = fused_apollo_conv(x, p)
+    torch.cuda.synchronize()
+    err = compare(f"K6 (b={b}, n={n}, d={d}, k={k})", out, fused_apollo_conv_plain(x, p), x)
+    del out
+    torch.cuda.empty_cache()
+    rows.append(dict(name=f"fused_apollo_conv (b={b}, n={n}, d={d}, hidden={hidden}, k={k})",
+                     route="cuda", source="sesa_tpu_torch/csrc/apollo_conv.cu",
+                     replaces="sesa_tpu/ops/convblock.py:200", max_abs_err=err,
+                     ms=time_ms(lambda: fused_apollo_conv(x, p)),
+                     plain_ms=time_ms(lambda: fused_apollo_conv_plain(x, p), reps=2, warmup=1),
+                     library_ms=time_ms(lambda: k6_library(x, p)),
+                     **_bound(2 * tokens * 2 * d * hidden + 2 * tokens * k * d,
+                              2 * (2 * tokens * d + 2 * d * hidden + k * d + 3 * d + hidden)),
+                     kernel="K6"))
+    del x
+    torch.cuda.empty_cache()
+
+    # K7 at Apollo's shape: 4 x 1901 frame sequences of 80 bands, 8 heads x 32
+    b, n, heads, dh = APOLLO_BPRIME * APOLLO_FRAMES, APOLLO_BANDS, 8, d // 8
+    args = _k7_args(gen, b, n, heads, dh, dh, dev)
+    zero = torch.zeros((), device=dev)
+    out = fused_rope_attention(*args)
+    torch.cuda.synchronize()
+    err = compare(f"K7 (b={b}, n={n}, {heads}x{dh})", out, fused_rope_attention_plain(*args),
+                  zero)
+    del out
+    torch.cuda.empty_cache()
+    rows.append(dict(name=f"fused_rope_attention (b={b}, n={n}, {heads} heads x {dh}, rope {dh})",
+                     route="cuda", source="sesa_tpu_torch/csrc/rope_attention.cu",
+                     replaces="sesa_tpu/ops/attention.py:280", max_abs_err=err,
+                     ms=time_ms(lambda: fused_rope_attention(*args)),
+                     plain_ms=time_ms(lambda: fused_rope_attention_plain(*args), reps=2,
+                                      warmup=1),
+                     library_ms=time_ms(lambda: k7_library(*args)),
+                     **_bound(4 * b * heads * n * n * dh,
+                              2 * (b * n * 4 * heads * dh + 2 * n * dh)),
+                     kernel="K7"))
+    del args
+    torch.cuda.empty_cache()
+
+    # K6 and K7 at small ragged shapes: short and long sequences against the
+    # 64-row tile, a 3-tap kernel; no rope, partial rotary, one and three
+    # heads, a sequence beyond one key tile, a batch that no grouping divides
+    for n, k in ((62, 7), (100, 3), (257, 7)):
+        p = _apollo_conv_params(gen, 128, k, dev)
+        x = (0.5 * torch.randn((3, n, 128), generator=gen)).to(dev, torch.bfloat16)
+        compare(f"K6 small (b=3, n={n}, d=128, k={k})", fused_apollo_conv(x, p),
+                fused_apollo_conv_plain(x, p), x)
+    for n, heads, dh, rot in ((12, 1, 64, None), (33, 3, 32, 8), (130, 1, 64, 64),
+                              (130, 3, 64, None), (33, 3, 64, 64), (12, 3, 32, 32)):
+        args = _k7_args(gen, 13, n, heads, dh, rot, dev)
+        compare(f"K7 small (b=13, n={n}, {heads}x{dh}, rope {rot})",
+                fused_rope_attention(*args), fused_rope_attention_plain(*args), zero)
+    torch.cuda.synchronize()
+
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} ms by "
             f"{r['bound_by']}, plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms)")
@@ -451,16 +589,19 @@ def _song(seconds):
     return (np.stack([voice + band, 0.8 * voice + band]) + noise).astype(np.float32)
 
 
-def _model_calls():
-    """Model calls for one SONG_S song: chunks of the padded song / BATCH."""
-    length = SONG_S * SR + 2 * (CHUNK - CHUNK // OVERLAP)
-    return -(-(-(-length // (CHUNK // OVERLAP))) // BATCH)
+def _model_calls(chunk=CHUNK, batch=BATCH):
+    """Model calls for one SONG_S song: chunks of the padded song / batch."""
+    length = SONG_S * SR + 2 * (chunk - chunk // OVERLAP)
+    return -(-(-(-length // (chunk // OVERLAP))) // batch)
 
 
-def drive_cli(work, model_type, model_cfg, song, expected):
-    """Separate ``song`` through cli.main; check the stems, the rescues and
-    the launch counts (counters set to 0 just before, read just after); time
-    a second, warm separation on the session."""
+def drive_cli(work, model_type, model_cfg, song, expected, chunk=CHUNK, batch=BATCH,
+              stem="vocals"):
+    """Separate ``song`` through cli.main; check the stem written, the rescues
+    and the launch counts (counters set to 0 just before, read just after);
+    time a second, warm separation on the session. ``stem="vocals"`` writes a
+    vocals/other config; another name leaves the training section out (the
+    model then gives one stem, "restored")."""
     import numpy as np
     import torch
 
@@ -469,10 +610,11 @@ def drive_cli(work, model_type, model_cfg, song, expected):
 
     os.makedirs(os.path.join(work, "in"))
     write_audio(os.path.join(work, "in", "song.wav"), song, SR)
-    cfg = {"audio": {"chunk_size": CHUNK, "num_channels": 2, "sample_rate": SR},
+    cfg = {"audio": {"chunk_size": chunk, "num_channels": 2, "sample_rate": SR},
            "model": model_cfg,
-           "training": {"instruments": ["vocals", "other"], "target_instrument": "vocals"},
-           "inference": {"num_overlap": OVERLAP, "batch_size": BATCH, "normalize": False}}
+           "inference": {"num_overlap": OVERLAP, "batch_size": batch, "normalize": False}}
+    if stem == "vocals":
+        cfg["training"] = {"instruments": ["vocals", "other"], "target_instrument": "vocals"}
     cfg_path = os.path.join(work, "config.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
@@ -494,7 +636,7 @@ def drive_cli(work, model_type, model_cfg, song, expected):
         raise RuntimeError(f"{model_type}: cli.main returned {rc}")
     session = sessions[0]
 
-    stems, _ = read_audio(os.path.join(out_dir, "song_vocals.wav"))
+    stems, _ = read_audio(os.path.join(out_dir, f"song_{stem}.wav"))
     if stems.shape != song.shape or not np.isfinite(stems).all():
         raise RuntimeError(f"{model_type}: bad stems: shape {stems.shape}, "
                            f"finite {np.isfinite(stems).all()}")
@@ -508,7 +650,7 @@ def drive_cli(work, model_type, model_cfg, song, expected):
     session.separate(song)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t1
-    res = dict(model_type=model_type, song_s=SONG_S, model_calls=_model_calls(),
+    res = dict(model_type=model_type, song_s=SONG_S, model_calls=_model_calls(chunk, batch),
                launches=launches, cli_wall_s=wall, rtf_cli=SONG_S / wall,
                separate_warm_s=warm, rtf_warm=SONG_S / warm,
                peak_cuda_mem_gib=peak / 2 ** 30, rescues=session.rescues)
@@ -516,22 +658,32 @@ def drive_cli(work, model_type, model_cfg, song, expected):
     return res, session
 
 
-def _chunks(song):
+def _chunks(song, chunk=CHUNK, batch=BATCH):
     import torch
 
-    step = CHUNK // OVERLAP
-    return torch.stack([torch.from_numpy(song[:, i * step:i * step + CHUNK])
-                        for i in range(BATCH)]).cuda()
+    step = chunk // OVERLAP
+    return torch.stack([torch.from_numpy(song[:, i * step:i * step + chunk])
+                        for i in range(batch)]).cuda()
+
+
+def _chunking(model_type):
+    """(chunk, batch) of the model's driven configuration."""
+    return (APOLLO_CHUNK, APOLLO_BATCH) if model_type == "apollo" else (CHUNK, BATCH)
 
 
 def _plain_swaps(model_type):
     """(module, attribute, plain version) for every kernel the model reaches."""
-    from sesa_tpu_torch.models import conformer_core, roformer_core
+    from sesa_tpu_torch.models import apollo, conformer_core, roformer_core
     from sesa_tpu_torch.ops.attention import (fused_attention_block_plain,
-                                              fused_conformer_attention_plain)
-    from sesa_tpu_torch.ops.convblock import fused_conformer_conv_plain
+                                              fused_conformer_attention_plain,
+                                              fused_rope_attention_plain)
+    from sesa_tpu_torch.ops.convblock import (fused_apollo_conv_plain,
+                                              fused_conformer_conv_plain)
     from sesa_tpu_torch.ops.ff import fused_ff_residual_plain
 
+    if model_type == "apollo":
+        return [(apollo, "fused_rope_attention", fused_rope_attention_plain),
+                (apollo, "fused_apollo_conv", fused_apollo_conv_plain)]
     if model_type == "mel_band_conformer":
         return [(conformer_core, "fused_ff_residual", fused_ff_residual_plain),
                 (conformer_core, "fused_conformer_attention", fused_conformer_attention_plain),
@@ -548,7 +700,7 @@ def model_parity(model_type, params, config, song, with_f32=True):
     from sesa_tpu_torch.models import get_model
 
     model = get_model(model_type)
-    chunks = _chunks(song)
+    chunks = _chunks(song, *_chunking(model_type))
     swaps = _plain_swaps(model_type)
     with torch.inference_mode():
         reset_counts()
@@ -564,6 +716,7 @@ def model_parity(model_type, params, config, song, with_f32=True):
             for (m, a, _), fn in zip(swaps, saved):
                 setattr(m, a, fn)
         f32 = model.apply(params, config, chunks) if with_f32 else None
+    torch.cuda.empty_cache()
 
     res = dict(model_type=model_type, launches=launches,
                snr_kernel_vs_plain_db=snr_db(kern, plain),
@@ -594,7 +747,7 @@ def phase_melband(song):
     params = tree_map(lambda p: p.cuda(), params)
     res = model_parity("mel_band_roformer", params, config, song, with_f32=False)
     layers = MELBAND_MODEL["depth"] * 2
-    expected = {"K1": layers, "K2": layers, "K4": 0, "K5": 0}
+    expected = {"K1": layers, "K2": layers, "K4": 0, "K5": 0, "K6": 0, "K7": 0}
     if res["launches"] != expected:
         raise RuntimeError(f"mel_band_roformer: launches {res['launches']}, expected {expected}")
     return res
@@ -610,17 +763,20 @@ def phase_profile(model_type, session, song):
     from sesa_tpu_torch.models import get_model
 
     model = get_model(model_type)
-    chunks = _chunks(song)
+    chunk, batch = _chunking(model_type)
+    chunks = _chunks(song, chunk, batch)
+    # the weights as the session's separate hands them to the model
+    params = session._prepared.get(torch.bfloat16, session.params)
     with torch.inference_mode():
         walls = []
         for _ in range(3):  # the first call warms up; the wall is the best of the next two
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            model.apply(session.params, session.config, chunks, compute_dtype=torch.bfloat16)
+            model.apply(params, session.config, chunks, compute_dtype=torch.bfloat16)
             torch.cuda.synchronize()
             walls.append(1e3 * (time.perf_counter() - t0))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            model.apply(session.params, session.config, chunks, compute_dtype=torch.bfloat16)
+            model.apply(params, session.config, chunks, compute_dtype=torch.bfloat16)
             torch.cuda.synchronize()
     # kernel events only: an aten op's device time is its kernels' time again
     rows = []
@@ -633,14 +789,95 @@ def phase_profile(model_type, session, song):
     rows.sort(reverse=True)
     busy, wall = sum(r[0] for r in rows), min(walls[1:])
     sesa = sum(r[0] for r in rows if r[2].startswith(("sesa::", "void sesa::")))
-    log(f"[profile {model_type}] one model call ({BATCH} chunks): wall {wall:.1f} ms, device "
+    log(f"[profile {model_type}] one model call ({batch} chunks): wall {wall:.1f} ms, device "
         f"busy {busy:.1f} ms ({sesa:.1f} ms in the port's kernels), idle share "
         f"{1 - busy / wall:.3f}")
-    for ms, count, key in rows[:16]:
+    for ms, count, key in rows[:20]:
         log(f"  {ms:9.2f} ms  {count:5d}x  {key[:90]}")
     return dict(wall_ms=wall, device_busy_ms=busy, sesa_kernels_ms=sesa,
                 idle_share=1 - busy / wall,
                 top=[dict(ms=ms, count=c, kernel=k[:120]) for ms, c, k in rows[:30]])
+
+
+def phase_chain(sessions, song, expected):
+    """The device-resident chain of bench.py's bench_ensemble_pipeline on the
+    loaded sessions: two vocals separations whose stems stay on the card ->
+    avg_wave ensemble + phase fix against the mix -> Apollo restoration, one
+    host copy at the end. The first run is checked (launch counts, rescues,
+    shape, finiteness, and the device ensemble + phase fix against the host
+    functions on the same stems); a second, warm run is timed."""
+    import numpy as np
+    import torch
+
+    from sesa_tpu_torch.postprocess import (ensemble_phase_fix_device, ensemble_waveforms,
+                                            phase_fix_arrays)
+
+    def run():
+        mix = torch.from_numpy(song).cuda()
+        v1 = sessions["bs_roformer"].separate(mix, transport="device")["vocals"]
+        v2 = sessions["mel_band_conformer"].separate(mix, transport="device")["vocals"]
+        fixed = ensemble_phase_fix_device(mix, [v1, v2], SR, "avg_wave")
+        restored = sessions["apollo"].separate(fixed, transport="device")["restored"]
+        return v1, v2, fixed, restored.cpu().numpy()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    v1, v2, fixed, out = run()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rescues = {mt: s.rescues for mt, s in sessions.items()}
+    if out.shape != song.shape or not np.isfinite(out).all():
+        raise RuntimeError(f"chain: bad output: shape {out.shape}, "
+                           f"finite {np.isfinite(out).all()}")
+    if any(rescues.values()):
+        raise RuntimeError(f"chain: bf16 -> f32 rescues {rescues}")
+    if launches != expected:
+        raise RuntimeError(f"chain: launches {launches}, expected {expected}")
+
+    # the device function against the host pair on the same stems. The blend
+    # works on wrapped angles, so a bin whose target angle is +-pi moves by
+    # 2 pi (1 - blend) with the sign of a rounding error. Two families of
+    # bins sit exactly there: the DC and Nyquist bins of every frame (their
+    # imaginary part is +-0) and every bin of the first and last frame (the
+    # reflect padding makes the frame symmetric, its spectrum real up to
+    # rounding). cuFFT (here) and pocketfft (the host) do not share those
+    # signs, so these bins differ wholesale. Compared by SNR over the STFT
+    # bins 8..1016 (the Hann window leaks a few) of the frames away from the
+    # ends; the full-band SNR and the share of samples within 1e-4 are
+    # printed beside it
+    host = torch.from_numpy(phase_fix_arrays(
+        song, ensemble_waveforms([v1.cpu().numpy(), v2.cpu().numpy()], "avg_wave"), SR,
+        device="cpu"))
+    dev = fixed.cpu()
+
+    def inner_bins(a):
+        return torch.stft(a[:, 1024:-1024], 2048, 512, window=torch.hann_window(2048),
+                          center=False, return_complex=True)[:, 8:-8]
+
+    snr_full = snr_db(dev, host)
+    hb, db = inner_bins(host), inner_bins(dev)
+    snr = float(10 * math.log10(float(hb.abs().pow(2).sum())
+                                / float((db - hb).abs().pow(2).sum())))
+    close = float(((dev - host).abs() <= 1e-4).float().mean())
+    log(f"  chain: device ensemble + phase fix vs host: {snr:.1f} dB over bins 8..1016, "
+        f"{snr_full:.1f} dB full band, {close:.4f} of samples within 1e-4")
+    if not snr >= CHAIN_FIX_SNR_FLOOR_DB:
+        raise RuntimeError(f"chain: device ensemble + phase fix is {snr:.1f} dB from the host "
+                           f"functions, below {CHAIN_FIX_SNR_FLOOR_DB} dB")
+    del v1, v2, fixed
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = dict(launches=launches, rescues=rescues, chain_warm_s=wall, rtf_chain=SONG_S / wall,
+               peak_cuda_mem_gib=peak / 2 ** 30, phase_fix_device_vs_host_snr_db=snr,
+               phase_fix_full_band_snr_db=snr_full, phase_fix_share_within_1e_4=close)
+    log(f"[chain] {json.dumps(res)}")
+    return res
 
 
 def main(argv=None) -> int:
@@ -676,14 +913,30 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as work:
         out["flagship"], sessions["bs_roformer"] = drive_cli(
             work, "bs_roformer", FLAGSHIP_MODEL, song,
-            {"K1": layers * calls, "K2": layers * calls, "K4": 0, "K5": 0})
+            {"K1": layers * calls, "K2": layers * calls, "K4": 0, "K5": 0, "K6": 0, "K7": 0})
     blocks = MELCONF_MODEL["depth"] * (MELCONF_MODEL["time_conformer_depth"]
                                        + MELCONF_MODEL["freq_conformer_depth"])
     with tempfile.TemporaryDirectory() as work:
         out["melconf"], sessions["mel_band_conformer"] = drive_cli(
             work, "mel_band_conformer", MELCONF_MODEL, song,
-            {"K1": 0, "K2": 2 * blocks * calls, "K4": blocks * calls, "K5": blocks * calls})
+            {"K1": 0, "K2": 2 * blocks * calls, "K4": blocks * calls, "K5": blocks * calls,
+             "K6": 0, "K7": 0})
+    apollo_calls, apollo_layers = _model_calls(APOLLO_CHUNK, APOLLO_BATCH), APOLLO_MODEL["layer"]
+    apollo_counts = {"K6": 3 * apollo_layers * apollo_calls, "K7": apollo_layers * apollo_calls}
+    with tempfile.TemporaryDirectory() as work:
+        out["apollo"], sessions["apollo"] = drive_cli(
+            work, "apollo", APOLLO_MODEL, song,
+            {"K1": 0, "K2": 0, "K4": 0, "K5": 0, **apollo_counts},
+            chunk=APOLLO_CHUNK, batch=APOLLO_BATCH, stem="restored")
+    out["chain"] = phase_chain(
+        sessions, song,
+        {"K1": layers * calls, "K2": (layers + 2 * blocks) * calls, "K4": blocks * calls,
+         "K5": blocks * calls, **apollo_counts})
     out["parity"] = [model_parity(mt, s.params, s.config, song) for mt, s in sessions.items()]
+    per_call = {k: v // apollo_calls for k, v in apollo_counts.items()}
+    got = {k: out["parity"][-1]["launches"][k] for k in per_call}
+    if got != per_call:
+        raise RuntimeError(f"apollo parity: launches {got} in one model call, expected {per_call}")
     out["melband"] = phase_melband(song)
     out["profile"] = {mt: phase_profile(mt, s, song) for mt, s in sessions.items()}
     out["seconds"] = time.perf_counter() - t0
@@ -694,7 +947,8 @@ def main(argv=None) -> int:
 
     launches = {"K1": out["flagship"]["launches"]["K1"], "K2": out["flagship"]["launches"]["K2"],
                 "K2ln": out["melconf"]["launches"]["K2"], "K4": out["melconf"]["launches"]["K4"],
-                "K5": out["melconf"]["launches"]["K5"]}
+                "K5": out["melconf"]["launches"]["K5"], "K6": out["apollo"]["launches"]["K6"],
+                "K7": out["apollo"]["launches"]["K7"]}
     kernels = [dict(name=r["name"], route=r["route"], source=r["source"],
                     replaces=r["replaces"], launches=launches[r["kernel"]],
                     max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],

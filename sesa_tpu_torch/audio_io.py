@@ -3,7 +3,8 @@ sesa_tpu/audio_io.py without its native codec or soundfile).
 
 ``.flac`` output is written as ``.wav`` of the requested PCM depth, as the
 JAX package does without soundfile; ``write_audio`` returns the path it
-actually wrote.
+actually wrote. ``AudioReader`` and ``AudioWriter`` stream frames for the
+long-file paths (the streaming ensemble).
 """
 
 from __future__ import annotations
@@ -61,18 +62,110 @@ def write_audio(path: str, audio: np.ndarray, sr: int, subtype: str = "FLOAT") -
 
         wavfile.write(path, sr, np.ascontiguousarray(data))
         return path
-    clipped = np.clip(data, -1.0, 1.0)
-    with wave.open(path, "wb") as w:
-        w.setnchannels(data.shape[1])
-        w.setframerate(sr)
-        if subtype == "PCM_16":
-            w.setsampwidth(2)
-            w.writeframes((clipped * 32767.0).astype("<i2").tobytes())
-        elif subtype == "PCM_24":
-            w.setsampwidth(3)
-            as_int = (clipped * 8388607.0).astype("<i4")
-            b = np.frombuffer(as_int.tobytes(), dtype=np.uint8).reshape(-1, 4)
-            w.writeframes(b[:, :3].tobytes())
-        else:
-            raise ValueError(f"unknown subtype {subtype}")
+    with AudioWriter(path, sr, data.shape[1], subtype=subtype) as w:
+        w.write(audio)
     return path
+
+
+def _pcm_bytes(audio: np.ndarray, subtype: str) -> bytes:
+    """(channels, n) float32 -> interleaved little-endian PCM frames."""
+    data = np.clip(audio.T, -1.0, 1.0)
+    if subtype == "PCM_16":
+        return (data * 32767.0).astype("<i2").tobytes()
+    as_int = (data * 8388607.0).astype("<i4")
+    return np.frombuffer(as_int.tobytes(), dtype=np.uint8).reshape(-1, 4)[:, :3].tobytes()
+
+
+class AudioReader:
+    """Streaming frame reader: ``read(n) -> (channels, m) float32``.
+
+    PCM WAV files (8, 16, 24 and 32 bits) stream through the stdlib ``wave``
+    module with bounded memory, scaled as :func:`read_audio` scales them;
+    anything else (float WAV) is read whole and served in slices.
+    """
+
+    def __init__(self, path: str):
+        self._pos = 0
+        self._w = None
+        try:
+            self._w = wave.open(path, "rb")
+        except wave.Error:
+            data, sr = read_audio(path)
+            self._data, self.samplerate = data, sr
+            self.channels, self.frames = data.shape
+            return
+        self.samplerate = self._w.getframerate()
+        self.channels = self._w.getnchannels()
+        self.frames = self._w.getnframes()
+        self._width = self._w.getsampwidth()
+
+    def read(self, n: int) -> np.ndarray:
+        n = min(n, self.frames - self._pos)
+        if n <= 0:
+            return np.zeros((self.channels, 0), dtype=np.float32)
+        if self._w is None:
+            out = self._data[:, self._pos:self._pos + n]
+        else:
+            raw = np.frombuffer(self._w.readframes(n), dtype=np.uint8)
+            if self._width == 1:
+                out = (raw.astype(np.float32) - 128.0) / 128.0
+            elif self._width == 2:
+                out = raw.view("<i2").astype(np.float32) / 32768.0
+            elif self._width == 3:  # left-justified in 32 bits, as scipy reads it
+                padded = np.zeros((raw.size // 3, 4), dtype=np.uint8)
+                padded[:, 1:] = raw.reshape(-1, 3)
+                out = padded.view("<i4")[:, 0].astype(np.float32) / 2147483648.0
+            else:
+                out = raw.view("<i4").astype(np.float32) / 2147483648.0
+            out = out.reshape(-1, self.channels).T
+        self._pos += out.shape[1]
+        return np.ascontiguousarray(out)
+
+    def close(self) -> None:
+        if self._w is not None:
+            self._w.close()
+            self._w = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class AudioWriter:
+    """Streaming PCM WAV writer: ``write((channels, n) float32)`` appends.
+
+    ``subtype`` is PCM_16 or PCM_24 (the ``wave`` module writes PCM only); a
+    ``.flac`` path is rewritten to ``.wav``, as in :func:`write_audio`.
+    ``path`` is the path actually written.
+    """
+
+    def __init__(self, path: str, sr: int, channels: int, subtype: str = "PCM_24"):
+        if subtype not in ("PCM_16", "PCM_24"):
+            raise ValueError(f"unsupported wav subtype {subtype}")
+        if path.lower().endswith(".flac"):
+            path = os.path.splitext(path)[0] + ".wav"
+        self.path = path
+        self._subtype, self._channels = subtype, channels
+        self._w = wave.open(path, "wb")
+        self._w.setnchannels(channels)
+        self._w.setframerate(sr)
+        self._w.setsampwidth(2 if subtype == "PCM_16" else 3)
+
+    def write(self, audio: np.ndarray) -> None:
+        audio = np.asarray(audio, dtype=np.float32)
+        if audio.ndim != 2 or audio.shape[0] != self._channels:
+            raise ValueError(f"expected ({self._channels}, frames) audio, got {audio.shape}")
+        self._w.writeframes(_pcm_bytes(audio, self._subtype))
+
+    def close(self) -> None:
+        if self._w is not None:
+            self._w.close()
+            self._w = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -2,9 +2,9 @@
 
 The port keeps the JAX package's parameter trees (grouped band weights,
 torch-layout projection weights, the same key names) for bs_roformer,
-mel_band_roformer and mel_band_conformer, so the mapping is a copy of every
-leaf, checked against the tree the port's own init builds. Leaves are numpy
-arrays (``np.asarray`` of the JAX arrays); this module imports no JAX.
+mel_band_roformer, mel_band_conformer and apollo, so the mapping is a copy of
+every leaf, checked against the tree the port's own init builds. Leaves are
+numpy arrays (``np.asarray`` of the JAX arrays); this module imports no JAX.
 """
 
 from __future__ import annotations
@@ -44,8 +44,8 @@ def params_from_jax(params_np, model, config=None):
 
     ``model`` is a ``RoformerSpec`` (bs_roformer; mel_band_roformer when its
     ``mel_mlp_convention`` is set) or a model type string, with ``config``,
-    such as ``"mel_band_conformer"``. Raises ``ValueError`` when the tree's
-    keys or shapes differ from those of the port's own init.
+    such as ``"mel_band_conformer"`` or ``"apollo"``. Raises ``ValueError``
+    when the tree's keys or shapes differ from those of the port's own init.
     """
     expected = _shapes(_expected(model, config))
     got = _shapes(params_np)

@@ -9,6 +9,7 @@ MODEL_TYPES = {
     "bs_roformer": "sesa_tpu_torch.models.bs_roformer",
     "mel_band_roformer": "sesa_tpu_torch.models.mel_band_roformer",
     "mel_band_conformer": "sesa_tpu_torch.models.mel_band_conformer",
+    "apollo": "sesa_tpu_torch.models.apollo",
 }
 
 

@@ -50,6 +50,14 @@ SIGNATURES = {
         "sesa_conv_dw": [_P] * 5 + [_I] * 4 + [_P],
         "sesa_conv_down": [_P] * 5 + [_I] * 3 + [_P],
     },
+    "apollo_conv": {
+        "sesa_apollo_dw": [_P] * 5 + [_I] * 4 + [_F, _P],
+        "sesa_apollo_up": [_P] * 4 + [_I] * 3 + [_P],
+        "sesa_apollo_down": [_P] * 5 + [_I] * 3 + [_P],
+    },
+    "rope_attention": {
+        "sesa_rope_attn": [_P] * 4 + [_I] * 6 + [_F, _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

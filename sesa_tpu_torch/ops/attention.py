@@ -5,11 +5,12 @@ is kernel K1: the whole roformer attention block (RMSNorm, qkv, rope,
 attention, per-head gates, out projection, residual).
 ``fused_conformer_attention`` is kernel K4: the conformer attention block
 (LayerNorm, qkv, attention with the Shaw relative-position bias, out
-projection with bias, residual). On a CUDA tensor each launches its
-hand-written kernel chain (``csrc/attention.cu``,
-``csrc/conformer_attention.cu``); on a CPU tensor it runs its ``*_plain``
-version, which repeats the TPU kernel's arithmetic with its bf16 rounding
-points.
+projection with bias, residual). ``fused_rope_attention`` is kernel K7: rope
+and attention over the qkv projection's packed output. On a CUDA tensor each
+launches its hand-written kernel or chain (``csrc/attention.cu``,
+``csrc/conformer_attention.cu``, ``csrc/rope_attention.cu``); on a CPU tensor
+it runs its ``*_plain`` version, which repeats the TPU kernel's arithmetic
+with its bf16 rounding points.
 """
 
 from __future__ import annotations
@@ -234,3 +235,91 @@ def fused_conformer_attention(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo, heads, s
 
 
 fused_conformer_attention.launches = 0
+
+
+def fused_rope_attention_plain(qkv, heads, scale, rope=None):
+    """Plain PyTorch K7 with the TPU kernel's rounding points
+    (sesa_tpu/ops/attention.py:251-271).
+
+    qkv (b, n, 3·h·dh), component-major [q₀..q_H | k₀..k_H | v₀..v_H];
+    rope = (cos, sin) of shape (n, w ≤ dh), interleaved pairs, rotating the
+    leading w dims of q and k. The tables are cast to the working dtype and
+    the rope products and their sum are rounded there; q·kᵀ and the softmax
+    are f32, p is rounded before p·v, and the f32 product is rounded on the
+    way out. Sequences run in slices that keep the f32 logits near 256 MB.
+    """
+    dt = qkv.dtype
+    f32 = torch.float32
+    b, n, packed = qkv.shape
+    dh = packed // (3 * heads)
+    if rope is not None:
+        cos, sin = (r.to(device=qkv.device, dtype=dt) for r in rope)
+    step = max(1, 2 ** 26 // (heads * n * n))
+    outs = []
+    for s0 in range(0, b, step):
+        q, k, v = qkv[s0:s0 + step].reshape(-1, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
+        if rope is not None:
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        s = (q.to(f32) @ k.to(f32).transpose(-1, -2)) * scale
+        p = torch.softmax(s, dim=-1).to(dt)
+        o = (p.to(f32) @ v.to(f32)).to(dt)  # (c, h, n, dh)
+        outs.append(o.permute(0, 2, 1, 3).reshape(-1, n, heads * dh))
+    return torch.cat(outs)
+
+
+_SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block can use on Hopper
+
+
+def fused_rope_attention(qkv, heads, scale, rope=None):
+    """Packed-qkv attention, (b, n, 3·h·dh) -> (b, n, h·dh): kernel K7.
+
+    ``rope`` is the interleaved-convention (cos, sin) table pair of shape
+    (n, w) with w ≤ dh (partial rotary rotates only the leading w dims);
+    ``None`` skips it. CPU tensors run :func:`fused_rope_attention_plain`.
+    CUDA tensors must be bf16 and contiguous with dh in {16, 32, 64, 128}, an
+    even w, and a sequence whose q, k and v of one head fit in shared memory
+    (n up to about 530 at dh 64); anything else raises. Each call adds one to
+    ``fused_rope_attention.launches``.
+    """
+    if qkv.device.type == "cpu":
+        return fused_rope_attention_plain(qkv, heads, scale, rope)
+    b, n, packed = qkv.shape
+    dh = packed // (3 * heads)
+    if dh not in (16, 32, 64, 128) or packed != 3 * heads * dh or b < 1 or n < 1:
+        raise ValueError(f"fused_rope_attention: unsupported packed width {packed} for "
+                         f"{heads} heads (the kernel takes dim_head 16, 32, 64 or 128)")
+    _build.check_tensor("fused_rope_attention", "qkv", qkv, (b, n, packed), torch.bfloat16)
+
+    # heads per block: 256 bytes of each packed row where the heads allow it,
+    # fewer when the three (n, group * dh) slabs would not fit in shared memory
+    def smem(group):
+        return 3 * (-(-n // 16) * 16) * (group * dh + 8) * 2
+
+    group = min(heads, max(1, 128 // dh))
+    while group > 1 and smem(group) > _SMEM_LIMIT:
+        group -= 1
+    if smem(group) > _SMEM_LIMIT:
+        raise ValueError(f"fused_rope_attention: a sequence of {n} at dim_head {dh} does not "
+                         "fit in shared memory")
+    cos_p = sin_p = None
+    w = 0
+    if rope is not None:
+        cos, sin = rope
+        w = cos.shape[-1]
+        if w % 2 or w > dh:
+            raise ValueError(f"fused_rope_attention: rotary width {w} must be even and <= {dh}")
+        for name, t in (("cos", cos), ("sin", sin)):
+            _build.check_tensor("fused_rope_attention", name, t, (n, w), torch.bfloat16)
+        cos_p, sin_p = cos.data_ptr(), sin.data_ptr()
+
+    lib = _build.load("rope_attention")
+    out = torch.empty((b, n, heads * dh), dtype=qkv.dtype, device=qkv.device)
+    _build.check(lib.sesa_rope_attn(qkv.data_ptr(), cos_p, sin_p, out.data_ptr(), b, n, heads,
+                                    dh, group, w, float(scale),
+                                    torch.cuda.current_stream(qkv.device).cuda_stream),
+                 "sesa_rope_attn")
+    fused_rope_attention.launches += 1
+    return out
+
+
+fused_rope_attention.launches = 0

@@ -1,9 +1,11 @@
-"""Fused conformer conv module (counterpart of sesa_tpu/ops/convblock.py).
+"""Fused depthwise-conv blocks (counterpart of sesa_tpu/ops/convblock.py).
 
 ``fused_conformer_conv`` is kernel K5: LayerNorm -> 1x1 (2e) -> GLU ->
 depthwise conv of k taps -> eval BatchNorm -> swish -> 1x1 -> + x over
-(b, n, d). On a CUDA tensor it launches the hand-written kernel chain of
-``csrc/convblock.cu``; on a CPU tensor it runs ``fused_conformer_conv_plain``,
+(b, n, d). ``fused_apollo_conv`` is kernel K6, the Apollo ICB block:
+depthwise conv of k taps -> RMSNorm -> 1x1 (4d) -> SiLU -> 1x1 -> + x. On a
+CUDA tensor each launches its hand-written kernel chain (``csrc/convblock.cu``,
+``csrc/apollo_conv.cu``); on a CPU tensor it runs its ``*_plain`` version,
 which repeats the TPU kernel's arithmetic with its bf16 rounding points.
 
 The depthwise padding is the lucidrains conformer's, (k // 2 before,
@@ -117,3 +119,79 @@ def fused_conformer_conv(x, p):
 
 
 fused_conformer_conv.launches = 0
+
+
+def fused_apollo_conv_plain(x, p, eps: float = 1e-5):
+    """Plain PyTorch K6 with the TPU kernel's rounding points
+    (sesa_tpu/ops/convblock.py:179-197): the taps summed in f32 in tap order,
+    conv + b_dw rounded before the norm, the mean of squares in f32 over that
+    rounded row, the normalised row rounded and then multiplied by γ in the
+    working dtype, h after the SiLU, and the output before the residual add.
+    Zero padding of (k - 1) // 2 rows at both ends of each sequence (k odd)."""
+    dt = x.dtype
+    f32 = torch.float32
+    n = x.shape[-2]
+    taps = p["dw_w"][:, 0, :].T.to(dt).to(f32)  # (k, d)
+    k = taps.shape[0]
+    if k % 2 == 0:
+        raise ValueError(f"fused_apollo_conv: the kernel size must be odd, got {k}")
+    xp = F.pad(x.to(f32), (0, 0, (k - 1) // 2, (k - 1) // 2))
+    acc = torch.zeros(x.shape, dtype=f32, device=x.device)
+    for t in range(k):
+        acc = acc + xp[..., t:t + n, :] * taps[t]
+    y = (acc + p["dw_b"].to(dt).to(f32)).to(dt)
+    yf = y.to(f32)
+    yn = (yf * torch.rsqrt((yf * yf).mean(dim=-1, keepdim=True) + eps)).to(dt) * p["norm"].to(dt)
+    h = yn.to(f32) @ p["pw1_w"].to(dt).to(f32).T + p["pw1_b"].to(dt).to(f32)
+    h = (h * torch.sigmoid(h)).to(dt)
+    out = (h.to(f32) @ p["pw2_w"].to(dt).to(f32).T + p["pw2_b"].to(dt).to(f32)).to(dt)
+    return out + x
+
+
+def fused_apollo_conv(x, p):
+    """x (b, n, d) -> x + ConvActNorm(x) for an Apollo seq_net block ``p``
+    (dw_w (d, 1, k), dw_b, norm, pw1_w (4d, d), pw1_b, pw2_w (d, 4d), pw2_b,
+    torch layouts): kernel K6.
+
+    CPU tensors run :func:`fused_apollo_conv_plain`. CUDA tensors must be
+    bf16 with d and the hidden width multiples of 64 and an odd kernel of at
+    most 31 taps; anything else raises. Each call adds one to
+    ``fused_apollo_conv.launches``.
+    """
+    if x.device.type == "cpu":
+        return fused_apollo_conv_plain(x, p)
+    b, n, d = x.shape
+    w1, w2 = p["pw1_w"], p["pw2_w"]
+    hidden, k = w1.shape[0], p["dw_w"].shape[-1]
+    if d % 64 or hidden % 64 or k % 2 == 0 or k > 31 or d > 512:
+        raise ValueError(f"fused_apollo_conv: unsupported d={d}, hidden={hidden}, kernel={k} "
+                         "(the kernel takes d <= 512 and hidden multiples of 64 and an odd "
+                         "kernel of at most 31 taps)")
+    tokens = b * n
+    if -(-tokens // 128) > 65535:
+        raise ValueError(f"fused_apollo_conv: {b} sequences of {n} exceed one launch")
+    taps = p["dw_w"][:, 0, :].T.contiguous()  # (k, d)
+    for name, t, shape in (("x", x, (b, n, d)), ("dw_w", taps, (k, d)), ("dw_b", p["dw_b"], (d,)),
+                           ("norm", p["norm"], (d,)), ("pw1_w", w1, (hidden, d)),
+                           ("pw1_b", p["pw1_b"], (hidden,)), ("pw2_w", w2, (d, hidden)),
+                           ("pw2_b", p["pw2_b"], (d,))):
+        _build.check_tensor("fused_apollo_conv", name, t, shape, torch.bfloat16)
+
+    lib = _build.load("apollo_conv")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    xn = torch.empty((tokens, d), dtype=x.dtype, device=x.device)
+    h = torch.empty((tokens, hidden), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    _build.check(lib.sesa_apollo_dw(x.data_ptr(), taps.data_ptr(), p["dw_b"].data_ptr(),
+                                    p["norm"].data_ptr(), xn.data_ptr(), b, n, d, k, 1e-5,
+                                    stream), "sesa_apollo_dw")
+    _build.check(lib.sesa_apollo_up(xn.data_ptr(), w1.data_ptr(), p["pw1_b"].data_ptr(),
+                                    h.data_ptr(), tokens, d, hidden, stream), "sesa_apollo_up")
+    _build.check(lib.sesa_apollo_down(h.data_ptr(), w2.data_ptr(), p["pw2_b"].data_ptr(),
+                                      x.data_ptr(), out.data_ptr(), tokens, d, hidden, stream),
+                 "sesa_apollo_down")
+    fused_apollo_conv.launches += 1
+    return out
+
+
+fused_apollo_conv.launches = 0

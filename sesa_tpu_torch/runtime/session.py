@@ -5,7 +5,7 @@ its config, its weights on the device and a DemixSpec in one object whose
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -18,7 +18,10 @@ from sesa_tpu_torch.runtime.demix import DemixSpec, apply_tta, demix
 from sesa_tpu_torch.tree import tree_map
 
 
-def denormalize_audio(audio: np.ndarray, norm: Dict[str, float]) -> np.ndarray:
+Audio = Union[np.ndarray, torch.Tensor]
+
+
+def denormalize_audio(audio: Audio, norm: Dict[str, float]) -> Audio:
     return audio * norm["std"] + norm["mean"]
 
 
@@ -42,6 +45,9 @@ class InferenceSession:
     compute_dtype: Optional[torch.dtype] = torch.bfloat16
     # separations rerun in f32 because bf16 gave non-finite output
     rescues: int = 0
+    # {compute dtype: the model's prepared weights}, for models with a
+    # ``prepare`` step (casts and layout changes done once, not per call)
+    _prepared: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @classmethod
     def create(cls, model_type: str, config_path, checkpoint_path: str = "", *,
@@ -86,8 +92,13 @@ class InferenceSession:
     def _model_apply(self, compute_dtype):
         model = get_model(self.model_type)
         config, stems = self.config, self.spec.num_stems
+        prepare = getattr(model, "prepare", None)
 
         def apply_fn(params, chunks):
+            if prepare is not None and params is self.params:
+                if compute_dtype not in self._prepared:
+                    self._prepared[compute_dtype] = prepare(params, config, compute_dtype)
+                params = self._prepared[compute_dtype]
             with torch.inference_mode():
                 out = model.apply(params, config, chunks, compute_dtype=compute_dtype)
             if out.ndim == 3:  # single-stem models may squeeze
@@ -98,33 +109,51 @@ class InferenceSession:
 
         return apply_fn
 
-    def separate(self, mix: np.ndarray, *, use_tta: bool = False,
-                 progress_cb: Optional[Callable[[float], None]] = None
-                 ) -> Dict[str, np.ndarray]:
+    def _as_channels(self, mix: Audio) -> Audio:
+        """(T,) or (channels, T) audio as f32 (channels, T); a mono input is
+        repeated when the model takes two channels."""
+        if not isinstance(mix, torch.Tensor):
+            mix = np.asarray(mix, dtype=np.float32)
+        if mix.ndim == 1:
+            mix = mix[None]
+        if mix.shape[0] == 1 and self.spec.num_channels == 2:
+            mix = mix.expand(2, -1) if isinstance(mix, torch.Tensor) else np.repeat(mix, 2, axis=0)
+        return mix
+
+    def separate(self, mix: Audio, *, use_tta: bool = False,
+                 progress_cb: Optional[Callable[[float], None]] = None,
+                 transport: str = "f32") -> Dict[str, Audio]:
         """(channels, T) -> {instrument: (channels, T)} separated stems.
 
         Mirrors reference run_folder (inference.py:84-132): optional
         mono-statistics normalisation, demix, optional TTA, denormalise. A
         bf16 separation with non-finite output is rerun in f32 and counted
         in ``rescues`` (sesa_tpu session.py:212-220).
+
+        ``mix`` is a numpy array or a tensor (one on the session's device is
+        used where it lies). The stems stay on the device until the end:
+        ``transport="f32"`` then copies them to numpy arrays,
+        ``transport="device"`` returns the f32 tensors, so that a chain of
+        stages never crosses to the host. The rescue check reads one flag
+        from the device either way.
         """
-        mix = np.asarray(mix, dtype=np.float32)
-        if mix.ndim == 1:
-            mix = mix[None]
-        if mix.shape[0] == 1 and self.spec.num_channels == 2:
-            mix = np.repeat(mix, 2, axis=0)
+        if transport not in ("f32", "device"):
+            raise NotImplementedError(f"transport={transport!r} is not ported (ROADMAP.md "
+                                      "queue 1: int16 slab transport)")
+        mix = self._as_channels(mix)
 
         norm = affine = None
         if bool((self.config.get("inference", {}) or {}).get("normalize", False)):
             mono = mix.mean(0)
-            norm = {"mean": float(mono.mean()), "std": float(mono.std())}
+            std = mono.std(unbiased=False) if isinstance(mono, torch.Tensor) else mono.std()
+            norm = {"mean": float(mono.mean()), "std": float(std)}
             affine = (norm["mean"], norm["std"])
 
-        kw = dict(device=self.device, affine=affine)
+        kw = dict(device=self.device, affine=affine, transport="device")
         apply_fn = self._model_apply(self.compute_dtype)
         stems = demix(apply_fn, self.params, mix, self.spec, progress_cb=progress_cb, **kw)
         lossy = self.compute_dtype not in (None, torch.float32)
-        if lossy and not np.isfinite(stems).all():
+        if lossy and not bool(torch.isfinite(stems).all()):
             print("non-finite output under bf16; retrying in float32")
             self.rescues += 1
             self.compute_dtype = None
@@ -133,37 +162,37 @@ class InferenceSession:
         if use_tta:
             stems = apply_tta(apply_fn, self.params, mix, stems, self.spec, **kw)
         # final scrub after the rescue decision (reference utils.py:459)
-        stems = np.nan_to_num(stems)
+        stems = torch.nan_to_num(stems)
+        if norm is not None:
+            stems = denormalize_audio(stems, norm)
+        if transport == "f32":
+            stems = stems.cpu().numpy()
+        return {name: stems[i] for i, name in enumerate(self.instruments)}
 
-        out = {}
-        for i, name in enumerate(self.instruments):
-            out[name] = stems[i] if norm is None else denormalize_audio(stems[i], norm)
-        return out
-
-    def separate_with_extras(self, mix: np.ndarray, *, use_tta: bool = False,
+    def separate_with_extras(self, mix: Audio, *, use_tta: bool = False,
                              extract_instrumental: bool = False,
                              demud_phaseremix_inst: bool = False,
-                             progress_cb=None) -> Dict[str, np.ndarray]:
+                             progress_cb=None, transport: str = "f32") -> Dict[str, Audio]:
         """separate() plus the reference CLI's derived outputs (reference
         inference.py:103-126): instrumental = mix − vocals, and the demud
         phase-remix re-separation."""
-        mix = np.asarray(mix, dtype=np.float32)
-        if mix.ndim == 1:
-            mix = mix[None]
-        if mix.shape[0] == 1 and self.spec.num_channels == 2:
-            mix = np.repeat(mix, 2, axis=0)
-        mix_orig = mix.copy()
+        mix_orig = self._as_channels(mix)
+        if transport == "device":  # the derived stems are sums with the stems' kind
+            mix_orig = torch.as_tensor(mix_orig, device=self.device)
+        elif isinstance(mix_orig, torch.Tensor):
+            mix_orig = mix_orig.cpu().numpy()
+        kw = dict(use_tta=use_tta, transport=transport)
 
-        waveforms = self.separate(mix, use_tta=use_tta, progress_cb=progress_cb)
+        waveforms = self.separate(mix_orig, progress_cb=progress_cb, **kw)
         instruments = list(waveforms)
         instr = "vocals" if "vocals" in instruments else instruments[0]
         if demud_phaseremix_inst:
             if not any(i.lower() == "instrumental" for i in instruments):
-                second = self.separate(mix_orig - 2 * waveforms[instr], use_tta=use_tta)
+                second = self.separate(mix_orig - 2 * waveforms[instr], **kw)
                 waveforms["instrumental_phaseremix"] = mix_orig + second[instr]
             else:
                 mix_mod = 2 * waveforms[instr] - mix_orig
-                second = self.separate(mix_mod, use_tta=use_tta)
+                second = self.separate(mix_mod, **kw)
                 waveforms["instrumental_phaseremix"] = mix_orig + mix_mod - second[instr]
         if extract_instrumental and "instrumental" not in waveforms:
             waveforms["instrumental"] = mix_orig - waveforms[instr]
