@@ -9,15 +9,18 @@ and prints no result line):
 1. build: compiles every CUDA source of ``sesa_tpu_torch/csrc`` with nvcc,
    one process per source, all in parallel.
 2. kernels: at the main paths' shapes, launches K1 (fused attention block,
-   time and freq legs), K2 (fused feed-forward, roformer RMSNorm/GELU form
-   and conformer LayerNorm/SiLU form), K4 (conformer attention, time and
+   time and freq legs, and its value-residual modes 1 and 2), K2 (fused
+   feed-forward, roformer RMSNorm/GELU form and conformer LayerNorm/SiLU
+   form), K3 (whole-sequence attention), K4 (conformer attention, time and
    freq legs), K5 (conformer conv module, both legs), K6 (Apollo conv
-   block) and K7 (packed-qkv rope attention), holds each against its plain
-   PyTorch version on the same inputs, times the kernel, the plain version
-   and a library composite (cuBLAS, SDPA, cuDNN), and computes each kernel's
-   bound from its shapes. K4 to K7 are also checked at small ragged shapes
-   (other head widths, clipping, short and even kernels, partial and no
-   rope, sequences beyond one tile).
+   block), K7 (packed-qkv rope attention) and K8 (Mamba-2 SSD scan, bf16 and
+   f32), holds each against its plain PyTorch version on the same inputs,
+   times the kernel, the plain version and a library composite (cuBLAS,
+   SDPA, cuDNN, the einsum scan), and computes each kernel's bound from its
+   shapes. K3 to K8 are also checked at small ragged shapes (other head
+   widths, clipping, short and even kernels, partial and no rope, sequences
+   beyond one tile, one and three chunks, an impulse the state must carry,
+   fast decays).
 3. flagship: separates a generated 60 s stereo song through
    ``sesa_tpu_torch.cli.main`` with the flagship bs_roformer (dim 512,
    depth 12, 8 heads x 64, seeded weights) in bf16, and checks the stems,
@@ -41,8 +44,18 @@ and prints no result line):
 8. mel-band roformer: one model call of 6 chunks at bench.py's
    ``_melband_setup`` shape (dim 384, depth 12, 60 mel bands) with the
    kernels (K1, K2) and with their plain versions.
-9. profile: device time by kernel over one warm model call of the flagship,
-   the mel-band conformer and apollo (torch.profiler).
+9. experimental roformers and bs_mamba2: the same song through ``cli.main``
+   with ``bs_roformer_experimental`` at the flagship widths with value
+   residual learning (K1 in modes 1 and 2, K2 at depth 0), the same with
+   four residual streams (hyper-connections; K3 on the time legs), and
+   ``bs_mamba2`` at the reference's defaults (57 bands, feature_dim 128, 8
+   mask and 4 map repeats, 4 stems; K8 48 times per model call); checks as
+   in 3, then model parity as in 7. bs_mamba2 then runs once more with
+   ``--compute_dtype f32`` (what a bf16 -> f32 rescue reruns), which launches
+   K8's f32 form; K8's launches are counted by dtype.
+10. profile: device time by kernel over one warm model call of the flagship,
+   the mel-band conformer, apollo, the four-stream roformer and bs_mamba2
+   (torch.profiler), with the idle share read from the traced call itself.
 
 Prints the ``kernels`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
@@ -59,8 +72,10 @@ import sys
 import tempfile
 import time
 
-# H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, HBM3 bandwidth
+# H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, f32 outside
+# the tensor cores (K8's products are f32), HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 
 FLAGSHIP_MODEL = dict(dim=512, depth=12, stereo=True, num_stems=1,
@@ -83,6 +98,15 @@ APOLLO_MODEL = dict(sr=44100, win=20, feature_dim=256, layer=6)
 APOLLO_CHUNK, APOLLO_BATCH = 19 * 44100, 2
 APOLLO_BPRIME, APOLLO_BANDS = 2 * APOLLO_BATCH, 80
 APOLLO_FRAMES = APOLLO_CHUNK // 441 + 1  # 1901 frames per chunk
+# the experimental roformers at the flagship widths: value residual learning
+# on one stream, and on four residual streams (hyper-connections)
+VR_MODEL = dict(FLAGSHIP_MODEL, use_value_residual_learning=True)
+HC_MODEL = dict(VR_MODEL, num_residual_streams=4)
+HC_STREAMS = HC_MODEL["num_residual_streams"]
+# bs_mamba2 at the reference's defaults: 57 bands, 8 heads x 64, state 128
+MAMBA_MODEL = dict(sr=44100, win=2048, stride=512, feature_dim=128, num_repeat_mask=8,
+                   num_repeat_map=4, num_output=4)
+MAMBA_BANDS, MAMBA_HEADS, MAMBA_STEMS = 57, 8, ["vocals", "drums", "bass", "other"]
 CHUNK, OVERLAP, BATCH, SR, SONG_S = 352800, 2, 6, 44100, 60
 FRAMES, BANDS, MEL_BANDS = CHUNK // 512 + 1, 62, 60  # 690 frames; 62 / 60 bands
 TOKENS = BATCH * FRAMES * BANDS  # 256,680 tokens per flagship model call
@@ -94,6 +118,9 @@ MEL_TOKENS = BATCH * FRAMES * MEL_BANDS  # 248,400 tokens per mel model call
 # one bf16 ulp. Bounds: max |kernel - plain| <= 5% of max |plain|, and the
 # rms error <= 5% of the rms of the branch (out - x) the kernel adds.
 KERNEL_MAX_REL, KERNEL_BRANCH_RMS_REL = 0.05, 0.05
+# K8 against its plain version: f32 sums in another order (and 3xTF32
+# products) in f32; in bf16 the output rounding on top
+SSD_F32_ATOL, SSD_F32_RTOL, SSD_BF16_REL = 2e-4, 1e-3, 0.05
 # whole model, kernels vs plain versions, bf16 on the card
 MODEL_SNR_FLOOR_DB = 20.0
 # the chain's device ensemble + phase fix against the host functions, over
@@ -150,8 +177,8 @@ def snr_db(a, ref):
                                  / float((a.double() - ref.double()).pow(2).sum())))
 
 
-def _bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+def _bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_S
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
@@ -159,22 +186,30 @@ def _bound(flops, nbytes):
 def counters():
     """The launch counter of every kernel wrapper, by kernel."""
     from sesa_tpu_torch.ops.attention import (fused_attention_block, fused_conformer_attention,
-                                              fused_rope_attention)
+                                              fused_rope_attention, vmem_attention)
     from sesa_tpu_torch.ops.convblock import fused_apollo_conv, fused_conformer_conv
     from sesa_tpu_torch.ops.ff import fused_ff_residual
+    from sesa_tpu_torch.ops.ssd import ssd_fused
 
-    return {"K1": fused_attention_block, "K2": fused_ff_residual,
+    return {"K1": fused_attention_block, "K2": fused_ff_residual, "K3": vmem_attention,
             "K4": fused_conformer_attention, "K5": fused_conformer_conv,
-            "K6": fused_apollo_conv, "K7": fused_rope_attention}
+            "K6": fused_apollo_conv, "K7": fused_rope_attention, "K8": ssd_fused}
 
 
 def reset_counts():
     for fn in counters().values():
         fn.launches = 0
+    counters()["K1"].launches_by_mode = [0, 0, 0]
+    counters()["K8"].launches_by_dtype = {"bf16": 0, "f32": 0}
 
 
 def read_counts():
     return {k: fn.launches for k, fn in counters().items()}
+
+
+def expect(**counts):
+    """Launch counts of every kernel: the given ones, 0 for the others."""
+    return {k: counts.get(k, 0) for k in counters()}
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +230,29 @@ def k1_library(x, gamma, wqkv, wg, bg, wo, heads, scale, rope):
     o = F.scaled_dot_product_attention(q, k, v, scale=scale)
     o = o * torch.sigmoid(xn @ wg.T + bg).permute(0, 2, 1)[..., None]
     return o.permute(0, 2, 1, 3).reshape(b, n, -1) @ wo.T + x
+
+
+def k1_vr_library(x, gamma, wqkv, wg, bg, wo, heads, scale, rope, vr, add_residual):
+    """k1_library with the value-residual lerp in torch ops; returns
+    (out, pre-mix V)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sesa_tpu_torch.ops.rope import apply_rope
+
+    b, n, d = x.shape
+    xn = F.normalize(x, dim=-1) * (d ** 0.5) * gamma
+    q, k, v = (xn @ wqkv.T).reshape(b, n, 3, heads, -1).permute(2, 0, 3, 1, 4)
+    v_pre = v.permute(0, 2, 1, 3).reshape(b, n, -1).contiguous()
+    wvr, bvr, v_first = vr
+    if v_first is not None:
+        mix = torch.sigmoid(xn @ wvr.T + bvr).permute(0, 2, 1)[..., None]
+        v = torch.lerp(v, v_first.reshape(b, n, heads, -1).permute(0, 2, 1, 3), mix)
+    q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+    o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+    o = o * torch.sigmoid(xn @ wg.T + bg).permute(0, 2, 1)[..., None]
+    o = o.permute(0, 2, 1, 3).reshape(b, n, -1) @ wo.T
+    return (o + x if add_residual else o), v_pre
 
 
 def k2_library(x, gamma, w1, b1, w2, b2):
@@ -376,14 +434,18 @@ def _k4_args(gen, b, n, d, heads, dh, max_pos, device):
 def phase_kernels():
     import torch
 
+    import torch.nn.functional as F
+
     from sesa_tpu_torch.ops.attention import (fused_attention_block, fused_attention_block_plain,
                                               fused_conformer_attention,
                                               fused_conformer_attention_plain,
-                                              fused_rope_attention, fused_rope_attention_plain)
+                                              fused_rope_attention, fused_rope_attention_plain,
+                                              vmem_attention, vmem_attention_plain)
     from sesa_tpu_torch.ops.convblock import (fused_apollo_conv, fused_apollo_conv_plain,
                                               fused_conformer_conv, fused_conformer_conv_plain)
     from sesa_tpu_torch.ops.ff import fused_ff_residual, fused_ff_residual_plain
-    from sesa_tpu_torch.ops.rope import default_freqs, rope_tables
+    from sesa_tpu_torch.ops.rope import apply_rope, default_freqs, rope_tables
+    from sesa_tpu_torch.ops.ssd import ssd_einsum, ssd_fused, ssd_plain
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
@@ -419,7 +481,36 @@ def phase_kernels():
                          replaces="sesa_tpu/ops/attention.py:461", max_abs_err=err,
                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          **_bound(flops, nbytes), kernel="K1"))
-        del x
+
+        # the value-residual modes: mode 1 (first layer: with the residual,
+        # returns the pre-mix V) and mode 2 (later layers: V lerped toward a
+        # given V by the per-head mix, no residual)
+        wvr, bvr = _weights(gen, (heads, d), d, dev), _weights(gen, (heads,), d, dev)
+        v_first = torch.randn((b, n, hd), generator=gen).to(dev, torch.bfloat16)
+        for mode, vr, resid in ((1, (None, None, None), True), (2, (wvr, bvr, v_first), False)):
+            kw = dict(rope=rope, vr=vr, add_residual=resid)
+            out, v_pre = fused_attention_block(*args, **kw)
+            torch.cuda.synchronize()
+            ref, ref_v = fused_attention_block_plain(*args, **kw)
+            base = x if resid else torch.zeros((), device=dev)
+            err = compare(f"K1 mode {mode} {leg} leg (b={b}, n={n})", out, ref, base)
+            compare(f"K1 mode {mode} {leg} leg, pre-mix V", v_pre, ref_v,
+                    torch.zeros((), device=dev))
+            del out, ref, v_pre, ref_v
+            extra = 0 if mode == 1 else tokens * hd + heads * d + heads  # v_first, wvr, bvr
+            rows.append(dict(
+                name=f"fused_attention_block vr mode {mode}, "
+                     f"{'with' if resid else 'no'} residual ({leg} leg, b={b}, n={n})",
+                route="cuda", source="sesa_tpu_torch/csrc/attention.cu",
+                replaces="sesa_tpu/ops/attention.py:461", max_abs_err=err,
+                ms=time_ms(lambda: fused_attention_block(*args, **kw)),
+                plain_ms=time_ms(lambda: fused_attention_block_plain(*args, **kw), reps=2,
+                                 warmup=1),
+                library_ms=time_ms(lambda: k1_vr_library(*args, rope, vr, resid)),
+                **_bound(flops + (2 * tokens * d * heads if mode == 2 else 0),
+                         nbytes + 2 * (tokens * hd + extra)),
+                kernel=f"K1m{mode}"))
+        del x, v_first
         torch.cuda.empty_cache()
 
     # K2, both forms: roformer at the flagship shape, conformer at the mel one
@@ -572,6 +663,125 @@ def phase_kernels():
                 fused_rope_attention(*args), fused_rope_attention_plain(*args), zero)
     torch.cuda.synchronize()
 
+    # K3 at the hyper-connection time leg, as attention_apply hands it over:
+    # permuted views of the qkv projection, q and k through rope
+    heads, dh, n = FLAGSHIP_MODEL["heads"], FLAGSHIP_MODEL["dim_head"], FRAMES
+    b = BATCH * BANDS
+    qkv = torch.randn((b * n, 3 * heads * dh), generator=gen).to(dev, torch.bfloat16)
+    rope = tuple(r.to(dev, torch.bfloat16)
+                 for r in rope_tables(torch.from_numpy(default_freqs(dh)).to(dev), n))
+    q, k, v = qkv.reshape(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
+    q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+    scale = dh ** -0.5
+    out = vmem_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    err = compare(f"K3 (BH={b * heads}, S={n}, D={dh})", out,
+                  vmem_attention_plain(q, k, v, scale), zero)
+    del out
+    torch.cuda.empty_cache()
+    rows.append(dict(name=f"vmem_attention (BH={b * heads}, S={n}, D={dh}, strided views)",
+                     route="cuda", source="sesa_tpu_torch/csrc/vmem_attention.cu",
+                     replaces="sesa_tpu/ops/attention.py:137", max_abs_err=err,
+                     ms=time_ms(lambda: vmem_attention(q, k, v, scale)),
+                     plain_ms=time_ms(lambda: vmem_attention_plain(q, k, v, scale), reps=2,
+                                      warmup=1),
+                     library_ms=time_ms(
+                         lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
+                     **_bound(4 * b * heads * n * n * dh, 2 * 4 * b * heads * n * dh),
+                     kernel="K3"))
+    # the same on contiguous copies, to tell the cost of the strides
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    rows[-1].update(contiguous_ms=time_ms(lambda: vmem_attention(qc, kc, vc, scale)),
+                    copies_ms=time_ms(lambda: [t.contiguous() for t in (q, k, v)]))
+    log(f"  K3 on contiguous (b, h, s, d) copies: {rows[-1]['contiguous_ms']:.3f} ms; "
+        f"the three copies: {rows[-1]['copies_ms']:.3f} ms")
+    del qkv, q, k, v, qc, kc, vc
+    torch.cuda.empty_cache()
+    # K3 at the edges of its gate and the other head widths, contiguous (BH, S, D)
+    for s_len in (256, 257, 1000, 2048):
+        for dh in (32, 128):
+            q, k, v = (torch.randn((5, s_len, dh), generator=gen).to(dev, torch.bfloat16)
+                       for _ in range(3))
+            compare(f"K3 small (BH=5, S={s_len}, D={dh})", vmem_attention(q, k, v, dh ** -0.5),
+                    vmem_attention_plain(q, k, v, dh ** -0.5), zero)
+    torch.cuda.synchronize()
+
+    # K8 at bs_mamba2's two shapes, bf16 (the session's path) and f32 (the
+    # rescue's): band_rnn, sequences of 690 frames padded to 704, and
+    # band_comm, sequences of 57 bands padded to 64
+    def ssd_inputs(bsz, l, h, dtype, a_scale=1.0):
+        x = (0.5 * torch.randn((bsz, l, h, 64), generator=gen)).to(dev, dtype)
+        a = (-a_scale * torch.randn((bsz, l, h), generator=gen).abs()).to(dev, dtype)
+        b, c = ((0.3 * torch.randn((bsz, l, 1, 128), generator=gen)).to(dev, dtype)
+                for _ in range(2))
+        return x, a, b, c
+
+    def compare_ssd(name, out, ref):
+        o, r = out.float(), ref.float()
+        if not bool(o.isfinite().all()):
+            raise RuntimeError(f"{name}: non-finite kernel output")
+        diff, scale = (o - r).abs(), float(r.abs().max())
+        max_err = float(diff.max())
+        if out.dtype == torch.float32:
+            bad = bool((diff > SSD_F32_ATOL + SSD_F32_RTOL * r.abs()).any())
+            bound = f"atol {SSD_F32_ATOL}, rtol {SSD_F32_RTOL}"
+        else:
+            bad = max_err > SSD_BF16_REL * scale
+            bound = f"{SSD_BF16_REL} x the output's largest value"
+        log(f"  {name}: max_abs_err {max_err:.4g} (output max {scale:.4g})")
+        if bad:
+            raise RuntimeError(f"{name}: kernel disagrees with its plain version ({bound})")
+        return max_err
+
+    for leg, bsz, l in (("band_rnn", BATCH * 2 * MAMBA_BANDS, -(-FRAMES // 64) * 64),
+                        ("band_comm", BATCH * 2 * FRAMES, 64)):
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            args = ssd_inputs(bsz, l, MAMBA_HEADS, dtype)
+            out = ssd_fused(*args)
+            torch.cuda.synchronize()
+            err = compare_ssd(f"K8 {leg} {tag} (B={bsz}, L={l}, H={MAMBA_HEADS})", out,
+                              ssd_plain(*args))
+            del out
+            torch.cuda.empty_cache()
+            # what the function needs per sequence row at chunk 64: C . B^T
+            # once for the heads together (G = 1), per head the masked
+            # product with x, and the two state products only where a state
+            # is read (every chunk but the first) or handed on (every chunk
+            # but the last): none at band_comm's single chunk
+            carried = (l // 64 - 1) / (l // 64)
+            flops = 2 * bsz * l * (64 * 128 + MAMBA_HEADS * (64 * 64 + carried * 2 * 128 * 64))
+            nbytes = args[0].element_size() * bsz * l * (2 * MAMBA_HEADS * 64 + MAMBA_HEADS
+                                                         + 2 * 128)
+            rows.append(dict(name=f"ssd_fused {tag} ({leg}, B={bsz}, L={l}, H={MAMBA_HEADS}, "
+                                  "P=64, N=128, chunk 64"
+                                  + (")" if tag == "bf16" else "; the main path runs bf16)"),
+                             route="cuda", source="sesa_tpu_torch/csrc/ssd.cu",
+                             replaces="sesa_tpu/ops/ssd.py:128", max_abs_err=err,
+                             ms=time_ms(lambda: ssd_fused(*args)),
+                             plain_ms=time_ms(lambda: ssd_plain(*args), reps=2, warmup=1),
+                             library_ms=time_ms(lambda: ssd_einsum(*args), reps=2, warmup=1),
+                             **_bound(flops, nbytes, PEAK_F32_FLOPS),
+                             kernel="K8" if dtype == torch.bfloat16 else "K8f32"))
+            del args
+            torch.cuda.empty_cache()
+    # K8 at small shapes: one and three chunks, fast decays, other head
+    # counts, and the impulse in chunk 0 that the state must carry to the
+    # last chunk
+    for bsz, l, h, a_scale in ((3, 64, 1, 1.0), (2, 192, 3, 3.0), (5, 256, 8, 0.7)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_inputs(bsz, l, h, dtype, a_scale)
+            compare_ssd(f"K8 small {dtype} (B={bsz}, L={l}, H={h}, |a| x {a_scale})",
+                        ssd_fused(*args), ssd_plain(*args))
+    x = torch.zeros((1, 192, 1, 64), device=dev)
+    x[0, 3, 0, :] = 1.0
+    a = torch.full((1, 192, 1), -1e-3, device=dev)
+    bc = torch.full((1, 192, 1, 128), 0.1, device=dev)
+    out = ssd_fused(x, a, bc, bc.clone())
+    compare_ssd("K8 impulse (L=192)", out, ssd_plain(x, a, bc, bc))
+    if not float(out[0, -1].abs().max()) > 0.1:
+        raise RuntimeError("K8 impulse: the state did not reach the last chunk")
+    torch.cuda.synchronize()
+
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} ms by "
             f"{r['bound_by']}, plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms)")
@@ -596,12 +806,14 @@ def _model_calls(chunk=CHUNK, batch=BATCH):
 
 
 def drive_cli(work, model_type, model_cfg, song, expected, chunk=CHUNK, batch=BATCH,
-              stem="vocals"):
+              stem="vocals", instruments=None, k1_modes=None, compute_dtype="bf16"):
     """Separate ``song`` through cli.main; check the stem written, the rescues
     and the launch counts (counters set to 0 just before, read just after);
     time a second, warm separation on the session. ``stem="vocals"`` writes a
     vocals/other config; another name leaves the training section out (the
-    model then gives one stem, "restored")."""
+    model then gives one stem, "restored"). ``instruments`` names the stems
+    of a model that gives several. ``k1_modes`` is K1's expected count by
+    mode; K8's launches must all be of ``compute_dtype``."""
     import numpy as np
     import torch
 
@@ -613,7 +825,9 @@ def drive_cli(work, model_type, model_cfg, song, expected, chunk=CHUNK, batch=BA
     cfg = {"audio": {"chunk_size": chunk, "num_channels": 2, "sample_rate": SR},
            "model": model_cfg,
            "inference": {"num_overlap": OVERLAP, "batch_size": batch, "normalize": False}}
-    if stem == "vocals":
+    if instruments:
+        cfg["training"] = {"instruments": list(instruments)}
+    elif stem == "vocals":
         cfg["training"] = {"instruments": ["vocals", "other"], "target_instrument": "vocals"}
     cfg_path = os.path.join(work, "config.json")
     with open(cfg_path, "w") as f:
@@ -627,23 +841,30 @@ def drive_cli(work, model_type, model_cfg, song, expected, chunk=CHUNK, batch=BA
     t0 = time.perf_counter()
     rc = cli.main(["--model_type", model_type, "--config_path", cfg_path,
                    "--input_folder", os.path.join(work, "in"), "--store_dir", out_dir,
-                   "--compute_dtype", "bf16"], session_out=sessions)
+                   "--compute_dtype", compute_dtype], session_out=sessions)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
+    by_mode = list(counters()["K1"].launches_by_mode)
+    k8_by_dtype = dict(counters()["K8"].launches_by_dtype)
     peak = torch.cuda.max_memory_allocated()
     if rc != 0:
         raise RuntimeError(f"{model_type}: cli.main returned {rc}")
     session = sessions[0]
 
-    stems, _ = read_audio(os.path.join(out_dir, f"song_{stem}.wav"))
-    if stems.shape != song.shape or not np.isfinite(stems).all():
-        raise RuntimeError(f"{model_type}: bad stems: shape {stems.shape}, "
-                           f"finite {np.isfinite(stems).all()}")
+    for name in instruments or [stem]:
+        stems, _ = read_audio(os.path.join(out_dir, f"song_{name}.wav"))
+        if stems.shape != song.shape or not np.isfinite(stems).all():
+            raise RuntimeError(f"{model_type}: bad stem {name}: shape {stems.shape}, "
+                               f"finite {np.isfinite(stems).all()}")
     if session.rescues != 0:
         raise RuntimeError(f"{model_type}: {session.rescues} bf16 -> f32 rescues")
     if launches != expected:
         raise RuntimeError(f"{model_type}: launches {launches}, expected {expected}")
+    if k1_modes is not None and by_mode != list(k1_modes):
+        raise RuntimeError(f"{model_type}: K1 launches by mode {by_mode}, expected {k1_modes}")
+    if k8_by_dtype != dict({"bf16": 0, "f32": 0}, **{compute_dtype: expected["K8"]}):
+        raise RuntimeError(f"{model_type} in {compute_dtype}: K8 launches by dtype {k8_by_dtype}")
 
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -651,10 +872,12 @@ def drive_cli(work, model_type, model_cfg, song, expected, chunk=CHUNK, batch=BA
     torch.cuda.synchronize()
     warm = time.perf_counter() - t1
     res = dict(model_type=model_type, song_s=SONG_S, model_calls=_model_calls(chunk, batch),
-               launches=launches, cli_wall_s=wall, rtf_cli=SONG_S / wall,
+               launches=launches, k1_launches_by_mode=by_mode,
+               k8_launches_by_dtype=k8_by_dtype, compute_dtype=compute_dtype, cli_wall_s=wall,
+               rtf_cli=SONG_S / wall,
                separate_warm_s=warm, rtf_warm=SONG_S / warm,
                peak_cuda_mem_gib=peak / 2 ** 30, rescues=session.rescues)
-    log(f"[{model_type}] {json.dumps(res)}")
+    log(f"[{model_type} {compute_dtype}] {json.dumps(res)}")
     return res, session
 
 
@@ -674,6 +897,8 @@ def _chunking(model_type):
 def _plain_swaps(model_type):
     """(module, attribute, plain version) for every kernel the model reaches."""
     from sesa_tpu_torch.models import apollo, conformer_core, roformer_core
+    from sesa_tpu_torch.ops import attention as attention_ops
+    from sesa_tpu_torch.ops import ssd as ssd_ops
     from sesa_tpu_torch.ops.attention import (fused_attention_block_plain,
                                               fused_conformer_attention_plain,
                                               fused_rope_attention_plain)
@@ -681,6 +906,10 @@ def _plain_swaps(model_type):
                                               fused_conformer_conv_plain)
     from sesa_tpu_torch.ops.ff import fused_ff_residual_plain
 
+    if model_type == "bs_mamba2":  # ssd() looks ssd_fused up in its module
+        return [(ssd_ops, "ssd_fused", ssd_ops.ssd_plain)]
+    if model_type == "bs_roformer_experimental_hc":  # so does sdpa() with K3
+        return [(attention_ops, "vmem_attention", attention_ops.vmem_attention_plain)]
     if model_type == "apollo":
         return [(apollo, "fused_rope_attention", fused_rope_attention_plain),
                 (apollo, "fused_apollo_conv", fused_apollo_conv_plain)]
@@ -692,16 +921,18 @@ def _plain_swaps(model_type):
             (roformer_core, "fused_ff_residual", fused_ff_residual_plain)]
 
 
-def model_parity(model_type, params, config, song, with_f32=True):
+def model_parity(model_type, params, config, song, with_f32=True, label=None):
     """One chunk batch with the kernels against the same call with the
-    kernels' plain versions (both bf16 on the card), and against f32."""
+    kernels' plain versions (both bf16 on the card), and against f32.
+    ``label`` names a configuration of a model type that is driven in two."""
     import torch
 
     from sesa_tpu_torch.models import get_model
 
     model = get_model(model_type)
     chunks = _chunks(song, *_chunking(model_type))
-    swaps = _plain_swaps(model_type)
+    swaps = _plain_swaps(label or model_type)
+    model_type = label or model_type
     with torch.inference_mode():
         reset_counts()
         kern = model.apply(params, config, chunks, compute_dtype=torch.bfloat16)
@@ -747,15 +978,18 @@ def phase_melband(song):
     params = tree_map(lambda p: p.cuda(), params)
     res = model_parity("mel_band_roformer", params, config, song, with_f32=False)
     layers = MELBAND_MODEL["depth"] * 2
-    expected = {"K1": layers, "K2": layers, "K4": 0, "K5": 0, "K6": 0, "K7": 0}
+    expected = expect(K1=layers, K2=layers)
     if res["launches"] != expected:
         raise RuntimeError(f"mel_band_roformer: launches {res['launches']}, expected {expected}")
     return res
 
 
-def phase_profile(model_type, session, song):
-    """Device time by kernel over one warm model call (torch.profiler), and
-    the host wall of the same call without the profiler."""
+def phase_profile(model_type, session, song, label=None):
+    """Device time by kernel over one warm model call (torch.profiler). The
+    idle share is read from that one traced call: 1 - (kernel time) / (first
+    kernel's start to last kernel's end), all on the device's clock. The
+    profiler slows the host, so it is an upper estimate. The host wall of the
+    same call without the profiler is printed beside it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -764,6 +998,7 @@ def phase_profile(model_type, session, song):
 
     model = get_model(model_type)
     chunk, batch = _chunking(model_type)
+    model_type = label or model_type
     chunks = _chunks(song, chunk, batch)
     # the weights as the session's separate hands them to the model
     params = session._prepared.get(torch.bfloat16, session.params)
@@ -789,13 +1024,20 @@ def phase_profile(model_type, session, song):
     rows.sort(reverse=True)
     busy, wall = sum(r[0] for r in rows), min(walls[1:])
     sesa = sum(r[0] for r in rows if r[2].startswith(("sesa::", "void sesa::")))
-    log(f"[profile {model_type}] one model call ({batch} chunks): wall {wall:.1f} ms, device "
-        f"busy {busy:.1f} ms ({sesa:.1f} ms in the port's kernels), idle share "
-        f"{1 - busy / wall:.3f}")
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start]
+    if not spans:
+        raise RuntimeError(f"profile {model_type}: the trace holds no device kernel")
+    span = (max(end for _, end in spans) - min(start for start, _ in spans)) / 1e3
+    in_span = sum(end - start for start, end in spans) / 1e3
+    idle = 1 - in_span / span
+    log(f"[profile {model_type}] one model call ({batch} chunks): device busy {busy:.1f} ms "
+        f"({sesa:.1f} ms in the port's kernels) of a traced span of {span:.1f} ms, idle share "
+        f"{idle:.3f}; host wall without the profiler {wall:.1f} ms")
     for ms, count, key in rows[:20]:
         log(f"  {ms:9.2f} ms  {count:5d}x  {key[:90]}")
     return dict(wall_ms=wall, device_busy_ms=busy, sesa_kernels_ms=sesa,
-                idle_share=1 - busy / wall,
+                traced_span_ms=span, idle_share=idle,
                 top=[dict(ms=ms, count=c, kernel=k[:120]) for ms, c, k in rows[:30]])
 
 
@@ -880,6 +1122,57 @@ def phase_chain(sessions, song, expected):
     return res
 
 
+def phase_new_paths(song, calls):
+    """The experimental roformers (value residual; four residual streams) and
+    bs_mamba2 through cli.main, then model parity of each (kernels against
+    plain versions), then the profile of the four-stream model and of
+    bs_mamba2. Each session is dropped before the next model loads."""
+    import torch
+
+    depth = FLAGSHIP_MODEL["depth"]
+    bsnets = MAMBA_MODEL["num_repeat_mask"] + MAMBA_MODEL["num_repeat_map"]
+    paths = [
+        # value residual, one stream: K1 on both legs of every depth layer,
+        # mode 1 with the residual at depth 0, mode 2 without after it; K2
+        # only at depth 0 (later layers run ff_apply without the residual)
+        ("vr", "bs_roformer_experimental", VR_MODEL, expect(K1=2 * depth * calls, K2=2 * calls),
+         dict(k1_modes=[0, 2 * calls, 2 * (depth - 1) * calls]), expect(K1=2 * depth, K2=2)),
+        # four residual streams: the branches run the unfused chain, whose
+        # sdpa reaches K3 on the time legs (690 frames); the freq legs (62
+        # bands) are below K3's gate and take the einsum
+        ("hc", "bs_roformer_experimental", HC_MODEL, expect(K3=depth * calls), {},
+         expect(K3=depth)),
+        # per BSNet two ResMambas (band_rnn, band_comm) of two directions
+        ("bs_mamba2", "bs_mamba2", MAMBA_MODEL, expect(K8=4 * bsnets * calls),
+         dict(instruments=MAMBA_STEMS), expect(K8=4 * bsnets)),
+        # the same in f32, what a bf16 -> f32 rescue reruns: K8's f32 form
+        ("bs_mamba2_f32", "bs_mamba2", MAMBA_MODEL, expect(K8=4 * bsnets * calls),
+         dict(instruments=MAMBA_STEMS, compute_dtype="f32"), None),
+    ]
+    out = {"runs": {}, "parity": [], "profile": {}}
+    for key, model_type, model_cfg, expected, kw, per_call in paths:
+        label = key if key.startswith(model_type) else f"{model_type}_{key}"
+        with tempfile.TemporaryDirectory() as work:
+            res, session = drive_cli(work, model_type, model_cfg, song, expected, **kw)
+        res["config"] = label
+        out["runs"][key] = res
+        if per_call is None:  # a second dtype of a model already held to its plain versions
+            del session
+            torch.cuda.empty_cache()
+            continue
+        parity = model_parity(model_type, session.params, session.config, song,
+                              with_f32=False, label=label)
+        if parity["launches"] != per_call:
+            raise RuntimeError(f"{label} parity: launches {parity['launches']} in one model "
+                               f"call, expected {per_call}")
+        out["parity"].append(parity)
+        if key != "vr":
+            out["profile"][label] = phase_profile(model_type, session, song, label=label)
+        del session
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -913,25 +1206,23 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as work:
         out["flagship"], sessions["bs_roformer"] = drive_cli(
             work, "bs_roformer", FLAGSHIP_MODEL, song,
-            {"K1": layers * calls, "K2": layers * calls, "K4": 0, "K5": 0, "K6": 0, "K7": 0})
+            expect(K1=layers * calls, K2=layers * calls), k1_modes=[layers * calls, 0, 0])
     blocks = MELCONF_MODEL["depth"] * (MELCONF_MODEL["time_conformer_depth"]
                                        + MELCONF_MODEL["freq_conformer_depth"])
     with tempfile.TemporaryDirectory() as work:
         out["melconf"], sessions["mel_band_conformer"] = drive_cli(
             work, "mel_band_conformer", MELCONF_MODEL, song,
-            {"K1": 0, "K2": 2 * blocks * calls, "K4": blocks * calls, "K5": blocks * calls,
-             "K6": 0, "K7": 0})
+            expect(K2=2 * blocks * calls, K4=blocks * calls, K5=blocks * calls))
     apollo_calls, apollo_layers = _model_calls(APOLLO_CHUNK, APOLLO_BATCH), APOLLO_MODEL["layer"]
     apollo_counts = {"K6": 3 * apollo_layers * apollo_calls, "K7": apollo_layers * apollo_calls}
     with tempfile.TemporaryDirectory() as work:
         out["apollo"], sessions["apollo"] = drive_cli(
-            work, "apollo", APOLLO_MODEL, song,
-            {"K1": 0, "K2": 0, "K4": 0, "K5": 0, **apollo_counts},
+            work, "apollo", APOLLO_MODEL, song, expect(**apollo_counts),
             chunk=APOLLO_CHUNK, batch=APOLLO_BATCH, stem="restored")
     out["chain"] = phase_chain(
         sessions, song,
-        {"K1": layers * calls, "K2": (layers + 2 * blocks) * calls, "K4": blocks * calls,
-         "K5": blocks * calls, **apollo_counts})
+        expect(K1=layers * calls, K2=(layers + 2 * blocks) * calls, K4=blocks * calls,
+               K5=blocks * calls, **apollo_counts))
     out["parity"] = [model_parity(mt, s.params, s.config, song) for mt, s in sessions.items()]
     per_call = {k: v // apollo_calls for k, v in apollo_counts.items()}
     got = {k: out["parity"][-1]["launches"][k] for k in per_call}
@@ -939,16 +1230,29 @@ def main(argv=None) -> int:
         raise RuntimeError(f"apollo parity: launches {got} in one model call, expected {per_call}")
     out["melband"] = phase_melband(song)
     out["profile"] = {mt: phase_profile(mt, s, song) for mt, s in sessions.items()}
+    sessions.clear()
+    torch.cuda.empty_cache()
+    out["new_paths"] = phase_new_paths(song, calls)
     out["seconds"] = time.perf_counter() - t0
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(out, f, indent=1)
     log(f"[total] {out['seconds']:.1f}s")
 
+    # each row's launches on the main path that runs its kernel. One count per
+    # wrapper: a two-leg kernel's rows both carry the count of both legs. K1
+    # is counted by mode and K8 by dtype: its f32 rows carry the f32 launches
+    # of the bs_mamba2 run with --compute_dtype f32
+    runs = out["new_paths"]["runs"]
     launches = {"K1": out["flagship"]["launches"]["K1"], "K2": out["flagship"]["launches"]["K2"],
+                "K1m1": runs["vr"]["k1_launches_by_mode"][1],
+                "K1m2": runs["vr"]["k1_launches_by_mode"][2],
+                "K3": runs["hc"]["launches"]["K3"],
                 "K2ln": out["melconf"]["launches"]["K2"], "K4": out["melconf"]["launches"]["K4"],
                 "K5": out["melconf"]["launches"]["K5"], "K6": out["apollo"]["launches"]["K6"],
-                "K7": out["apollo"]["launches"]["K7"]}
+                "K7": out["apollo"]["launches"]["K7"],
+                "K8": runs["bs_mamba2"]["k8_launches_by_dtype"]["bf16"],
+                "K8f32": runs["bs_mamba2_f32"]["k8_launches_by_dtype"]["f32"]}
     kernels = [dict(name=r["name"], route=r["route"], source=r["source"],
                     replaces=r["replaces"], launches=launches[r["kernel"]],
                     max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],

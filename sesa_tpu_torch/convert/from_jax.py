@@ -1,9 +1,10 @@
 """Carry parameters from the JAX package into the port.
 
 The port keeps the JAX package's parameter trees (grouped band weights,
-torch-layout projection weights, the same key names) for bs_roformer,
-mel_band_roformer, mel_band_conformer and apollo, so the mapping is a copy of
-every leaf, checked against the tree the port's own init builds. Leaves are
+torch-layout projection weights, the same key names, the ``hc`` / ``branch``
+nesting and ``vr_mix_*`` leaves of the experimental roformers) for every
+ported model, so the mapping is a copy of every leaf, checked against the
+tree the port's own init builds. Leaves are
 numpy arrays (``np.asarray`` of the JAX arrays); this module imports no JAX.
 """
 
@@ -44,7 +45,8 @@ def params_from_jax(params_np, model, config=None):
 
     ``model`` is a ``RoformerSpec`` (bs_roformer; mel_band_roformer when its
     ``mel_mlp_convention`` is set) or a model type string, with ``config``,
-    such as ``"mel_band_conformer"`` or ``"apollo"``. Raises ``ValueError``
+    such as ``"mel_band_conformer"``, ``"apollo"``, ``"bs_mamba2"`` or
+    ``"bs_roformer_experimental"``. Raises ``ValueError``
     when the tree's keys or shapes differ from those of the port's own init.
     """
     expected = _shapes(_expected(model, config))

@@ -12,9 +12,12 @@ Parameters are a plain tree of tensors laid out as the JAX package's tree
 ``convert/from_jax.py`` is mostly a copy. A Python loop over depth replaces
 the JAX ``lax.scan``.
 
-Not ported yet (ROADMAP queue 1): ``use_fno``, ``value_residual``,
-``experimental_forward`` and ``num_residual_streams > 1`` raise
-``NotImplementedError``.
+The experimental variants are spec fields: ``value_residual`` (config key
+``use_value_residual_learning``) lerps each later depth layer's V toward the
+first depth layer's, ``num_residual_streams > 1`` wraps attention and
+feed-forward in hyper-connections, ``experimental_forward`` selects the
+experimental Transformer.forward alone (``bs_roformer_experimental.py``).
+Not ported yet (ROADMAP queue 1): ``use_fno`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from sesa_tpu_torch.models import hyper_connections as HC
 from sesa_tpu_torch.models import roformer_core as core
 from sesa_tpu_torch.models.layers import rms_norm
 from sesa_tpu_torch.ops import bands as B
@@ -128,14 +132,10 @@ def spec_from_config(model_cfg) -> RoformerSpec:
 
 
 def _check_supported(spec: RoformerSpec) -> None:
-    for flag, on in (("use_fno", spec.use_fno), ("value_residual", spec.value_residual),
-                     ("experimental_forward", spec.experimental_forward),
-                     ("num_residual_streams > 1", spec.num_residual_streams > 1)):
-        if on:
-            raise NotImplementedError(
-                f"bs_roformer {flag} is not ported to sesa_tpu_torch yet "
-                "(ROADMAP.md, queue 1: value-residual / hyper-connection stacks "
-                "and the FNO variant)")
+    if spec.use_fno:
+        raise NotImplementedError(
+            "bs_roformer use_fno is not ported to sesa_tpu_torch yet (ROADMAP.md, "
+            "queue 1: the FNO variant)")
 
 
 # --------------------------------------------------------------------------
@@ -149,7 +149,9 @@ def init_from_spec(generator: torch.Generator, spec: RoformerSpec,
     _check_supported(spec)
     plan = spec.band_plan()
     layers = []
-    for _ in range(spec.depth):
+    for layer_index in range(spec.depth):
+        # the mix projection exists only after the first depth layer
+        vr = spec.value_residual and layer_index > 0
         layer = {}
         if spec.linear_transformer_depth > 0:
             layer["linear"] = core.transformer_init(
@@ -159,7 +161,8 @@ def init_from_spec(generator: torch.Generator, spec: RoformerSpec,
                             ("freq", spec.freq_transformer_depth)):
             layer[axis] = core.transformer_init(
                 generator, spec.dim, depth, spec.heads, spec.dim_head,
-                norm_output=transformer_norm_output)
+                norm_output=transformer_norm_output, value_residual=vr,
+                num_residual_streams=spec.num_residual_streams)
         layers.append(layer)
     params = {
         "band_split": B.band_split_init(generator, plan, spec.dim),
@@ -215,7 +218,25 @@ def apply_from_spec(params, spec: RoformerSpec, x: torch.Tensor, compute_dtype=N
         rope_freq = tuple(r.to(dtype) for r in rope_freq)
     xb = B.band_split_apply(plan, params["band_split"], sp.to(dtype))
 
+    streams = spec.num_residual_streams
+    vr_forward = spec.value_residual or spec.experimental_forward or streams > 1
+    # the residual streams are expanded once before the depth loop and summed
+    # after it (reference bs_roformer_experimental.py:558-560, 608-610)
+    xb = HC.expand_streams(xb, streams)
+
     store = []
+    first_values = {"time": None, "freq": None}  # the first depth layer's V, per axis
+
+    def stack(layer, axis, z, rope):
+        if not vr_forward:
+            return core.transformer_apply(layer[axis], z, spec.heads, rope=rope)
+        z, values = core.transformer_apply_vr(layer[axis], z, spec.heads, rope=rope,
+                                              value_residual=first_values[axis],
+                                              streams=streams)
+        if first_values[axis] is None:
+            first_values[axis] = values
+        return z
+
     for layer in params["layers"]:
         # reference order (bs_roformer.py:510-524): the linear transformer
         # runs first, then the skip sums are added
@@ -226,11 +247,13 @@ def apply_from_spec(params, spec: RoformerSpec, x: torch.Tensor, compute_dtype=N
         if spec.skip_connection and store:
             xb = xb + sum(store)
         z = xb.permute(0, 2, 1, 3).contiguous()  # (B, NB, Tf, D): sequence = frames
-        z = core.transformer_apply(layer["time"], z, spec.heads, rope=rope_time)
+        z = stack(layer, "time", z, rope_time)
         z = z.permute(0, 2, 1, 3).contiguous()  # (B, Tf, NB, D): sequence = bands
-        xb = core.transformer_apply(layer["freq"], z, spec.heads, rope=rope_freq)
+        xb = stack(layer, "freq", z, rope_freq)
         if spec.skip_connection:
             store.append(xb)
+
+    xb = HC.reduce_streams(xb, streams)
 
     if "final_norm_gamma" in params:
         xb = rms_norm(xb, params["final_norm_gamma"])
@@ -299,6 +322,7 @@ def convert_from_spec(state_dict, spec: RoformerSpec,
 
     layers = []
     for d in range(spec.depth):
+        vr = spec.value_residual and d > 0
         j = 0
         layer = {}
         if spec.linear_transformer_depth > 0:
@@ -308,10 +332,12 @@ def convert_from_spec(state_dict, spec: RoformerSpec,
             j += 1
         layer["time"] = core.convert_transformer(
             take, f"layers.{d}.{j}", spec.time_transformer_depth,
-            norm_output=transformer_norm_output)
+            norm_output=transformer_norm_output, value_residual=vr,
+            num_residual_streams=spec.num_residual_streams)
         layer["freq"] = core.convert_transformer(
             take, f"layers.{d}.{j + 1}", spec.freq_transformer_depth,
-            norm_output=transformer_norm_output)
+            norm_output=transformer_norm_output, value_residual=vr,
+            num_residual_streams=spec.num_residual_streams)
         layers.append(layer)
 
     mask_estimators = []
@@ -342,7 +368,12 @@ def convert_from_spec(state_dict, spec: RoformerSpec,
     def rope_freqs(legacy_key, j):
         if legacy_key in sd:
             return take(legacy_key)
-        return take(f"layers.0.{j}.layers.0.0.rotary_embed.freqs")
+        key = f"layers.0.{j}.layers.0.0.rotary_embed.freqs"
+        if key in sd:
+            return take(key)
+        # num_residual_streams > 1: the hyper-connection wrapper nests the
+        # attention under '.branch'
+        return take(f"layers.0.{j}.layers.0.0.branch.rotary_embed.freqs")
 
     params = {
         "band_split": {"groups": bs_groups},

@@ -42,3 +42,26 @@ def layer_norm(x: torch.Tensor, params, eps: float = 1e-5) -> torch.Tensor:
 
 def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+def linear(x: torch.Tensor, params) -> torch.Tensor:
+    """torch nn.Linear: weight (out, in), optional bias (out,)."""
+    return torch.nn.functional.linear(x, params["weight"], params.get("bias"))
+
+
+def conv1d(x, weight, bias=None, stride=1, padding=0, groups=1) -> torch.Tensor:
+    """torch nn.Conv1d on (B, C, T) with (O, I/g, K) weight."""
+    return torch.nn.functional.conv1d(x, weight, bias, stride=stride, padding=padding,
+                                      groups=groups)
+
+
+def group_norm(x: torch.Tensor, params, num_groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """torch nn.GroupNorm on (B, C, *spatial) for any spatial rank. The
+    statistics are f32 whatever the dtype of x; the normalised value is
+    rounded to x's dtype before the affine."""
+    b, c = x.shape[:2]
+    xg = x.reshape(b, num_groups, -1).float()
+    var, mean = torch.var_mean(xg, dim=-1, keepdim=True, unbiased=False)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).to(x.dtype).reshape(x.shape)
+    shape = (1, c) + (1,) * (x.ndim - 2)
+    return y * params["weight"].reshape(shape) + params["bias"].reshape(shape)

@@ -7,7 +7,8 @@ coverage in ``ops/bands.py``), each Transformer carries its own output
 RMSNorm and there is no model-level final norm, the mask estimator has
 ``mask_estimator_depth`` hidden layers (the mel MLP convention), and
 ``mask_estimator_depth`` defaults to 1. The transformers are BS-RoFormer's,
-so bf16 CUDA tensors run kernels K1 and K2.
+so bf16 CUDA tensors run kernels K1 and K2, and the value-residual and
+hyper-connection flags mean what they mean there.
 """
 
 from __future__ import annotations

@@ -7,9 +7,12 @@ import importlib
 
 MODEL_TYPES = {
     "bs_roformer": "sesa_tpu_torch.models.bs_roformer",
+    "bs_roformer_experimental": "sesa_tpu_torch.models.bs_roformer_experimental",
     "mel_band_roformer": "sesa_tpu_torch.models.mel_band_roformer",
+    "mel_band_roformer_experimental": "sesa_tpu_torch.models.mel_band_roformer_experimental",
     "mel_band_conformer": "sesa_tpu_torch.models.mel_band_conformer",
     "apollo": "sesa_tpu_torch.models.apollo",
+    "bs_mamba2": "sesa_tpu_torch.models.bs_mamba2",
 }
 
 

@@ -29,11 +29,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of every exported function, by library
 SIGNATURES = {
     "attention": {
-        "sesa_attn_proj": [_P] * 10 + [_I] * 6 + [_P],
-        "sesa_attn_core": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+        "sesa_attn_proj": [_P] * 10 + [_I] * 7 + [_P],
+        "sesa_attn_vr": [_P] * 4 + [_I] * 4 + [_P],
+        "sesa_attn_core": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
         "sesa_attn_out": [_P, _P, _P, _P, _I, _I, _I, _P],
     },
     "ff": {
@@ -57,6 +59,12 @@ SIGNATURES = {
     },
     "rope_attention": {
         "sesa_rope_attn": [_P] * 4 + [_I] * 6 + [_F, _P],
+    },
+    "vmem_attention": {
+        "sesa_vmem_attn": [_P] * 4 + [_L] * 12 + [_I] * 4 + [_F, _P],
+    },
+    "ssd": {
+        "sesa_ssd": [_P] * 5 + [_L] * 4 + [_I] * 4 + [_P],
     },
 }
 

@@ -50,6 +50,15 @@ def fused_ff_residual_plain(x, gamma, w1, b1, w2, b2, *, beta=None, norm="rms",
     return y.to(dt) + x
 
 
+def use_fused_ff(x: torch.Tensor, w1: torch.Tensor) -> bool:
+    """The gate of kernel K2 for the roformer stacks, on device, dtype and
+    shape only: a CUDA bf16 x (..., dim) with dim and hidden multiples of 64
+    and a token count one launch covers."""
+    dim, hidden = x.shape[-1], w1.shape[0]
+    return (x.device.type == "cuda" and x.dtype == torch.bfloat16 and dim % 64 == 0
+            and hidden % 64 == 0 and -(-(x.numel() // dim) // 128) <= 65535)
+
+
 def fused_ff_residual(x, gamma, w1, b1, w2, b2, *, beta=None, norm="rms", act="gelu",
                       out_scale=1.0):
     """x (tokens, dim) -> x + out_scale·(W₂·act(W₁·norm(x)+b₁)+b₂): kernel K2.

@@ -100,9 +100,20 @@ def test_convert_raises_on_missing_key():
 @pytest.mark.parametrize("flag", [{"use_fno": True}, {"use_value_residual_learning": True},
                                   {"num_residual_streams": 2}])
 def test_unported_variants_raise(flag):
+    """``use_fno`` is the one variant left to port and raises; the value
+    residual and the residual streams build and run."""
     cfg = AttrDict({"model": bs_model_cfg(**flag)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bs_roformer.init(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator().manual_seed(0)
+    if "use_fno" in flag:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            bs_roformer.init(gen, cfg)
+        return
+    params = bs_roformer.init(gen, cfg)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 2, 1280))
+                         .astype(np.float32) * 0.1)
+    out = bs_roformer.apply(params, cfg, x)
+    assert out.shape == (1, 2, 2, 1280) and bool(torch.isfinite(out).all())
+    assert float(out.abs().max()) > 0
 
 
 def test_registry_knows_only_ported_models():

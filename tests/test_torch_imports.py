@@ -24,11 +24,13 @@ def test_every_module_imports_with_jax_blocked():
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     names = set(r.stdout.split())
-    assert len(names) >= 30
+    assert len(names) >= 35
     assert {f"sesa_tpu_torch.{m}" for m in (
         "ops.mel", "ops.convblock", "models.conformer_core", "models.mel_band_roformer",
         "models.mel_band_conformer", "models.apollo", "postprocess", "postprocess.ensemble",
-        "postprocess.phase_fixer", "apollo_processing", "audio_io")} <= names
+        "postprocess.phase_fixer", "apollo_processing", "audio_io", "ops.ssd",
+        "models.hyper_connections", "models.bs_roformer_experimental",
+        "models.mel_band_roformer_experimental", "models.bs_mamba2")} <= names
 
 
 def test_sources_name_no_jax_package():
