@@ -1,0 +1,140 @@
+"""Time kernels K2 and K3 of two trees of the repository against each other
+on one NVIDIA GPU, in turns.
+
+    git archive <commit> | tar -x -C chip_parent    # the base tree (gitignored)
+    python3 chip_ab.py --base chip_parent --pairs 4
+
+Each turn is a subprocess that imports ``sesa_tpu_torch`` from one tree
+(``--base`` or this checkout), builds that tree's K2 and K3 libraries, makes
+the inputs of ``chip_smoke.py``'s kernels phase from one seed at the main
+paths' shapes (K2 at the flagship's 256,680 x 512 -> 2048 rms/GELU form and
+the mel-band conformer's 248,400 x 384 -> 1536 ln/SiLU/0.5 form; K3 at BH
+2976 x S 690 x D 64 through strided views), checks each kernel against its
+plain version, and times it with CUDA events, beside the library yardsticks
+(the F.linear composites, SDPA under each backend). Turns run base, new,
+new, base, base, new, ... so that drift of the card falls on both trees.
+Prints each turn, the median and range of each kernel by tree, and last the
+card's name and power limit; writes everything to chiprun_out/chip_ab.json.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def worker(tree: str) -> None:
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    import sesa_tpu_torch
+    from sesa_tpu_torch.ops import _build
+
+    if not os.path.abspath(sesa_tpu_torch.__file__).startswith(os.path.abspath(tree)):
+        raise RuntimeError(f"imported {sesa_tpu_torch.__file__}, not the tree {tree}")
+    # this checkout's chip_smoke.py (the base tree may hold an older one)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from sesa_tpu_torch.ops.attention import vmem_attention, vmem_attention_plain
+    from sesa_tpu_torch.ops.ff import fused_ff_residual, fused_ff_residual_plain
+    from sesa_tpu_torch.ops.rope import apply_rope, default_freqs, rope_tables
+
+    _build.build_all(["ff", "vmem_attention"])
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(6)
+    res = {"tree": tree}
+    for form, tokens, d in (("rms", cs.TOKENS, 512), ("ln", cs.MEL_TOKENS, 384)):
+        hidden = 4 * d
+        x = torch.randn((tokens, d), generator=gen).to(dev, torch.bfloat16)
+        args = (x, cs._near_one(gen, d, dev), cs._weights(gen, (hidden, d), d, dev),
+                cs._weights(gen, (hidden,), d, dev), cs._weights(gen, (d, hidden), hidden, dev),
+                cs._weights(gen, (d,), hidden, dev))
+        if form == "rms":
+            kw, lib, key = {}, (lambda: cs.k2_library(*args)), "K2"
+        else:
+            beta = cs._weights(gen, d, 100, dev)
+            kw = dict(beta=beta, norm="ln", act="swish", out_scale=0.5)
+            lib, key = (lambda: cs.k2ln_library(*args, beta)), "K2ln"
+        cs.compare(f"{tree} {key}", fused_ff_residual(*args, **kw),
+                   fused_ff_residual_plain(*args, **kw), x)
+        res[key] = cs.time_ms(lambda: fused_ff_residual(*args, **kw), reps=20, warmup=3)
+        res[key + "_library"] = cs.time_ms(lib, reps=20, warmup=3)
+        del x, args
+        torch.cuda.empty_cache()
+    heads, dh, n, b = 8, 64, cs.FRAMES, cs.BATCH * cs.BANDS
+    qkv = torch.randn((b * n, 3 * heads * dh), generator=gen).to(dev, torch.bfloat16)
+    rope = tuple(r.to(dev, torch.bfloat16)
+                 for r in rope_tables(torch.from_numpy(default_freqs(dh)).to(dev), n))
+    q, k, v = qkv.reshape(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
+    q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+    cs.compare(f"{tree} K3", vmem_attention(q, k, v, dh ** -0.5),
+               vmem_attention_plain(q, k, v, dh ** -0.5), torch.zeros((), device=dev))
+    res["K3"] = cs.time_ms(lambda: vmem_attention(q, k, v, dh ** -0.5), reps=20, warmup=3)
+    lib = cs.k3_library(q, k, v, dh ** -0.5)
+    res["K3_library"], res["K3_library_name"] = lib["library_ms"], lib["library"]
+    res["K3_sdpa_ms"] = lib["sdpa_ms"]
+    print("AB " + json.dumps(res), flush=True)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--base", help="the base tree (e.g. the parent commit, unpacked)")
+    parser.add_argument("--pairs", type=int, default=4)
+    parser.add_argument("--worker", help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    if args.worker:
+        worker(args.worker)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device visible", file=sys.stderr)
+        return 1
+    if not args.base or not os.path.isdir(os.path.join(args.base, "sesa_tpu_torch")):
+        parser.error("--base must name a tree that holds sesa_tpu_torch/")
+    order = []
+    for i in range(args.pairs):
+        order += [args.base, HERE] if i % 2 == 0 else [HERE, args.base]
+    turns = []
+    for tree in order:
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree],
+                           capture_output=True, text=True, timeout=600)
+        sys.stdout.write(r.stdout)
+        if r.returncode != 0:
+            sys.stderr.write(r.stderr[-4000:])
+            raise RuntimeError(f"turn on {tree} failed ({r.returncode})")
+        turns.append(next(json.loads(line[3:]) for line in r.stdout.splitlines()
+                          if line.startswith("AB ")))
+    summary = {}
+    for name, tree in (("base", args.base), ("new", HERE)):
+        mine = [t for t in turns if t["tree"] == tree]
+        summary[name] = {k: dict(median=statistics.median(t[k] for t in mine),
+                                 lo=min(t[k] for t in mine), hi=max(t[k] for t in mine))
+                         for k in ("K2", "K2_library", "K2ln", "K2ln_library", "K3",
+                                   "K3_library")}
+    for k in ("K2", "K2ln", "K3"):
+        b, nw = summary["base"][k], summary["new"][k]
+        lib = summary["new"][k + "_library"]
+        print(f"{k}: base {b['median']:.3f} [{b['lo']:.3f}-{b['hi']:.3f}] ms, "
+              f"new {nw['median']:.3f} [{nw['lo']:.3f}-{nw['hi']:.3f}] ms, "
+              f"library {lib['median']:.3f} [{lib['lo']:.3f}-{lib['hi']:.3f}] ms")
+    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.strip()
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "chip_ab.json"), "w") as f:
+        json.dump(dict(card=card, order=order, turns=turns, summary=summary), f, indent=1)
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                 # every phase: the check of the port
     python3 chip_smoke.py --kernels-only  # phases 1-2, a first check of new kernels
+    python3 chip_smoke.py --kernels-only --only K2,K3  # phases 1-2 for those kernels only
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
@@ -16,11 +17,15 @@ and prints no result line):
    block), K7 (packed-qkv rope attention) and K8 (Mamba-2 SSD scan, bf16 and
    f32), holds each against its plain PyTorch version on the same inputs,
    times the kernel, the plain version and a library composite (cuBLAS,
-   SDPA, cuDNN, the einsum scan), and computes each kernel's bound from its
-   shapes. K3 to K8 are also checked at small ragged shapes (other head
-   widths, clipping, short and even kernels, partial and no rope, sequences
-   beyond one tile, one and three chunks, an impulse the state must carry,
-   fast decays).
+   SDPA under its fastest backend of flash, cuDNN and efficient, cuDNN, the
+   einsum scan), and computes each kernel's bound from its shapes; K2's
+   rows also give device time by kernel, ours and the composite's. K2 is
+   also checked at token counts that leave its last tile part empty, K3 at
+   the edges of its gate (S 256, 257, 1000, 2048) for D 32, 64 and 128, and
+   K4 to K8 at small ragged shapes (other head widths, clipping, short and
+   even kernels, partial and no rope, sequences beyond one tile, one and
+   three chunks, an impulse the state must carry, fast decays). With
+   ``--only``, phases 1-2 build and check just the kernels named.
 3. flagship: separates a generated 60 s stereo song through
    ``sesa_tpu_torch.cli.main`` with the flagship bs_roformer (dim 512,
    depth 12, 8 heads x 64, seeded weights) in bf16, and checks the stems,
@@ -155,6 +160,24 @@ def time_ms(fn, reps=5, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def device_breakdown(fn, calls=3):
+    """Device ms per call by kernel over ``calls`` warm calls (torch.profiler,
+    kernel rows only), largest first: [(ms, launches per call, name), ...]."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(getattr(e, "self_device_time_total", 0) / 1e3 / calls, e.count / calls, e.key)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sorted((r for r in rows if r[0] > 0), reverse=True)
+
+
 def compare(name, out, ref, x):
     """max |out - ref| and the rms error relative to the branch ref - x."""
     o, r, xf = out.float(), ref.float(), x.float()
@@ -269,6 +292,26 @@ def k2ln_library(x, gamma, w1, b1, w2, b2, beta):
     return F.linear(F.silu(F.linear(xn, w1, b1)), w2, b2) * 0.5 + x
 
 
+def k3_library(q, k, v, scale):
+    """SDPA under each backend that runs these inputs; the fastest is the
+    yardstick: {"library_ms": ms, "library": "SDPA <backend>", "sdpa_ms": {...}}."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    times = {}
+    for name, backend in (("flash", SDPBackend.FLASH_ATTENTION),
+                          ("cudnn", SDPBackend.CUDNN_ATTENTION),
+                          ("efficient", SDPBackend.EFFICIENT_ATTENTION)):
+        try:
+            with sdpa_kernel(backend):
+                times[name] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        except RuntimeError as e:  # a backend that does not take these inputs on this card
+            log(f"  K3 yardstick: SDPA {name} does not run here ({str(e).splitlines()[0]})")
+    best = min(times, key=times.get)
+    log(f"  K3 yardstick: SDPA by backend {times} ms; fastest {best}")
+    return dict(library_ms=times[best], library=f"SDPA {best}", sdpa_ms=times)
+
+
 def k4_library(x, ln_w, ln_b, wqkv, rel, wo, bo, heads):
     """LayerNorm, cuBLAS qkv, the Shaw bias as torch.matmul against the
     gathered (n, n, dh) table, SDPA with that bias as attn_mask, cuBLAS out;
@@ -348,18 +391,24 @@ def k7_library(qkv, heads, scale, rope):
 # phases
 # ---------------------------------------------------------------------------
 
-def phase_build():
+# the library that holds each kernel (--only builds just those)
+LIBRARIES = {"K1": "attention", "K2": "ff", "K3": "vmem_attention", "K4": "conformer_attention",
+             "K5": "convblock", "K6": "apollo_conv", "K7": "rope_attention", "K8": "ssd"}
+
+
+def phase_build(names=None):
     from sesa_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    per_lib = _build.build_all()
+    per_lib = _build.build_all(names)
     log(f"[build] {time.perf_counter() - t0:.1f}s wall; per library "
         f"{ {k: round(v, 1) for k, v in per_lib.items()} } into {_build.build_dir()}")
-    for name in _build.SIGNATURES:
+    for name in names or _build.SIGNATURES:
         path = os.path.join(_build.build_dir(), f"lib{name}.log")
         if os.path.exists(path):
             for line in open(path):
-                if "Used" in line or "spill" in line.lower() and "0 bytes" not in line:
+                # all of the compiler's report for the few libraries of --only
+                if names or "Used" in line or "spill" in line.lower() and "0 bytes" not in line:
                     log(f"  {name}: {line.strip()}")
         _build.load(name)
 
@@ -431,7 +480,8 @@ def _k4_args(gen, b, n, d, heads, dh, max_pos, device):
             _weights(gen, d, hd, device), heads)
 
 
-def phase_kernels():
+def phase_kernels(only=None):
+    """Each kernel's rows (all, or the kernels in ``only``, e.g. {"K2", "K3"})."""
     import torch
 
     import torch.nn.functional as F
@@ -451,336 +501,362 @@ def phase_kernels():
     gen = torch.Generator().manual_seed(1)
     rows = []
 
-    # K1 at the flagship shapes
-    d, heads, dh = FLAGSHIP_MODEL["dim"], FLAGSHIP_MODEL["heads"], FLAGSHIP_MODEL["dim_head"]
-    hd = heads * dh
-    gamma = _near_one(gen, d, dev)
-    wqkv = _weights(gen, (3 * hd, d), d, dev)
-    wg, bg = _weights(gen, (heads, d), d, dev), _weights(gen, (heads,), d, dev)
-    wo = _weights(gen, (d, hd), hd, dev)
-    for leg, b, n in (("time", BATCH * BANDS, FRAMES), ("freq", BATCH * FRAMES, BANDS)):
-        # rms_norm makes the branch independent of the scale of x; a smaller
-        # x keeps the rounding of the residual add from hiding the branch
-        x = (0.5 * torch.randn((b, n, d), generator=gen)).to(dev, torch.bfloat16)
-        rope = tuple(r.to(dev, torch.bfloat16)
-                     for r in rope_tables(torch.from_numpy(default_freqs(dh)).to(dev), n))
-        args = (x, gamma, wqkv, wg, bg, wo, heads, dh ** -0.5)
-        out = fused_attention_block(*args, rope=rope)
-        torch.cuda.synchronize()
-        ref = fused_attention_block_plain(*args, rope=rope)
-        err = compare(f"K1 {leg} leg (b={b}, n={n})", out, ref, x)
-        del out, ref
-        ms = time_ms(lambda: fused_attention_block(*args, rope=rope))
-        plain_ms = time_ms(lambda: fused_attention_block_plain(*args, rope=rope), reps=2, warmup=1)
-        lib_ms = time_ms(lambda: k1_library(*args, rope))
-        tokens = b * n
-        flops = 2 * tokens * d * (3 * hd + heads + hd) + 4 * b * heads * n * n * dh
-        nbytes = 2 * (2 * tokens * d + (3 * hd + heads + hd) * d + heads + d + 2 * n * dh)
-        rows.append(dict(name=f"fused_attention_block ({leg} leg, b={b}, n={n})",
-                         route="cuda", source="sesa_tpu_torch/csrc/attention.cu",
-                         replaces="sesa_tpu/ops/attention.py:461", max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         **_bound(flops, nbytes), kernel="K1"))
-
-        # the value-residual modes: mode 1 (first layer: with the residual,
-        # returns the pre-mix V) and mode 2 (later layers: V lerped toward a
-        # given V by the per-head mix, no residual)
-        wvr, bvr = _weights(gen, (heads, d), d, dev), _weights(gen, (heads,), d, dev)
-        v_first = torch.randn((b, n, hd), generator=gen).to(dev, torch.bfloat16)
-        for mode, vr, resid in ((1, (None, None, None), True), (2, (wvr, bvr, v_first), False)):
-            kw = dict(rope=rope, vr=vr, add_residual=resid)
-            out, v_pre = fused_attention_block(*args, **kw)
-            torch.cuda.synchronize()
-            ref, ref_v = fused_attention_block_plain(*args, **kw)
-            base = x if resid else torch.zeros((), device=dev)
-            err = compare(f"K1 mode {mode} {leg} leg (b={b}, n={n})", out, ref, base)
-            compare(f"K1 mode {mode} {leg} leg, pre-mix V", v_pre, ref_v,
-                    torch.zeros((), device=dev))
-            del out, ref, v_pre, ref_v
-            extra = 0 if mode == 1 else tokens * hd + heads * d + heads  # v_first, wvr, bvr
-            rows.append(dict(
-                name=f"fused_attention_block vr mode {mode}, "
-                     f"{'with' if resid else 'no'} residual ({leg} leg, b={b}, n={n})",
-                route="cuda", source="sesa_tpu_torch/csrc/attention.cu",
-                replaces="sesa_tpu/ops/attention.py:461", max_abs_err=err,
-                ms=time_ms(lambda: fused_attention_block(*args, **kw)),
-                plain_ms=time_ms(lambda: fused_attention_block_plain(*args, **kw), reps=2,
-                                 warmup=1),
-                library_ms=time_ms(lambda: k1_vr_library(*args, rope, vr, resid)),
-                **_bound(flops + (2 * tokens * d * heads if mode == 2 else 0),
-                         nbytes + 2 * (tokens * hd + extra)),
-                kernel=f"K1m{mode}"))
-        del x, v_first
-        torch.cuda.empty_cache()
-
-    # K2, both forms: roformer at the flagship shape, conformer at the mel one
-    for form, tokens, d in (("rms", TOKENS, FLAGSHIP_MODEL["dim"]),
-                            ("ln", MEL_TOKENS, MELCONF_MODEL["dim"])):
-        hidden = 4 * d
-        x = torch.randn((tokens, d), generator=gen).to(dev, torch.bfloat16)
-        w1, b1 = _weights(gen, (hidden, d), d, dev), _weights(gen, (hidden,), d, dev)
-        w2, b2 = _weights(gen, (d, hidden), hidden, dev), _weights(gen, (d,), hidden, dev)
-        args = (x, _near_one(gen, d, dev), w1, b1, w2, b2)
-        if form == "rms":
-            kw, lib, label, key = {}, lambda: k2_library(*args), "rms/GELU", "K2"
-        else:
-            beta = _weights(gen, d, 100, dev)
-            kw = dict(beta=beta, norm="ln", act="swish", out_scale=0.5)
-            lib, label, key = lambda: k2ln_library(*args, beta), "ln/SiLU/0.5", "K2ln"
-        out = fused_ff_residual(*args, **kw)
-        torch.cuda.synchronize()
-        err = compare(f"K2 {label} (tokens={tokens}, d={d}, hidden={hidden})", out,
-                      fused_ff_residual_plain(*args, **kw), x)
-        del out
-        rows.append(dict(name=f"fused_ff_residual {label} (tokens={tokens}, d={d}, "
-                              f"hidden={hidden})",
-                         route="cuda", source="sesa_tpu_torch/csrc/ff.cu",
-                         replaces="sesa_tpu/ops/ff.py:74", max_abs_err=err,
-                         ms=time_ms(lambda: fused_ff_residual(*args, **kw)),
-                         plain_ms=time_ms(lambda: fused_ff_residual_plain(*args, **kw), reps=2,
-                                          warmup=1),
-                         library_ms=time_ms(lib),
-                         **_bound(4 * tokens * d * hidden,
-                                  2 * (2 * tokens * d + 2 * hidden * d + hidden + 3 * d)),
-                         kernel=key))
-        del x, args
-        torch.cuda.empty_cache()
-
-    # K4 and K5 at the mel-band conformer shapes
-    d, heads, dh, max_pos, k = MELCONF_MODEL["dim"], 8, 64, 512, 31
-    hd, e = heads * dh, 2 * d
-    conv_p = _conv_params(gen, d, e, k, dev)
-    for leg, b, n in (("time", BATCH * MEL_BANDS, FRAMES), ("freq", BATCH * FRAMES, MEL_BANDS)):
-        args = _k4_args(gen, b, n, d, heads, dh, max_pos, dev)
-        x, tokens = args[0], b * n
-        out = fused_conformer_attention(*args)
-        torch.cuda.synchronize()
-        err = compare(f"K4 {leg} leg (b={b}, n={n})", out, fused_conformer_attention_plain(*args),
-                      x)
-        del out
-        flops = 2 * tokens * d * 4 * hd + 6 * b * heads * n * n * dh
-        nbytes = 2 * (2 * tokens * d + 4 * hd * d + 3 * d + (2 * max_pos + 1) * dh)
-        rows.append(dict(name=f"fused_conformer_attention ({leg} leg, b={b}, n={n})",
-                         route="cuda", source="sesa_tpu_torch/csrc/conformer_attention.cu",
-                         replaces="sesa_tpu/ops/attention.py:641", max_abs_err=err,
-                         ms=time_ms(lambda: fused_conformer_attention(*args)),
-                         plain_ms=time_ms(lambda: fused_conformer_attention_plain(*args),
-                                          reps=2, warmup=1),
-                         library_ms=time_ms(lambda: k4_library(*args)),
-                         **_bound(flops, nbytes), kernel="K4"))
-        torch.cuda.empty_cache()
-
-        out = fused_conformer_conv(x, conv_p)
-        torch.cuda.synchronize()
-        err = compare(f"K5 {leg} leg (b={b}, n={n})", out, fused_conformer_conv_plain(x, conv_p),
-                      x)
-        del out
-        flops = 2 * tokens * (d * 2 * e + e * d) + 2 * tokens * k * e
-        nbytes = 2 * (2 * tokens * d + 3 * d * e + k * e + 4 * e + 3 * d)
-        rows.append(dict(name=f"fused_conformer_conv ({leg} leg, b={b}, n={n}, k={k})",
-                         route="cuda", source="sesa_tpu_torch/csrc/convblock.cu",
-                         replaces="sesa_tpu/ops/convblock.py:110", max_abs_err=err,
-                         ms=time_ms(lambda: fused_conformer_conv(x, conv_p)),
-                         plain_ms=time_ms(lambda: fused_conformer_conv_plain(x, conv_p),
-                                          reps=2, warmup=1),
-                         library_ms=time_ms(lambda: k5_library(x, conv_p)),
-                         **_bound(flops, nbytes), kernel="K5"))
-        del args, x
-        torch.cuda.empty_cache()
-
-    # K4 and K5 at small ragged shapes: the other head widths, clipping of the
-    # Shaw distances, short sequences, a short and an even conv kernel
-    for b, n, d, heads, dh, max_pos in ((3, 130, 64, 2, 32, 64), (5, 40, 64, 2, 32, 16),
-                                        (2, 70, 128, 1, 128, 512), (2, 200, 128, 2, 64, 80)):
-        args = _k4_args(gen, b, n, d, heads, dh, max_pos, dev)
-        compare(f"K4 small (b={b}, n={n}, d={d}, {heads}x{dh}, P={max_pos})",
-                fused_conformer_attention(*args), fused_conformer_attention_plain(*args),
-                args[0])
-    for b, n, d, k in ((3, 100, 64, 7), (2, 33, 128, 8), (4, 64, 64, 31)):
-        p = _conv_params(gen, d, 2 * d, k, dev)
-        x = (0.5 * torch.randn((b, n, d), generator=gen)).to(dev, torch.bfloat16)
-        compare(f"K5 small (b={b}, n={n}, d={d}, k={k})", fused_conformer_conv(x, p),
-                fused_conformer_conv_plain(x, p), x)
-    torch.cuda.synchronize()
-
-    # K6 at Apollo's shape: 4 x 80 band sequences of 1901 frames, d 256, k 7
-    b, n, d, k = APOLLO_BPRIME * APOLLO_BANDS, APOLLO_FRAMES, APOLLO_MODEL["feature_dim"], 7
-    tokens, hidden = b * n, 4 * d
-    p = _apollo_conv_params(gen, d, k, dev)
-    x = (0.5 * torch.randn((b, n, d), generator=gen)).to(dev, torch.bfloat16)
-    out = fused_apollo_conv(x, p)
-    torch.cuda.synchronize()
-    err = compare(f"K6 (b={b}, n={n}, d={d}, k={k})", out, fused_apollo_conv_plain(x, p), x)
-    del out
-    torch.cuda.empty_cache()
-    rows.append(dict(name=f"fused_apollo_conv (b={b}, n={n}, d={d}, hidden={hidden}, k={k})",
-                     route="cuda", source="sesa_tpu_torch/csrc/apollo_conv.cu",
-                     replaces="sesa_tpu/ops/convblock.py:200", max_abs_err=err,
-                     ms=time_ms(lambda: fused_apollo_conv(x, p)),
-                     plain_ms=time_ms(lambda: fused_apollo_conv_plain(x, p), reps=2, warmup=1),
-                     library_ms=time_ms(lambda: k6_library(x, p)),
-                     **_bound(2 * tokens * 2 * d * hidden + 2 * tokens * k * d,
-                              2 * (2 * tokens * d + 2 * d * hidden + k * d + 3 * d + hidden)),
-                     kernel="K6"))
-    del x
-    torch.cuda.empty_cache()
-
-    # K7 at Apollo's shape: 4 x 1901 frame sequences of 80 bands, 8 heads x 32
-    b, n, heads, dh = APOLLO_BPRIME * APOLLO_FRAMES, APOLLO_BANDS, 8, d // 8
-    args = _k7_args(gen, b, n, heads, dh, dh, dev)
     zero = torch.zeros((), device=dev)
-    out = fused_rope_attention(*args)
-    torch.cuda.synchronize()
-    err = compare(f"K7 (b={b}, n={n}, {heads}x{dh})", out, fused_rope_attention_plain(*args),
-                  zero)
-    del out
-    torch.cuda.empty_cache()
-    rows.append(dict(name=f"fused_rope_attention (b={b}, n={n}, {heads} heads x {dh}, rope {dh})",
-                     route="cuda", source="sesa_tpu_torch/csrc/rope_attention.cu",
-                     replaces="sesa_tpu/ops/attention.py:280", max_abs_err=err,
-                     ms=time_ms(lambda: fused_rope_attention(*args)),
-                     plain_ms=time_ms(lambda: fused_rope_attention_plain(*args), reps=2,
-                                      warmup=1),
-                     library_ms=time_ms(lambda: k7_library(*args)),
-                     **_bound(4 * b * heads * n * n * dh,
-                              2 * (b * n * 4 * heads * dh + 2 * n * dh)),
-                     kernel="K7"))
-    del args
-    torch.cuda.empty_cache()
+
+    def want(key):
+        return only is None or key in only
+
+    if want("K1"):
+        # K1 at the flagship shapes
+        d, heads, dh = FLAGSHIP_MODEL["dim"], FLAGSHIP_MODEL["heads"], FLAGSHIP_MODEL["dim_head"]
+        hd = heads * dh
+        gamma = _near_one(gen, d, dev)
+        wqkv = _weights(gen, (3 * hd, d), d, dev)
+        wg, bg = _weights(gen, (heads, d), d, dev), _weights(gen, (heads,), d, dev)
+        wo = _weights(gen, (d, hd), hd, dev)
+        for leg, b, n in (("time", BATCH * BANDS, FRAMES), ("freq", BATCH * FRAMES, BANDS)):
+            # rms_norm makes the branch independent of the scale of x; a smaller
+            # x keeps the rounding of the residual add from hiding the branch
+            x = (0.5 * torch.randn((b, n, d), generator=gen)).to(dev, torch.bfloat16)
+            rope = tuple(r.to(dev, torch.bfloat16)
+                         for r in rope_tables(torch.from_numpy(default_freqs(dh)).to(dev), n))
+            args = (x, gamma, wqkv, wg, bg, wo, heads, dh ** -0.5)
+            out = fused_attention_block(*args, rope=rope)
+            torch.cuda.synchronize()
+            ref = fused_attention_block_plain(*args, rope=rope)
+            err = compare(f"K1 {leg} leg (b={b}, n={n})", out, ref, x)
+            del out, ref
+            ms = time_ms(lambda: fused_attention_block(*args, rope=rope))
+            plain_ms = time_ms(lambda: fused_attention_block_plain(*args, rope=rope), reps=2,
+                               warmup=1)
+            lib_ms = time_ms(lambda: k1_library(*args, rope))
+            tokens = b * n
+            flops = 2 * tokens * d * (3 * hd + heads + hd) + 4 * b * heads * n * n * dh
+            nbytes = 2 * (2 * tokens * d + (3 * hd + heads + hd) * d + heads + d + 2 * n * dh)
+            rows.append(dict(name=f"fused_attention_block ({leg} leg, b={b}, n={n})",
+                             route="cuda", source="sesa_tpu_torch/csrc/attention.cu",
+                             replaces="sesa_tpu/ops/attention.py:461", max_abs_err=err,
+                             ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             **_bound(flops, nbytes), kernel="K1"))
+
+            # the value-residual modes: mode 1 (first layer: with the residual,
+            # returns the pre-mix V) and mode 2 (later layers: V lerped toward a
+            # given V by the per-head mix, no residual)
+            wvr, bvr = _weights(gen, (heads, d), d, dev), _weights(gen, (heads,), d, dev)
+            v_first = torch.randn((b, n, hd), generator=gen).to(dev, torch.bfloat16)
+            for mode, vr, resid in ((1, (None, None, None), True), (2, (wvr, bvr, v_first), False)):
+                kw = dict(rope=rope, vr=vr, add_residual=resid)
+                out, v_pre = fused_attention_block(*args, **kw)
+                torch.cuda.synchronize()
+                ref, ref_v = fused_attention_block_plain(*args, **kw)
+                base = x if resid else torch.zeros((), device=dev)
+                err = compare(f"K1 mode {mode} {leg} leg (b={b}, n={n})", out, ref, base)
+                compare(f"K1 mode {mode} {leg} leg, pre-mix V", v_pre, ref_v,
+                        torch.zeros((), device=dev))
+                del out, ref, v_pre, ref_v
+                extra = 0 if mode == 1 else tokens * hd + heads * d + heads  # v_first, wvr, bvr
+                rows.append(dict(
+                    name=f"fused_attention_block vr mode {mode}, "
+                         f"{'with' if resid else 'no'} residual ({leg} leg, b={b}, n={n})",
+                    route="cuda", source="sesa_tpu_torch/csrc/attention.cu",
+                    replaces="sesa_tpu/ops/attention.py:461", max_abs_err=err,
+                    ms=time_ms(lambda: fused_attention_block(*args, **kw)),
+                    plain_ms=time_ms(lambda: fused_attention_block_plain(*args, **kw), reps=2,
+                                     warmup=1),
+                    library_ms=time_ms(lambda: k1_vr_library(*args, rope, vr, resid)),
+                    **_bound(flops + (2 * tokens * d * heads if mode == 2 else 0),
+                             nbytes + 2 * (tokens * hd + extra)),
+                    kernel=f"K1m{mode}"))
+            del x, v_first
+            torch.cuda.empty_cache()
+
+    if want("K2"):
+        # K2, both forms: roformer at the flagship shape, conformer at the mel one
+        for form, tokens, d in (("rms", TOKENS, FLAGSHIP_MODEL["dim"]),
+                                ("ln", MEL_TOKENS, MELCONF_MODEL["dim"])):
+            hidden = 4 * d
+            x = torch.randn((tokens, d), generator=gen).to(dev, torch.bfloat16)
+            w1, b1 = _weights(gen, (hidden, d), d, dev), _weights(gen, (hidden,), d, dev)
+            w2, b2 = _weights(gen, (d, hidden), hidden, dev), _weights(gen, (d,), hidden, dev)
+            args = (x, _near_one(gen, d, dev), w1, b1, w2, b2)
+            if form == "rms":
+                kw, lib, label, key = {}, lambda: k2_library(*args), "rms/GELU", "K2"
+            else:
+                beta = _weights(gen, d, 100, dev)
+                kw = dict(beta=beta, norm="ln", act="swish", out_scale=0.5)
+                lib, label, key = lambda: k2ln_library(*args, beta), "ln/SiLU/0.5", "K2ln"
+            out = fused_ff_residual(*args, **kw)
+            torch.cuda.synchronize()
+            err = compare(f"K2 {label} (tokens={tokens}, d={d}, hidden={hidden})", out,
+                          fused_ff_residual_plain(*args, **kw), x)
+            del out
+            rows.append(dict(name=f"fused_ff_residual {label} (tokens={tokens}, d={d}, "
+                                  f"hidden={hidden})",
+                             route="cuda", source="sesa_tpu_torch/csrc/ff.cu",
+                             replaces="sesa_tpu/ops/ff.py:74", max_abs_err=err,
+                             ms=time_ms(lambda: fused_ff_residual(*args, **kw)),
+                             plain_ms=time_ms(lambda: fused_ff_residual_plain(*args, **kw), reps=2,
+                                              warmup=1),
+                             library_ms=time_ms(lib),
+                             **_bound(4 * tokens * d * hidden,
+                                      2 * (2 * tokens * d + 2 * hidden * d + hidden + 3 * d)),
+                             kernel=key))
+            for what, fn in (("kernel", lambda: fused_ff_residual(*args, **kw)),
+                             ("library", lib)):
+                parts = device_breakdown(fn)
+                rows[-1][f"{what}_breakdown"] = parts
+                log(f"  K2 {label} {what} by kernel: " + "; ".join(
+                    f"{name[:60]} {ms:.3f} ms x{n:g}" for ms, n, name in parts))
+            # token counts that leave the last 128-row tile part empty
+            for ragged in (1, 257, 1000):
+                xr = x[:ragged].clone()
+                compare(f"K2 {label} ragged (tokens={ragged}, d={d})",
+                        fused_ff_residual(xr, *args[1:], **kw),
+                        fused_ff_residual_plain(xr, *args[1:], **kw), xr)
+            del x, args
+            torch.cuda.empty_cache()
+
+    if want("K4") or want("K5"):
+        # K4 and K5 at the mel-band conformer shapes
+        d, heads, dh, max_pos, k = MELCONF_MODEL["dim"], 8, 64, 512, 31
+        hd, e = heads * dh, 2 * d
+        conv_p = _conv_params(gen, d, e, k, dev)
+        for leg, b, n in (("time", BATCH * MEL_BANDS, FRAMES), ("freq", BATCH * FRAMES, MEL_BANDS)):
+            args = _k4_args(gen, b, n, d, heads, dh, max_pos, dev)
+            x, tokens = args[0], b * n
+            out = fused_conformer_attention(*args)
+            torch.cuda.synchronize()
+            err = compare(f"K4 {leg} leg (b={b}, n={n})", out,
+                          fused_conformer_attention_plain(*args), x)
+            del out
+            flops = 2 * tokens * d * 4 * hd + 6 * b * heads * n * n * dh
+            nbytes = 2 * (2 * tokens * d + 4 * hd * d + 3 * d + (2 * max_pos + 1) * dh)
+            rows.append(dict(name=f"fused_conformer_attention ({leg} leg, b={b}, n={n})",
+                             route="cuda", source="sesa_tpu_torch/csrc/conformer_attention.cu",
+                             replaces="sesa_tpu/ops/attention.py:641", max_abs_err=err,
+                             ms=time_ms(lambda: fused_conformer_attention(*args)),
+                             plain_ms=time_ms(lambda: fused_conformer_attention_plain(*args),
+                                              reps=2, warmup=1),
+                             library_ms=time_ms(lambda: k4_library(*args)),
+                             **_bound(flops, nbytes), kernel="K4"))
+            torch.cuda.empty_cache()
+
+            out = fused_conformer_conv(x, conv_p)
+            torch.cuda.synchronize()
+            err = compare(f"K5 {leg} leg (b={b}, n={n})", out,
+                          fused_conformer_conv_plain(x, conv_p), x)
+            del out
+            flops = 2 * tokens * (d * 2 * e + e * d) + 2 * tokens * k * e
+            nbytes = 2 * (2 * tokens * d + 3 * d * e + k * e + 4 * e + 3 * d)
+            rows.append(dict(name=f"fused_conformer_conv ({leg} leg, b={b}, n={n}, k={k})",
+                             route="cuda", source="sesa_tpu_torch/csrc/convblock.cu",
+                             replaces="sesa_tpu/ops/convblock.py:110", max_abs_err=err,
+                             ms=time_ms(lambda: fused_conformer_conv(x, conv_p)),
+                             plain_ms=time_ms(lambda: fused_conformer_conv_plain(x, conv_p),
+                                              reps=2, warmup=1),
+                             library_ms=time_ms(lambda: k5_library(x, conv_p)),
+                             **_bound(flops, nbytes), kernel="K5"))
+            del args, x
+            torch.cuda.empty_cache()
+
+        # K4 and K5 at small ragged shapes: the other head widths, clipping of the
+        # Shaw distances, short sequences, a short and an even conv kernel
+        for b, n, d, heads, dh, max_pos in ((3, 130, 64, 2, 32, 64), (5, 40, 64, 2, 32, 16),
+                                            (2, 70, 128, 1, 128, 512), (2, 200, 128, 2, 64, 80)):
+            args = _k4_args(gen, b, n, d, heads, dh, max_pos, dev)
+            compare(f"K4 small (b={b}, n={n}, d={d}, {heads}x{dh}, P={max_pos})",
+                    fused_conformer_attention(*args), fused_conformer_attention_plain(*args),
+                    args[0])
+        for b, n, d, k in ((3, 100, 64, 7), (2, 33, 128, 8), (4, 64, 64, 31)):
+            p = _conv_params(gen, d, 2 * d, k, dev)
+            x = (0.5 * torch.randn((b, n, d), generator=gen)).to(dev, torch.bfloat16)
+            compare(f"K5 small (b={b}, n={n}, d={d}, k={k})", fused_conformer_conv(x, p),
+                    fused_conformer_conv_plain(x, p), x)
+        torch.cuda.synchronize()
+
+    if want("K6"):
+        # K6 at Apollo's shape: 4 x 80 band sequences of 1901 frames, d 256, k 7
+        b, n, d, k = APOLLO_BPRIME * APOLLO_BANDS, APOLLO_FRAMES, APOLLO_MODEL["feature_dim"], 7
+        tokens, hidden = b * n, 4 * d
+        p = _apollo_conv_params(gen, d, k, dev)
+        x = (0.5 * torch.randn((b, n, d), generator=gen)).to(dev, torch.bfloat16)
+        out = fused_apollo_conv(x, p)
+        torch.cuda.synchronize()
+        err = compare(f"K6 (b={b}, n={n}, d={d}, k={k})", out, fused_apollo_conv_plain(x, p), x)
+        del out
+        torch.cuda.empty_cache()
+        rows.append(dict(name=f"fused_apollo_conv (b={b}, n={n}, d={d}, hidden={hidden}, k={k})",
+                         route="cuda", source="sesa_tpu_torch/csrc/apollo_conv.cu",
+                         replaces="sesa_tpu/ops/convblock.py:200", max_abs_err=err,
+                         ms=time_ms(lambda: fused_apollo_conv(x, p)),
+                         plain_ms=time_ms(lambda: fused_apollo_conv_plain(x, p), reps=2, warmup=1),
+                         library_ms=time_ms(lambda: k6_library(x, p)),
+                         **_bound(2 * tokens * 2 * d * hidden + 2 * tokens * k * d,
+                                  2 * (2 * tokens * d + 2 * d * hidden + k * d + 3 * d + hidden)),
+                         kernel="K6"))
+        del x
+        torch.cuda.empty_cache()
+
+    if want("K7"):
+        # K7 at Apollo's shape: 4 x 1901 frame sequences of 80 bands, 8 heads x 32
+        b, n, heads, dh = APOLLO_BPRIME * APOLLO_FRAMES, APOLLO_BANDS, 8, d // 8
+        args = _k7_args(gen, b, n, heads, dh, dh, dev)
+        out = fused_rope_attention(*args)
+        torch.cuda.synchronize()
+        err = compare(f"K7 (b={b}, n={n}, {heads}x{dh})", out, fused_rope_attention_plain(*args),
+                      zero)
+        del out
+        torch.cuda.empty_cache()
+        rows.append(dict(name=f"fused_rope_attention (b={b}, n={n}, {heads} heads x {dh}, "
+                              f"rope {dh})",
+                         route="cuda", source="sesa_tpu_torch/csrc/rope_attention.cu",
+                         replaces="sesa_tpu/ops/attention.py:280", max_abs_err=err,
+                         ms=time_ms(lambda: fused_rope_attention(*args)),
+                         plain_ms=time_ms(lambda: fused_rope_attention_plain(*args), reps=2,
+                                          warmup=1),
+                         library_ms=time_ms(lambda: k7_library(*args)),
+                         **_bound(4 * b * heads * n * n * dh,
+                                  2 * (b * n * 4 * heads * dh + 2 * n * dh)),
+                         kernel="K7"))
+        del args
+        torch.cuda.empty_cache()
 
     # K6 and K7 at small ragged shapes: short and long sequences against the
     # 64-row tile, a 3-tap kernel; no rope, partial rotary, one and three
     # heads, a sequence beyond one key tile, a batch that no grouping divides
-    for n, k in ((62, 7), (100, 3), (257, 7)):
-        p = _apollo_conv_params(gen, 128, k, dev)
-        x = (0.5 * torch.randn((3, n, 128), generator=gen)).to(dev, torch.bfloat16)
-        compare(f"K6 small (b=3, n={n}, d=128, k={k})", fused_apollo_conv(x, p),
-                fused_apollo_conv_plain(x, p), x)
-    for n, heads, dh, rot in ((12, 1, 64, None), (33, 3, 32, 8), (130, 1, 64, 64),
-                              (130, 3, 64, None), (33, 3, 64, 64), (12, 3, 32, 32)):
-        args = _k7_args(gen, 13, n, heads, dh, rot, dev)
-        compare(f"K7 small (b=13, n={n}, {heads}x{dh}, rope {rot})",
-                fused_rope_attention(*args), fused_rope_attention_plain(*args), zero)
+    if want("K6"):
+        for n, k in ((62, 7), (100, 3), (257, 7)):
+            p = _apollo_conv_params(gen, 128, k, dev)
+            x = (0.5 * torch.randn((3, n, 128), generator=gen)).to(dev, torch.bfloat16)
+            compare(f"K6 small (b=3, n={n}, d=128, k={k})", fused_apollo_conv(x, p),
+                    fused_apollo_conv_plain(x, p), x)
+    if want("K7"):
+        for n, heads, dh, rot in ((12, 1, 64, None), (33, 3, 32, 8), (130, 1, 64, 64),
+                                  (130, 3, 64, None), (33, 3, 64, 64), (12, 3, 32, 32)):
+            args = _k7_args(gen, 13, n, heads, dh, rot, dev)
+            compare(f"K7 small (b=13, n={n}, {heads}x{dh}, rope {rot})",
+                    fused_rope_attention(*args), fused_rope_attention_plain(*args), zero)
     torch.cuda.synchronize()
 
-    # K3 at the hyper-connection time leg, as attention_apply hands it over:
-    # permuted views of the qkv projection, q and k through rope
-    heads, dh, n = FLAGSHIP_MODEL["heads"], FLAGSHIP_MODEL["dim_head"], FRAMES
-    b = BATCH * BANDS
-    qkv = torch.randn((b * n, 3 * heads * dh), generator=gen).to(dev, torch.bfloat16)
-    rope = tuple(r.to(dev, torch.bfloat16)
-                 for r in rope_tables(torch.from_numpy(default_freqs(dh)).to(dev), n))
-    q, k, v = qkv.reshape(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
-    q, k = apply_rope(q, *rope), apply_rope(k, *rope)
-    scale = dh ** -0.5
-    out = vmem_attention(q, k, v, scale)
-    torch.cuda.synchronize()
-    err = compare(f"K3 (BH={b * heads}, S={n}, D={dh})", out,
-                  vmem_attention_plain(q, k, v, scale), zero)
-    del out
-    torch.cuda.empty_cache()
-    rows.append(dict(name=f"vmem_attention (BH={b * heads}, S={n}, D={dh}, strided views)",
-                     route="cuda", source="sesa_tpu_torch/csrc/vmem_attention.cu",
-                     replaces="sesa_tpu/ops/attention.py:137", max_abs_err=err,
-                     ms=time_ms(lambda: vmem_attention(q, k, v, scale)),
-                     plain_ms=time_ms(lambda: vmem_attention_plain(q, k, v, scale), reps=2,
-                                      warmup=1),
-                     library_ms=time_ms(
-                         lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
-                     **_bound(4 * b * heads * n * n * dh, 2 * 4 * b * heads * n * dh),
-                     kernel="K3"))
-    # the same on contiguous copies, to tell the cost of the strides
-    qc, kc, vc = (t.contiguous() for t in (q, k, v))
-    rows[-1].update(contiguous_ms=time_ms(lambda: vmem_attention(qc, kc, vc, scale)),
-                    copies_ms=time_ms(lambda: [t.contiguous() for t in (q, k, v)]))
-    log(f"  K3 on contiguous (b, h, s, d) copies: {rows[-1]['contiguous_ms']:.3f} ms; "
-        f"the three copies: {rows[-1]['copies_ms']:.3f} ms")
-    del qkv, q, k, v, qc, kc, vc
-    torch.cuda.empty_cache()
-    # K3 at the edges of its gate and the other head widths, contiguous (BH, S, D)
-    for s_len in (256, 257, 1000, 2048):
-        for dh in (32, 128):
-            q, k, v = (torch.randn((5, s_len, dh), generator=gen).to(dev, torch.bfloat16)
-                       for _ in range(3))
-            compare(f"K3 small (BH=5, S={s_len}, D={dh})", vmem_attention(q, k, v, dh ** -0.5),
-                    vmem_attention_plain(q, k, v, dh ** -0.5), zero)
-    torch.cuda.synchronize()
+    if want("K3"):
+        # K3 at the hyper-connection time leg, as attention_apply hands it over:
+        # permuted views of the qkv projection, q and k through rope
+        heads, dh, n = FLAGSHIP_MODEL["heads"], FLAGSHIP_MODEL["dim_head"], FRAMES
+        b = BATCH * BANDS
+        qkv = torch.randn((b * n, 3 * heads * dh), generator=gen).to(dev, torch.bfloat16)
+        rope = tuple(r.to(dev, torch.bfloat16)
+                     for r in rope_tables(torch.from_numpy(default_freqs(dh)).to(dev), n))
+        q, k, v = qkv.reshape(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
+        q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+        scale = dh ** -0.5
+        out = vmem_attention(q, k, v, scale)
+        torch.cuda.synchronize()
+        err = compare(f"K3 (BH={b * heads}, S={n}, D={dh})", out,
+                      vmem_attention_plain(q, k, v, scale), zero)
+        del out
+        torch.cuda.empty_cache()
+        rows.append(dict(name=f"vmem_attention (BH={b * heads}, S={n}, D={dh}, strided views)",
+                         route="cuda", source="sesa_tpu_torch/csrc/vmem_attention.cu",
+                         replaces="sesa_tpu/ops/attention.py:137", max_abs_err=err,
+                         ms=time_ms(lambda: vmem_attention(q, k, v, scale)),
+                         plain_ms=time_ms(lambda: vmem_attention_plain(q, k, v, scale), reps=2,
+                                          warmup=1),
+                         **k3_library(q, k, v, scale),
+                         **_bound(4 * b * heads * n * n * dh, 2 * 4 * b * heads * n * dh),
+                         kernel="K3"))
+        # the same on contiguous copies, to tell the cost of the strides
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        rows[-1].update(contiguous_ms=time_ms(lambda: vmem_attention(qc, kc, vc, scale)),
+                        copies_ms=time_ms(lambda: [t.contiguous() for t in (q, k, v)]))
+        log(f"  K3 on contiguous (b, h, s, d) copies: {rows[-1]['contiguous_ms']:.3f} ms; "
+            f"the three copies: {rows[-1]['copies_ms']:.3f} ms")
+        del qkv, q, k, v, qc, kc, vc
+        torch.cuda.empty_cache()
+        # K3 at the edges of its gate and the other head widths, contiguous (BH, S, D)
+        for s_len in (256, 257, 1000, 2048):
+            for dh in (32, 64, 128):
+                q, k, v = (torch.randn((5, s_len, dh), generator=gen).to(dev, torch.bfloat16)
+                           for _ in range(3))
+                compare(f"K3 small (BH=5, S={s_len}, D={dh})", vmem_attention(q, k, v, dh ** -0.5),
+                        vmem_attention_plain(q, k, v, dh ** -0.5), zero)
+        torch.cuda.synchronize()
 
-    # K8 at bs_mamba2's two shapes, bf16 (the session's path) and f32 (the
-    # rescue's): band_rnn, sequences of 690 frames padded to 704, and
-    # band_comm, sequences of 57 bands padded to 64
-    def ssd_inputs(bsz, l, h, dtype, a_scale=1.0):
-        x = (0.5 * torch.randn((bsz, l, h, 64), generator=gen)).to(dev, dtype)
-        a = (-a_scale * torch.randn((bsz, l, h), generator=gen).abs()).to(dev, dtype)
-        b, c = ((0.3 * torch.randn((bsz, l, 1, 128), generator=gen)).to(dev, dtype)
-                for _ in range(2))
-        return x, a, b, c
+    if want("K8"):
+        # K8 at bs_mamba2's two shapes, bf16 (the session's path) and f32 (the
+        # rescue's): band_rnn, sequences of 690 frames padded to 704, and
+        # band_comm, sequences of 57 bands padded to 64
+        def ssd_inputs(bsz, l, h, dtype, a_scale=1.0):
+            x = (0.5 * torch.randn((bsz, l, h, 64), generator=gen)).to(dev, dtype)
+            a = (-a_scale * torch.randn((bsz, l, h), generator=gen).abs()).to(dev, dtype)
+            b, c = ((0.3 * torch.randn((bsz, l, 1, 128), generator=gen)).to(dev, dtype)
+                    for _ in range(2))
+            return x, a, b, c
 
-    def compare_ssd(name, out, ref):
-        o, r = out.float(), ref.float()
-        if not bool(o.isfinite().all()):
-            raise RuntimeError(f"{name}: non-finite kernel output")
-        diff, scale = (o - r).abs(), float(r.abs().max())
-        max_err = float(diff.max())
-        if out.dtype == torch.float32:
-            bad = bool((diff > SSD_F32_ATOL + SSD_F32_RTOL * r.abs()).any())
-            bound = f"atol {SSD_F32_ATOL}, rtol {SSD_F32_RTOL}"
-        else:
-            bad = max_err > SSD_BF16_REL * scale
-            bound = f"{SSD_BF16_REL} x the output's largest value"
-        log(f"  {name}: max_abs_err {max_err:.4g} (output max {scale:.4g})")
-        if bad:
-            raise RuntimeError(f"{name}: kernel disagrees with its plain version ({bound})")
-        return max_err
+        def compare_ssd(name, out, ref):
+            o, r = out.float(), ref.float()
+            if not bool(o.isfinite().all()):
+                raise RuntimeError(f"{name}: non-finite kernel output")
+            diff, scale = (o - r).abs(), float(r.abs().max())
+            max_err = float(diff.max())
+            if out.dtype == torch.float32:
+                bad = bool((diff > SSD_F32_ATOL + SSD_F32_RTOL * r.abs()).any())
+                bound = f"atol {SSD_F32_ATOL}, rtol {SSD_F32_RTOL}"
+            else:
+                bad = max_err > SSD_BF16_REL * scale
+                bound = f"{SSD_BF16_REL} x the output's largest value"
+            log(f"  {name}: max_abs_err {max_err:.4g} (output max {scale:.4g})")
+            if bad:
+                raise RuntimeError(f"{name}: kernel disagrees with its plain version ({bound})")
+            return max_err
 
-    for leg, bsz, l in (("band_rnn", BATCH * 2 * MAMBA_BANDS, -(-FRAMES // 64) * 64),
-                        ("band_comm", BATCH * 2 * FRAMES, 64)):
-        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-            args = ssd_inputs(bsz, l, MAMBA_HEADS, dtype)
-            out = ssd_fused(*args)
-            torch.cuda.synchronize()
-            err = compare_ssd(f"K8 {leg} {tag} (B={bsz}, L={l}, H={MAMBA_HEADS})", out,
-                              ssd_plain(*args))
-            del out
-            torch.cuda.empty_cache()
-            # what the function needs per sequence row at chunk 64: C . B^T
-            # once for the heads together (G = 1), per head the masked
-            # product with x, and the two state products only where a state
-            # is read (every chunk but the first) or handed on (every chunk
-            # but the last): none at band_comm's single chunk
-            carried = (l // 64 - 1) / (l // 64)
-            flops = 2 * bsz * l * (64 * 128 + MAMBA_HEADS * (64 * 64 + carried * 2 * 128 * 64))
-            nbytes = args[0].element_size() * bsz * l * (2 * MAMBA_HEADS * 64 + MAMBA_HEADS
-                                                         + 2 * 128)
-            rows.append(dict(name=f"ssd_fused {tag} ({leg}, B={bsz}, L={l}, H={MAMBA_HEADS}, "
-                                  "P=64, N=128, chunk 64"
-                                  + (")" if tag == "bf16" else "; the main path runs bf16)"),
-                             route="cuda", source="sesa_tpu_torch/csrc/ssd.cu",
-                             replaces="sesa_tpu/ops/ssd.py:128", max_abs_err=err,
-                             ms=time_ms(lambda: ssd_fused(*args)),
-                             plain_ms=time_ms(lambda: ssd_plain(*args), reps=2, warmup=1),
-                             library_ms=time_ms(lambda: ssd_einsum(*args), reps=2, warmup=1),
-                             **_bound(flops, nbytes, PEAK_F32_FLOPS),
-                             kernel="K8" if dtype == torch.bfloat16 else "K8f32"))
-            del args
-            torch.cuda.empty_cache()
-    # K8 at small shapes: one and three chunks, fast decays, other head
-    # counts, and the impulse in chunk 0 that the state must carry to the
-    # last chunk
-    for bsz, l, h, a_scale in ((3, 64, 1, 1.0), (2, 192, 3, 3.0), (5, 256, 8, 0.7)):
-        for dtype in (torch.float32, torch.bfloat16):
-            args = ssd_inputs(bsz, l, h, dtype, a_scale)
-            compare_ssd(f"K8 small {dtype} (B={bsz}, L={l}, H={h}, |a| x {a_scale})",
-                        ssd_fused(*args), ssd_plain(*args))
-    x = torch.zeros((1, 192, 1, 64), device=dev)
-    x[0, 3, 0, :] = 1.0
-    a = torch.full((1, 192, 1), -1e-3, device=dev)
-    bc = torch.full((1, 192, 1, 128), 0.1, device=dev)
-    out = ssd_fused(x, a, bc, bc.clone())
-    compare_ssd("K8 impulse (L=192)", out, ssd_plain(x, a, bc, bc))
-    if not float(out[0, -1].abs().max()) > 0.1:
-        raise RuntimeError("K8 impulse: the state did not reach the last chunk")
-    torch.cuda.synchronize()
+        for leg, bsz, l in (("band_rnn", BATCH * 2 * MAMBA_BANDS, -(-FRAMES // 64) * 64),
+                            ("band_comm", BATCH * 2 * FRAMES, 64)):
+            for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+                args = ssd_inputs(bsz, l, MAMBA_HEADS, dtype)
+                out = ssd_fused(*args)
+                torch.cuda.synchronize()
+                err = compare_ssd(f"K8 {leg} {tag} (B={bsz}, L={l}, H={MAMBA_HEADS})", out,
+                                  ssd_plain(*args))
+                del out
+                torch.cuda.empty_cache()
+                # what the function needs per sequence row at chunk 64: C . B^T
+                # once for the heads together (G = 1), per head the masked
+                # product with x, and the two state products only where a state
+                # is read (every chunk but the first) or handed on (every chunk
+                # but the last): none at band_comm's single chunk
+                carried = (l // 64 - 1) / (l // 64)
+                flops = 2 * bsz * l * (64 * 128 + MAMBA_HEADS * (64 * 64 + carried * 2 * 128 * 64))
+                nbytes = args[0].element_size() * bsz * l * (2 * MAMBA_HEADS * 64 + MAMBA_HEADS
+                                                             + 2 * 128)
+                rows.append(dict(name=f"ssd_fused {tag} ({leg}, B={bsz}, L={l}, H={MAMBA_HEADS}, "
+                                      "P=64, N=128, chunk 64"
+                                      + (")" if tag == "bf16" else "; the main path runs bf16)"),
+                                 route="cuda", source="sesa_tpu_torch/csrc/ssd.cu",
+                                 replaces="sesa_tpu/ops/ssd.py:128", max_abs_err=err,
+                                 ms=time_ms(lambda: ssd_fused(*args)),
+                                 plain_ms=time_ms(lambda: ssd_plain(*args), reps=2, warmup=1),
+                                 library_ms=time_ms(lambda: ssd_einsum(*args), reps=2, warmup=1),
+                                 **_bound(flops, nbytes, PEAK_F32_FLOPS),
+                                 kernel="K8" if dtype == torch.bfloat16 else "K8f32"))
+                del args
+                torch.cuda.empty_cache()
+        # K8 at small shapes: one and three chunks, fast decays, other head
+        # counts, and the impulse in chunk 0 that the state must carry to the
+        # last chunk
+        for bsz, l, h, a_scale in ((3, 64, 1, 1.0), (2, 192, 3, 3.0), (5, 256, 8, 0.7)):
+            for dtype in (torch.float32, torch.bfloat16):
+                args = ssd_inputs(bsz, l, h, dtype, a_scale)
+                compare_ssd(f"K8 small {dtype} (B={bsz}, L={l}, H={h}, |a| x {a_scale})",
+                            ssd_fused(*args), ssd_plain(*args))
+        x = torch.zeros((1, 192, 1, 64), device=dev)
+        x[0, 3, 0, :] = 1.0
+        a = torch.full((1, 192, 1), -1e-3, device=dev)
+        bc = torch.full((1, 192, 1, 128), 0.1, device=dev)
+        out = ssd_fused(x, a, bc, bc.clone())
+        compare_ssd("K8 impulse (L=192)", out, ssd_plain(x, a, bc, bc))
+        if not float(out[0, -1].abs().max()) > 0.1:
+            raise RuntimeError("K8 impulse: the state did not reach the last chunk")
+        torch.cuda.synchronize()
 
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} ms by "
@@ -1179,7 +1255,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
                         help="build and check the kernels, then stop without result lines")
+    parser.add_argument("--only", type=lambda v: set(v.split(",")), default=None,
+                        help="with --kernels-only: build and check only these kernels, "
+                             "e.g. K2,K3 (K4 and K5 run together)")
     args = parser.parse_args(argv)
+    if args.only is not None and (not args.kernels_only or not args.only <= set(LIBRARIES)):
+        parser.error(f"--only takes a subset of {sorted(LIBRARIES)} and needs --kernels-only")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1193,9 +1274,15 @@ def main(argv=None) -> int:
     log(f"[device] {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}; {card}")
     t0 = time.perf_counter()
-    phase_build()
-    out = dict(card=card, kernel_rows=phase_kernels())
+    only = args.only
+    if only is not None and only & {"K4", "K5"}:
+        only = only | {"K4", "K5"}
+    phase_build(None if only is None else sorted({LIBRARIES[k] for k in only}))
+    out = dict(card=card, kernel_rows=phase_kernels(only))
     if args.kernels_only:
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_kernels.json"), "w") as f:
+            json.dump(out, f, indent=1)
         log(f"[total] {time.perf_counter() - t0:.1f}s; --kernels-only: no result lines")
         return 0
     song = _song(SONG_S)

@@ -1,6 +1,7 @@
-// The flash-attention loop shared by K1's core (attention.cu) and K3
-// (vmem_attention.cu): softmax(q . k^T * scale) . v for one (sequence, head,
-// BQ-query tile), left unnormalised in registers for the caller's epilogue.
+// The flash-attention loop of K1's core (attention.cu): softmax(q . k^T *
+// scale) . v for one (sequence, head, BQ-query tile), left unnormalised in
+// registers for the caller's epilogue. K3 runs its own Hopper core
+// (flash_wgmma.cuh); moving K1 onto that core is later work.
 //
 // K/V tiles of 64 keys are double-buffered through cp.async, fragments come
 // by ldmatrix (V transposed by ldmatrix.trans), the two products are

@@ -1,7 +1,9 @@
 // One templated tensor-core GEMM with a fused epilogue:
 //   C[M, N] = epilogue( A[M, K] . B[N, K]^T )
 // B keeps the torch (out_features, in_features) layout, so both operands are
-// K-contiguous. The projections of K1, K2, K4 and K5 are its instances.
+// K-contiguous. The projections of K1, K4, K5 and K6 are its instances (K2's
+// two products run on the persistent gemm_ws.cuh; moving these onto it is
+// later work).
 //
 // Epilogues
 //   EPI_QKV_GATES cols < n1: bf16(acc) into C1, with rope applied to the q and

@@ -39,8 +39,8 @@ SIGNATURES = {
         "sesa_attn_out": [_P, _P, _P, _P, _I, _I, _I, _P],
     },
     "ff": {
-        "sesa_ff_up": [_P] * 7 + [_I] * 4 + [_P],
-        "sesa_ff_down": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+        "sesa_ff_up": [_P] * 7 + [_I] * 5 + [_P],
+        "sesa_ff_down": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     },
     "conformer_attention": {
         "sesa_conf_attn_proj": [_P] * 6 + [_I] * 3 + [_P],
@@ -61,7 +61,7 @@ SIGNATURES = {
         "sesa_rope_attn": [_P] * 4 + [_I] * 6 + [_F, _P],
     },
     "vmem_attention": {
-        "sesa_vmem_attn": [_P] * 4 + [_L] * 12 + [_I] * 4 + [_F, _P],
+        "sesa_vmem_attn": [_P] * 4 + [_I] + [_L] * 16 + [_I] * 4 + [_F, _P],
     },
     "ssd": {
         "sesa_ssd": [_P] * 5 + [_L] * 4 + [_I] * 4 + [_P],
@@ -152,6 +152,14 @@ def check_tensor(kernel: str, name: str, t, shape, dtype) -> None:
 
 
 def check(rc: int, what: str) -> None:
-    """Raise if a kernel's C entry point returned a CUDA error code."""
+    """Raise if a kernel's C entry point returned an error: a CUDA error
+    code, or (csrc/hopper.cuh) 9000 for a CUDA driver without the
+    tensor-map encoder and 10000 + the CUresult of a tensor map the CUDA
+    driver refused."""
+    if rc == 9000:
+        raise RuntimeError(f"{what}: the CUDA driver has no cuTensorMapEncodeTiled")
+    if rc >= 10000:
+        raise RuntimeError(f"{what}: the CUDA driver refused a TMA tensor map "
+                           f"(CUresult {rc - 10000})")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")

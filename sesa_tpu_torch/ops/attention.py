@@ -87,17 +87,46 @@ def _bh_strides(t):
     return sb, sh, ss
 
 
+def k3_plan(q, k, v):
+    """The host side of kernel K3: how it reads q, k, v (..., S, D) and
+    where it writes.
+
+    Returns ``(tensors, rank, dims, strides, out, out_strides, result, b,
+    h)``. The kernel reads each of ``tensors`` through a TMA tensor map of
+    ``rank`` dims ``dims`` (innermost first) with byte strides ``strides[i]``
+    of dims 1..rank-1, and writes ``out`` through element strides
+    ``out_strides`` = (batch, head, row). 4-D (b, h, s, d) views whose
+    strides are multiples of 16 bytes (the roformer's permuted views of its
+    qkv projection) are read where they lie as (d, s, h, b) maps, and their
+    output is laid out (b, s, h, d) in memory, the layout the out projection
+    reads, and returned as its (b, h, s, d) view. Anything else is made
+    contiguous (BH, S, D), copied where it must be, and read as (d, s, bh)
+    maps: a tensor map has no dim of stride 0 for the one head."""
+    s, d = q.shape[-2:]
+    strides = [_bh_strides(t) for t in (q, k, v)] if q.ndim == 4 else [None]
+    if all(st is not None for st in strides) and not q.is_contiguous():
+        b, h = q.shape[:2]
+        out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+        return ((q, k, v), 4, (d, s, h, b), [(2 * ss, 2 * sh, 2 * sb) for sb, sh, ss in strides],
+                out, (s * h * d, d, h * d), out.permute(0, 2, 1, 3), b, h)
+    lead = q.shape[:-2]
+    flat = []
+    for t in (q, k, v):
+        t = t.reshape(-1, s, d).contiguous()
+        flat.append(t.clone() if t.data_ptr() % 16 else t)
+    bh = flat[0].shape[0]
+    out = torch.empty_like(flat[0])
+    return (tuple(flat), 3, (d, s, bh), [(2 * d, 2 * s * d)] * 3, out, (s * d, 0, d),
+            out.view(lead + (s, d)), bh, 1)
+
+
 def vmem_attention(q, k, v, scale):
     """softmax(q·kᵀ·scale)·v over (..., S, D): kernel K3.
 
     CPU tensors run :func:`vmem_attention_plain`. CUDA tensors must be bf16,
-    of one shape, with D in {32, 64, 128}; anything else raises. 4-D
-    (b, h, s, d) tensors are read through their strides (the roformer hands
-    permuted views of the qkv projection), and the output of such views is
-    laid out (b, s, h, d) in memory, the layout the out projection reads,
-    and returned as its (b, h, s, d) view; other inputs are copied to
-    contiguous (BH, S, D) first. Each call adds one to
-    ``vmem_attention.launches``.
+    of one shape, with D in {32, 64, 128}, and the scale positive; anything
+    else raises. :func:`k3_plan` says how the kernel reads the tensors and
+    where it writes. Each call adds one to ``vmem_attention.launches``.
     """
     if q.device.type == "cpu":
         return vmem_attention_plain(q, k, v, scale)
@@ -107,26 +136,16 @@ def vmem_attention(q, k, v, scale):
         raise ValueError(f"vmem_attention: unsupported q {q.dtype} {tuple(q.shape)}, k "
                          f"{k.dtype} {tuple(k.shape)}, v {v.dtype} {tuple(v.shape)} (the kernel "
                          "takes bf16 tensors of one shape with dim_head 32, 64 or 128)")
-    strides = [_bh_strides(t) for t in (q, k, v)] if q.ndim == 4 else [None]
-    if all(st is not None for st in strides) and not q.is_contiguous():
-        b, h = q.shape[:2]
-        out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-        ostr = (s * h * d, d, h * d)
-        result = out.permute(0, 2, 1, 3)
-    else:
-        lead = q.shape[:-2]
-        q, k, v = (t.reshape(-1, s, d).contiguous() for t in (q, k, v))
-        b, h = q.shape[0], 1
-        strides = [(s * d, 0, d)] * 3
-        out = torch.empty_like(q)
-        ostr = (s * d, 0, d)
-        result = out.view(lead + (s, d))
-    if b * h * -(-s // 64) > 2 ** 31 - 1 or b * h < 1:
+    if not scale > 0:
+        raise ValueError(f"vmem_attention: the kernel takes a positive scale, got {scale}")
+    (q, k, v), rank, dims, strides, out, ostr, result, b, h = k3_plan(q, k, v)
+    if b * h * -(-s // 128) > 2 ** 31 - 1 or b * h < 1:
         raise ValueError(f"vmem_attention: {b * h} sequences of {s} exceed one launch")
     lib = _build.load("vmem_attention")
-    flat = [x for st in strides for x in st]
+    dims4 = tuple(dims) + (1,) * (4 - rank)
+    flat = [x for st in strides for x in tuple(st) + (0,) * (4 - rank)]
     _build.check(lib.sesa_vmem_attn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                    *flat, *ostr, b, h, s, d, float(scale),
+                                    rank, *dims4, *flat, *ostr, b, h, s, d, float(scale),
                                     torch.cuda.current_stream(q.device).cuda_stream),
                  "sesa_vmem_attn")
     vmem_attention.launches += 1

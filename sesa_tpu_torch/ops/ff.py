@@ -4,8 +4,10 @@
 (× out_scale) -> + x over (tokens, dim), in two forms: the roformer's
 (RMSNorm, tanh-GELU) and the conformer's (LayerNorm with γ and β, SiLU,
 out_scale 0.5). On a CUDA tensor it launches the hand-written kernel chain
-of ``csrc/ff.cu``; on a CPU tensor it runs ``fused_ff_residual_plain``,
-which repeats the TPU kernel's arithmetic with its bf16 rounding points.
+of ``csrc/ff.cu`` (a norm pass and two persistent GEMMs, ``csrc/gemm_ws.cuh``,
+whose grid :func:`ff_gemm_schedule` sets); on a CPU tensor it runs
+``fused_ff_residual_plain``, which repeats the TPU kernel's arithmetic with
+its bf16 rounding points.
 """
 
 from __future__ import annotations
@@ -48,6 +50,24 @@ def fused_ff_residual_plain(x, gamma, w1, b1, w2, b2, *, beta=None, norm="rms",
     if out_scale != 1.0:
         y = y * out_scale
     return y.to(dt) + x
+
+
+# output tile of K2's persistent GEMM (csrc/gemm_ws.cuh WS_BM x WS_BN)
+_TILE = 128
+
+
+def ff_gemm_schedule(tokens: int, n: int, sms: int):
+    """The persistent grid of one of K2's products over a (tokens, n) output:
+    ``(tiles, grid)``, with ⌈tokens / 128⌉ · ⌈n / 128⌉ tiles of 128 × 128 and
+    as many blocks as fit one per SM in a multiple of the ⌈n / 128⌉ column
+    blocks, never more blocks than tiles. Block ``b`` takes tiles ``b, b +
+    grid, ...`` (its first consumer warpgroup the even ones of that list, its
+    second the odd ones); tile ``i`` covers rows ``128·(i // n_tiles)`` and
+    columns ``128·(i % n_tiles)``, so each block keeps one column block of
+    the weights and walks along the rows."""
+    n_tiles = -(-n // _TILE)
+    tiles = -(-tokens // _TILE) * n_tiles
+    return tiles, min(tiles, max(1, sms // n_tiles) * n_tiles)
 
 
 def use_fused_ff(x: torch.Tensor, w1: torch.Tensor) -> bool:
@@ -94,16 +114,19 @@ def fused_ff_residual(x, gamma, w1, b1, w2, b2, *, beta=None, norm="rms", act="g
 
     lib = _build.load("ff")
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     xn = torch.empty_like(x)
     h = torch.empty((tokens, hidden), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     _build.check(lib.sesa_ff_up(x.data_ptr(), gamma.data_ptr(),
                                 beta.data_ptr() if norm == "ln" else None, xn.data_ptr(),
                                 w1.data_ptr(), b1.data_ptr(), h.data_ptr(), tokens, dim, hidden,
-                                _FORMS[(norm, act)], stream), "sesa_ff_up")
+                                _FORMS[(norm, act)], ff_gemm_schedule(tokens, hidden, sms)[1],
+                                stream), "sesa_ff_up")
     _build.check(lib.sesa_ff_down(h.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                                   x.data_ptr(), out.data_ptr(), tokens, dim, hidden,
-                                  float(out_scale), stream), "sesa_ff_down")
+                                  float(out_scale), ff_gemm_schedule(tokens, dim, sms)[1],
+                                  stream), "sesa_ff_down")
     fused_ff_residual.launches += 1
     return out
 

@@ -1,6 +1,7 @@
 """K1 (fused attention block) of the port held against sesa_tpu's Pallas
 kernel run in interpret mode on the CPU, with the cases of
-tests/test_fused_attention.py, plus the plain einsum ``sdpa``."""
+tests/test_fused_attention.py, plus the plain einsum ``sdpa`` and the host
+side of kernel K3 (the TMA tensor maps it reads its inputs through)."""
 
 import numpy as np
 import pytest
@@ -11,7 +12,7 @@ import jax.numpy as jnp
 from sesa_tpu.ops.attention import fused_attention_block as jax_fused_attention_block
 from sesa_tpu.ops.attention import sdpa as jax_sdpa
 from sesa_tpu_torch.ops.attention import (fused_attention_block,
-                                          fused_attention_block_plain, sdpa)
+                                          fused_attention_block_plain, k3_plan, sdpa)
 from sesa_tpu_torch.ops.rope import default_freqs, rope_tables
 
 
@@ -81,3 +82,46 @@ def test_sdpa_matches_jax(seq, dim_head):
     got = sdpa(*(torch.from_numpy(a) for a in (q, k, v)))
     ref = jax_sdpa(*(jnp.asarray(a) for a in (q, k, v)))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5, rtol=1e-5)
+
+
+def _k3_inputs(case, b=2, n=300, h=4, d=64):
+    """q, k, v (b, h, n, d) as the callers of K3 hand them over."""
+    g = torch.Generator().manual_seed(0)
+    if case == "strided":  # the roformer's permuted views of its qkv projection
+        qkv = torch.randn((b * n, 3 * h * d), generator=g).to(torch.bfloat16)
+        return tuple(qkv.reshape(b, n, 3, h, d).permute(2, 0, 3, 1, 4))
+    if case == "contiguous":
+        return tuple(torch.randn((b, h, n, d), generator=g).to(torch.bfloat16) for _ in range(3))
+    if case == "flat":  # (BH, S, D)
+        return tuple(torch.randn((b * h, n, d), generator=g).to(torch.bfloat16) for _ in range(3))
+    # "unaligned": rows 36 elements apart, not a multiple of 16 bytes
+    return tuple(torch.randn((b, h, n, d + 4), generator=g).to(torch.bfloat16)[..., :d]
+                 for _ in range(3))
+
+
+@pytest.mark.parametrize("case", ["strided", "contiguous", "flat", "unaligned"])
+def test_k3_plan_tensor_maps(case):
+    """Strided 4-D views are read where they lie through (d, s, h, b) maps
+    with their byte strides and written (b, s, h, d); everything else is read
+    as contiguous (BH, S, D) through (d, s, bh) maps, copied only where the
+    strides are not multiples of 16 bytes."""
+    b, n, h, d = 2, 300, 4, 64
+    q, k, v = _k3_inputs(case, b, n, h, d)
+    tensors, rank, dims, strides, out, ostr, result, nb, nh = k3_plan(q, k, v)
+    assert result.shape == q.shape
+    if case == "strided":
+        assert (rank, dims, nb, nh) == (4, (d, n, h, b), b, h)
+        assert strides == [(2 * 3 * h * d, 2 * d, 2 * n * 3 * h * d)] * 3
+        assert all(t.data_ptr() == src.data_ptr() for t, src in zip(tensors, (q, k, v)))
+        assert out.shape == (b, n, h, d) and ostr == (n * h * d, d, h * d)
+        assert result.data_ptr() == out.data_ptr() and result.stride() == (n * h * d, d, h * d, 1)
+    else:
+        assert (rank, dims, nb, nh) == (3, (d, n, b * h), b * h, 1)
+        assert strides == [(2 * d, 2 * n * d)] * 3
+        assert out.shape == (b * h, n, d) and ostr == (n * d, 0, d)
+        for t, src in zip(tensors, (q, k, v)):
+            assert t.is_contiguous() and t.shape == (b * h, n, d)
+            assert torch.equal(t, src.reshape(b * h, n, d))
+            assert (t.data_ptr() == src.data_ptr()) == (case != "unaligned")
+    assert all(x % 16 == 0 for st in strides for x in st)
+    assert all(t.data_ptr() % 16 == 0 for t in tensors)

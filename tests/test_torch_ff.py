@@ -1,13 +1,16 @@
 """K2 (fused feed-forward) of the port held against sesa_tpu's Pallas kernel
-run in interpret mode on the CPU, with the cases of tests/test_fused_ff.py."""
+run in interpret mode on the CPU, with the cases of tests/test_fused_ff.py,
+plus the tile arithmetic of K2's persistent grid."""
 
 import numpy as np
+import pytest
 import torch
 
 import jax.numpy as jnp
 
 from sesa_tpu.ops.ff import fused_ff_residual as jax_fused_ff_residual
-from sesa_tpu_torch.ops.ff import fused_ff_residual, fused_ff_residual_plain
+from sesa_tpu_torch.ops.ff import (ff_gemm_schedule, fused_ff_residual,
+                                   fused_ff_residual_plain)
 
 
 def _inputs(tokens, dim, hidden, seed, w_scale=0.05, b_scale=1.0):
@@ -54,3 +57,29 @@ def test_wrapper_runs_plain_on_cpu():
     before = fused_ff_residual.launches
     assert torch.equal(fused_ff_residual(*ts), fused_ff_residual_plain(*ts))
     assert fused_ff_residual.launches == before  # no kernel on the CPU
+
+
+@pytest.mark.parametrize("tokens", [1, 127, 257, 248_400])
+def test_ff_gemm_schedule_covers_every_tile_once(tokens):
+    """Both products' persistent grids (hidden 1536 up, dim 384 down; and
+    512 / 2048) hand every 128 x 128 tile to exactly one block, split
+    between the block's two consumer warpgroups; each block keeps one
+    column block (the kernel holds that slice of the weights), and the
+    tiles cover the ragged last rows."""
+    for n in (384, 512, 1536, 2048):
+        m_tiles, n_tiles = -(-tokens // 128), n // 128
+        for sms in (132, 7):
+            tiles, grid = ff_gemm_schedule(tokens, n, sms)
+            assert tiles == m_tiles * n_tiles
+            assert 1 <= grid <= tiles and grid % n_tiles == 0
+            assert grid <= max(sms, n_tiles) and (grid == tiles or grid + n_tiles > sms)
+            seen = np.zeros(tiles, np.int64)
+            for block in range(grid):
+                mine = np.arange(block, tiles, grid)
+                assert np.array_equal(np.sort(np.concatenate([mine[0::2], mine[1::2]])), mine)
+                assert len(set(mine % n_tiles)) == 1
+                seen[mine] += 1
+            assert (seen == 1).all()
+            rows = 128 * (np.arange(tiles) // n_tiles)
+            cols = 128 * (np.arange(tiles) % n_tiles)
+            assert rows.max() < tokens <= rows.max() + 128 and cols.max() + 128 == n
