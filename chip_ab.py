@@ -1,20 +1,24 @@
-"""Time kernels K2 and K3 of two trees of the repository against each other
-on one NVIDIA GPU, in turns.
+"""Time kernels K2, K3 and K8 of two trees of the repository against each
+other on one NVIDIA GPU, in turns.
 
     git archive <commit> | tar -x -C chip_parent    # the base tree (gitignored)
     python3 chip_ab.py --base chip_parent --pairs 4
+    python3 chip_ab.py --base chip_parent --pairs 3 --kernels K8
 
 Each turn is a subprocess that imports ``sesa_tpu_torch`` from one tree
-(``--base`` or this checkout), builds that tree's K2 and K3 libraries, makes
-the inputs of ``chip_smoke.py``'s kernels phase from one seed at the main
-paths' shapes (K2 at the flagship's 256,680 x 512 -> 2048 rms/GELU form and
-the mel-band conformer's 248,400 x 384 -> 1536 ln/SiLU/0.5 form; K3 at BH
-2976 x S 690 x D 64 through strided views), checks each kernel against its
-plain version, and times it with CUDA events, beside the library yardsticks
-(the F.linear composites, SDPA under each backend). Turns run base, new,
-new, base, base, new, ... so that drift of the card falls on both trees.
-Prints each turn, the median and range of each kernel by tree, and last the
-card's name and power limit; writes everything to chiprun_out/chip_ab.json.
+(``--base`` or this checkout), builds that tree's libraries of the kernels
+asked for (``--kernels``, default all three), makes the inputs of
+``chip_smoke.py``'s kernels phase from one seed at the main paths' shapes (K2
+at the flagship's 256,680 x 512 -> 2048 rms/GELU form and the mel-band
+conformer's 248,400 x 384 -> 1536 ln/SiLU/0.5 form; K3 at BH 2976 x S 690 x D
+64 through strided views; K8 at bs_mamba2's band_rnn B 684 x L 704 and
+band_comm B 8280 x L 64, H 8, in bf16 and in f32), checks each kernel against
+its plain version, and times it with CUDA events, beside the library
+yardsticks (the F.linear composites, SDPA under each backend, the einsum
+scan ``ssd_einsum``). Turns run base, new, new, base, base, new, ... so that
+drift of the card falls on both trees. Prints each turn, the median and range
+of each kernel by tree, and last the card's name and power limit; writes
+everything to chiprun_out/chip_ab.json.
 """
 
 from __future__ import annotations
@@ -30,7 +34,12 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def worker(tree: str) -> None:
+# the rows of each kernel in the summary, each with its library yardstick
+ROWS = {"K2": ["K2", "K2ln"], "K3": ["K3"],
+        "K8": [f"K8_{leg}_{tag}" for leg in ("band_rnn", "band_comm") for tag in ("bf16", "f32")]}
+
+
+def worker(tree: str, kernels) -> None:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
@@ -43,14 +52,25 @@ def worker(tree: str) -> None:
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    from sesa_tpu_torch.ops.attention import vmem_attention, vmem_attention_plain
-    from sesa_tpu_torch.ops.ff import fused_ff_residual, fused_ff_residual_plain
-    from sesa_tpu_torch.ops.rope import apply_rope, default_freqs, rope_tables
-
-    _build.build_all(["ff", "vmem_attention"])
+    _build.build_all([lib for k, lib in (("K2", "ff"), ("K3", "vmem_attention"), ("K8", "ssd"))
+                      if k in kernels])
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(6)
     res = {"tree": tree}
+    if "K2" in kernels:
+        k2(cs, gen, dev, res, tree)
+    if "K3" in kernels:
+        k3(cs, gen, dev, res, tree)
+    if "K8" in kernels:
+        k8(cs, dev, res, tree)
+    print("AB " + json.dumps(res), flush=True)
+
+
+def k2(cs, gen, dev, res, tree):
+    import torch
+
+    from sesa_tpu_torch.ops.ff import fused_ff_residual, fused_ff_residual_plain
+
     for form, tokens, d in (("rms", cs.TOKENS, 512), ("ln", cs.MEL_TOKENS, 384)):
         hidden = 4 * d
         x = torch.randn((tokens, d), generator=gen).to(dev, torch.bfloat16)
@@ -69,6 +89,14 @@ def worker(tree: str) -> None:
         res[key + "_library"] = cs.time_ms(lib, reps=20, warmup=3)
         del x, args
         torch.cuda.empty_cache()
+
+
+def k3(cs, gen, dev, res, tree):
+    import torch
+
+    from sesa_tpu_torch.ops.attention import vmem_attention, vmem_attention_plain
+    from sesa_tpu_torch.ops.rope import apply_rope, default_freqs, rope_tables
+
     heads, dh, n, b = 8, 64, cs.FRAMES, cs.BATCH * cs.BANDS
     qkv = torch.randn((b * n, 3 * heads * dh), generator=gen).to(dev, torch.bfloat16)
     rope = tuple(r.to(dev, torch.bfloat16)
@@ -81,17 +109,41 @@ def worker(tree: str) -> None:
     lib = cs.k3_library(q, k, v, dh ** -0.5)
     res["K3_library"], res["K3_library_name"] = lib["library_ms"], lib["library"]
     res["K3_sdpa_ms"] = lib["sdpa_ms"]
-    print("AB " + json.dumps(res), flush=True)
+    del qkv, q, k, v
+    torch.cuda.empty_cache()
+
+
+def k8(cs, dev, res, tree):
+    """K8 at both legs and both dtypes, inputs from one seed, each checked
+    against ssd_plain before it is timed; ssd_einsum is the yardstick."""
+    import torch
+
+    from sesa_tpu_torch.ops.ssd import ssd_einsum, ssd_fused, ssd_plain
+
+    gen = torch.Generator().manual_seed(8)
+    for leg, bsz, l in cs.K8_LEGS:
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            key = f"K8_{leg}_{tag}"
+            args = cs.ssd_inputs(gen, bsz, l, cs.MAMBA_HEADS, dtype, dev)
+            cs.compare_ssd(f"{tree} {key}", ssd_fused(*args), ssd_plain(*args))
+            res[key] = cs.time_ms(lambda: ssd_fused(*args), reps=20, warmup=3)
+            res[key + "_library"] = cs.time_ms(lambda: ssd_einsum(*args), reps=3, warmup=1)
+            del args
+            torch.cuda.empty_cache()
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--base", help="the base tree (e.g. the parent commit, unpacked)")
     parser.add_argument("--pairs", type=int, default=4)
+    parser.add_argument("--kernels", type=lambda v: v.split(","), default=list(ROWS),
+                        help=f"a subset of {list(ROWS)}")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if not set(args.kernels) <= set(ROWS):
+        parser.error(f"--kernels takes a subset of {list(ROWS)}")
     if args.worker:
-        worker(args.worker)
+        worker(args.worker, args.kernels)
         return 0
     import torch
 
@@ -105,7 +157,8 @@ def main() -> int:
         order += [args.base, HERE] if i % 2 == 0 else [HERE, args.base]
     turns = []
     for tree in order:
-        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree],
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree,
+                            "--kernels", ",".join(args.kernels)],
                            capture_output=True, text=True, timeout=600)
         sys.stdout.write(r.stdout)
         if r.returncode != 0:
@@ -113,14 +166,14 @@ def main() -> int:
             raise RuntimeError(f"turn on {tree} failed ({r.returncode})")
         turns.append(next(json.loads(line[3:]) for line in r.stdout.splitlines()
                           if line.startswith("AB ")))
+    rows = [r for k in args.kernels for r in ROWS[k]]
     summary = {}
     for name, tree in (("base", args.base), ("new", HERE)):
         mine = [t for t in turns if t["tree"] == tree]
         summary[name] = {k: dict(median=statistics.median(t[k] for t in mine),
                                  lo=min(t[k] for t in mine), hi=max(t[k] for t in mine))
-                         for k in ("K2", "K2_library", "K2ln", "K2ln_library", "K3",
-                                   "K3_library")}
-    for k in ("K2", "K2ln", "K3"):
+                         for r in rows for k in (r, r + "_library")}
+    for k in rows:
         b, nw = summary["base"][k], summary["new"][k]
         lib = summary["new"][k + "_library"]
         print(f"{k}: base {b['median']:.3f} [{b['lo']:.3f}-{b['hi']:.3f}] ms, "

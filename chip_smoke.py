@@ -57,7 +57,8 @@ and prints no result line):
    mask and 4 map repeats, 4 stems; K8 48 times per model call); checks as
    in 3, then model parity as in 7. bs_mamba2 then runs once more with
    ``--compute_dtype f32`` (what a bf16 -> f32 rescue reruns), which launches
-   K8's f32 form; K8's launches are counted by dtype.
+   K8's f32 form, with model parity in f32; K8's launches are counted by
+   dtype.
 10. profile: device time by kernel over one warm model call of the flagship,
    the mel-band conformer, apollo, the four-stream roformer and bs_mamba2
    (torch.profiler), with the idle share read from the traced call itself.
@@ -77,10 +78,11 @@ import sys
 import tempfile
 import time
 
-# H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, f32 outside
-# the tensor cores (K8's products are f32), HBM3 bandwidth
+# H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, TF32 tensor
+# cores (one pass; K8's products with an f32 operand take two or three),
+# HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES_S = 3.35e12
 
 FLAGSHIP_MODEL = dict(dim=512, depth=12, stereo=True, num_stems=1,
@@ -202,6 +204,71 @@ def snr_db(a, ref):
 
 def _bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_S
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+# bs_mamba2's two shapes of K8, (leg, B, L) at H 8: band_rnn, sequences of
+# 690 frames padded to 704, and band_comm, sequences of 57 bands padded to 64
+K8_LEGS = (("band_rnn", BATCH * 2 * MAMBA_BANDS, -(-FRAMES // 64) * 64),
+           ("band_comm", BATCH * 2 * FRAMES, 64))
+
+
+def ssd_inputs(gen, bsz, l, h, dtype, device, a_scale=1.0):
+    """x, a, b, c of K8 from ``gen``: x ~ 0.5 N, a = -|N| * a_scale, b, c ~ 0.3 N."""
+    import torch
+
+    x = (0.5 * torch.randn((bsz, l, h, 64), generator=gen)).to(device, dtype)
+    a = (-a_scale * torch.randn((bsz, l, h), generator=gen).abs()).to(device, dtype)
+    b, c = ((0.3 * torch.randn((bsz, l, 1, 128), generator=gen)).to(device, dtype)
+            for _ in range(2))
+    return x, a, b, c
+
+
+def compare_ssd(name, out, ref):
+    """K8 against its plain version: f32 at SSD_F32_ATOL + SSD_F32_RTOL |ref|,
+    bf16 at SSD_BF16_REL of max |ref|; returns max |out - ref|."""
+    import torch
+
+    o, r = out.float(), ref.float()
+    if not bool(o.isfinite().all()):
+        raise RuntimeError(f"{name}: non-finite kernel output")
+    diff, scale = (o - r).abs(), float(r.abs().max())
+    max_err = float(diff.max())
+    if out.dtype == torch.float32:
+        bad = bool((diff > SSD_F32_ATOL + SSD_F32_RTOL * r.abs()).any())
+        bound = f"atol {SSD_F32_ATOL}, rtol {SSD_F32_RTOL}"
+    else:
+        bad = max_err > SSD_BF16_REL * scale
+        bound = f"{SSD_BF16_REL} x the output's largest value"
+    log(f"  {name}: max_abs_err {max_err:.4g} (output max {scale:.4g})")
+    if bad:
+        raise RuntimeError(f"{name}: kernel disagrees with its plain version ({bound})")
+    return max_err
+
+
+def k8_bound(bsz, l, h, dtype):
+    """K8's bound at chunk 64: what the function needs per sequence row. C·Bᵀ
+    once for the heads together and, per head, its masked product with x, both
+    over the lower triangle of each chunk (Q(Q+1)/2 pairs, the decay mask is 0
+    above it); the two state products only where a state is read (every chunk
+    but the first) or handed on (every chunk but the last), none at one chunk.
+    Each product is priced at the passes its accuracy needs: in f32 three TF32
+    passes; in bf16 C·Bᵀ, whose operands are exact, one bf16 pass, and the
+    others, one f32 operand times an exact one, the cheaper of two TF32 passes
+    and three bf16 passes (both keep 21 bits or more). Against the bytes
+    (inputs once, the output once)."""
+    import torch
+
+    chunks, tri = l // 64, 64 * 65  # 2 FLOP x Q(Q+1)/2 pairs
+    cbt = bsz * chunks * tri * 128
+    rest = bsz * chunks * h * tri * 64 + 2 * bsz * (chunks - 1) * 64 * h * 2 * 128 * 64
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        t_ops = cbt / PEAK_BF16_FLOPS + rest * min(2 / PEAK_TF32_FLOPS, 3 / PEAK_BF16_FLOPS)
+    else:
+        t_ops = 3 * (cbt + rest) / PEAK_TF32_FLOPS
+    t_bytes = (2 if bf16 else 4) * bsz * l * (2 * h * 64 + h + 2 * 128) / PEAK_BYTES_S
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
@@ -783,51 +850,14 @@ def phase_kernels(only=None):
 
     if want("K8"):
         # K8 at bs_mamba2's two shapes, bf16 (the session's path) and f32 (the
-        # rescue's): band_rnn, sequences of 690 frames padded to 704, and
-        # band_comm, sequences of 57 bands padded to 64
-        def ssd_inputs(bsz, l, h, dtype, a_scale=1.0):
-            x = (0.5 * torch.randn((bsz, l, h, 64), generator=gen)).to(dev, dtype)
-            a = (-a_scale * torch.randn((bsz, l, h), generator=gen).abs()).to(dev, dtype)
-            b, c = ((0.3 * torch.randn((bsz, l, 1, 128), generator=gen)).to(dev, dtype)
-                    for _ in range(2))
-            return x, a, b, c
-
-        def compare_ssd(name, out, ref):
-            o, r = out.float(), ref.float()
-            if not bool(o.isfinite().all()):
-                raise RuntimeError(f"{name}: non-finite kernel output")
-            diff, scale = (o - r).abs(), float(r.abs().max())
-            max_err = float(diff.max())
-            if out.dtype == torch.float32:
-                bad = bool((diff > SSD_F32_ATOL + SSD_F32_RTOL * r.abs()).any())
-                bound = f"atol {SSD_F32_ATOL}, rtol {SSD_F32_RTOL}"
-            else:
-                bad = max_err > SSD_BF16_REL * scale
-                bound = f"{SSD_BF16_REL} x the output's largest value"
-            log(f"  {name}: max_abs_err {max_err:.4g} (output max {scale:.4g})")
-            if bad:
-                raise RuntimeError(f"{name}: kernel disagrees with its plain version ({bound})")
-            return max_err
-
-        for leg, bsz, l in (("band_rnn", BATCH * 2 * MAMBA_BANDS, -(-FRAMES // 64) * 64),
-                            ("band_comm", BATCH * 2 * FRAMES, 64)):
+        # rescue's)
+        for leg, bsz, l in K8_LEGS:
             for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-                args = ssd_inputs(bsz, l, MAMBA_HEADS, dtype)
+                args = ssd_inputs(gen, bsz, l, MAMBA_HEADS, dtype, dev)
                 out = ssd_fused(*args)
                 torch.cuda.synchronize()
-                err = compare_ssd(f"K8 {leg} {tag} (B={bsz}, L={l}, H={MAMBA_HEADS})", out,
-                                  ssd_plain(*args))
-                del out
-                torch.cuda.empty_cache()
-                # what the function needs per sequence row at chunk 64: C . B^T
-                # once for the heads together (G = 1), per head the masked
-                # product with x, and the two state products only where a state
-                # is read (every chunk but the first) or handed on (every chunk
-                # but the last): none at band_comm's single chunk
-                carried = (l // 64 - 1) / (l // 64)
-                flops = 2 * bsz * l * (64 * 128 + MAMBA_HEADS * (64 * 64 + carried * 2 * 128 * 64))
-                nbytes = args[0].element_size() * bsz * l * (2 * MAMBA_HEADS * 64 + MAMBA_HEADS
-                                                             + 2 * 128)
+                ref = ssd_plain(*args)
+                err = compare_ssd(f"K8 {leg} {tag} (B={bsz}, L={l}, H={MAMBA_HEADS})", out, ref)
                 rows.append(dict(name=f"ssd_fused {tag} ({leg}, B={bsz}, L={l}, H={MAMBA_HEADS}, "
                                       "P=64, N=128, chunk 64"
                                       + (")" if tag == "bf16" else "; the main path runs bf16)"),
@@ -836,16 +866,18 @@ def phase_kernels(only=None):
                                  ms=time_ms(lambda: ssd_fused(*args)),
                                  plain_ms=time_ms(lambda: ssd_plain(*args), reps=2, warmup=1),
                                  library_ms=time_ms(lambda: ssd_einsum(*args), reps=2, warmup=1),
-                                 **_bound(flops, nbytes, PEAK_F32_FLOPS),
+                                 **k8_bound(bsz, l, MAMBA_HEADS, dtype),
                                  kernel="K8" if dtype == torch.bfloat16 else "K8f32"))
-                del args
+                del args, out, ref
                 torch.cuda.empty_cache()
-        # K8 at small shapes: one and three chunks, fast decays, other head
-        # counts, and the impulse in chunk 0 that the state must carry to the
-        # last chunk
-        for bsz, l, h, a_scale in ((3, 64, 1, 1.0), (2, 192, 3, 3.0), (5, 256, 8, 0.7)):
+        # K8 at small shapes: one chunk with one head and with heads beyond one
+        # group of the rows kernel's decay scans, three chunks with fast decays,
+        # other head counts, a band_comm batch whose last wave is part empty,
+        # and the impulse in chunk 0 that the state must carry to the last chunk
+        for bsz, l, h, a_scale in ((3, 64, 1, 1.0), (2, 64, 3, 1.0), (2, 64, 11, 1.0),
+                                   (2, 192, 3, 3.0), (5, 256, 8, 0.7), (1001, 64, 8, 1.0)):
             for dtype in (torch.float32, torch.bfloat16):
-                args = ssd_inputs(bsz, l, h, dtype, a_scale)
+                args = ssd_inputs(gen, bsz, l, h, dtype, dev, a_scale)
                 compare_ssd(f"K8 small {dtype} (B={bsz}, L={l}, H={h}, |a| x {a_scale})",
                             ssd_fused(*args), ssd_plain(*args))
         x = torch.zeros((1, 192, 1, 64), device=dev)
@@ -982,7 +1014,7 @@ def _plain_swaps(model_type):
                                               fused_conformer_conv_plain)
     from sesa_tpu_torch.ops.ff import fused_ff_residual_plain
 
-    if model_type == "bs_mamba2":  # ssd() looks ssd_fused up in its module
+    if model_type.startswith("bs_mamba2"):  # ssd() looks ssd_fused up in its module
         return [(ssd_ops, "ssd_fused", ssd_ops.ssd_plain)]
     if model_type == "bs_roformer_experimental_hc":  # so does sdpa() with K3
         return [(attention_ops, "vmem_attention", attention_ops.vmem_attention_plain)]
@@ -997,35 +1029,37 @@ def _plain_swaps(model_type):
             (roformer_core, "fused_ff_residual", fused_ff_residual_plain)]
 
 
-def model_parity(model_type, params, config, song, with_f32=True, label=None):
+def model_parity(model_type, params, config, song, with_f32=True, label=None, dtype=None):
     """One chunk batch with the kernels against the same call with the
-    kernels' plain versions (both bf16 on the card), and against f32.
-    ``label`` names a configuration of a model type that is driven in two."""
+    kernels' plain versions (both in ``dtype`` on the card, bf16 unless
+    given), and against f32. ``label`` names a configuration of a model type
+    that is driven in two."""
     import torch
 
     from sesa_tpu_torch.models import get_model
 
+    dtype = torch.bfloat16 if dtype is None else dtype
     model = get_model(model_type)
     chunks = _chunks(song, *_chunking(model_type))
     swaps = _plain_swaps(label or model_type)
     model_type = label or model_type
     with torch.inference_mode():
         reset_counts()
-        kern = model.apply(params, config, chunks, compute_dtype=torch.bfloat16)
+        kern = model.apply(params, config, chunks, compute_dtype=dtype)
         torch.cuda.synchronize()
         launches = read_counts()
         saved = [getattr(m, a) for m, a, _ in swaps]
         for m, a, plain in swaps:
             setattr(m, a, plain)
         try:
-            plain = model.apply(params, config, chunks, compute_dtype=torch.bfloat16)
+            plain = model.apply(params, config, chunks, compute_dtype=dtype)
         finally:
             for (m, a, _), fn in zip(swaps, saved):
                 setattr(m, a, fn)
         f32 = model.apply(params, config, chunks) if with_f32 else None
     torch.cuda.empty_cache()
 
-    res = dict(model_type=model_type, launches=launches,
+    res = dict(model_type=model_type, dtype=str(dtype).split(".")[-1], launches=launches,
                snr_kernel_vs_plain_db=snr_db(kern, plain),
                finite=bool(torch.isfinite(kern).all()))
     if f32 is not None:
@@ -1223,7 +1257,7 @@ def phase_new_paths(song, calls):
          dict(instruments=MAMBA_STEMS), expect(K8=4 * bsnets)),
         # the same in f32, what a bf16 -> f32 rescue reruns: K8's f32 form
         ("bs_mamba2_f32", "bs_mamba2", MAMBA_MODEL, expect(K8=4 * bsnets * calls),
-         dict(instruments=MAMBA_STEMS, compute_dtype="f32"), None),
+         dict(instruments=MAMBA_STEMS, compute_dtype="f32"), expect(K8=4 * bsnets)),
     ]
     out = {"runs": {}, "parity": [], "profile": {}}
     for key, model_type, model_cfg, expected, kw, per_call in paths:
@@ -1232,17 +1266,14 @@ def phase_new_paths(song, calls):
             res, session = drive_cli(work, model_type, model_cfg, song, expected, **kw)
         res["config"] = label
         out["runs"][key] = res
-        if per_call is None:  # a second dtype of a model already held to its plain versions
-            del session
-            torch.cuda.empty_cache()
-            continue
         parity = model_parity(model_type, session.params, session.config, song,
-                              with_f32=False, label=label)
+                              with_f32=False, label=label,
+                              dtype=torch.float32 if kw.get("compute_dtype") == "f32" else None)
         if parity["launches"] != per_call:
             raise RuntimeError(f"{label} parity: launches {parity['launches']} in one model "
                                f"call, expected {per_call}")
         out["parity"].append(parity)
-        if key != "vr":
+        if key in ("hc", "bs_mamba2"):
             out["profile"][label] = phase_profile(model_type, session, song, label=label)
         del session
         torch.cuda.empty_cache()

@@ -8,8 +8,9 @@ position. ``ssd`` dispatches: ``ssd_einsum`` is the math spec as batched
 einsums, the path of the CPU and of every shape the kernel's gate refuses,
 and ``ssd_fused`` is kernel K8
 (``csrc/ssd.cu``): one pass that keeps the (P, N) state of a (batch, head)
-pair on chip across the chunks. ``ssd_plain`` repeats the kernel's
-arithmetic chunk by chunk in PyTorch.
+pair on chip across the chunks, or, for one-chunk sequences, computes C·Bᵀ
+once for a batch row's heads; ``k8_plan`` is its launch plan. ``ssd_plain``
+repeats the kernel's arithmetic chunk by chunk in PyTorch.
 """
 
 from __future__ import annotations
@@ -21,6 +22,10 @@ from sesa_tpu_torch.ops import _build
 # the one (head_dim P, state N, chunk Q) the kernel is built for: Mamba-2's
 # sizes in TS-BS-Mamba2
 _K8_SIZES = (64, 128, 64)
+# shared memory a block may opt into on the H100
+_SMEM_BLOCK_MAX = 232448
+# heads whose decay sums the one-chunk kernel scans at once (one per warp)
+_K8_HEAD_GROUP = 8
 
 
 def segsum(x: torch.Tensor) -> torch.Tensor:
@@ -130,6 +135,38 @@ def ssd_plain(x, a, b, c, chunk_size: int = 64):
     return out
 
 
+def k8_plan(bsz: int, l: int, h: int, dtype) -> dict:
+    """The host side of kernel K8: which of its two kernels runs and how.
+
+    L = 64 (one chunk: no state) takes "rows", which gives each block one
+    batch row, whose heads it walks computing C·Bᵀ once; any longer L takes
+    "carried", which gives each block one (batch row, head) pair, whose
+    chunks it walks with the state in registers. Returns the variant, the
+    heads per block, the grid, the dynamic shared memory in bytes (the sizes
+    ``csrc/ssd.cu`` lays out, which it checks) and the blocks per SM that the
+    kernel's launch bounds plan for (two, but one carried block in f32),
+    which the shared memory must let fit."""
+    rows = l == _K8_SIZES[2]
+    p, n, q = _K8_SIZES
+    el = 2 if dtype == torch.bfloat16 else 4
+    ldx, ldn, ldy = (p + 8 if el == 2 else p + 4), n + 8, q + 8
+    x_tile, bc_tile = q * ldx * el, q * ldn * el
+    if rows:
+        # B, C, two stages of x, the decay sums of a group of heads
+        smem = 2 * bc_tile + 2 * x_tile + _K8_HEAD_GROUP * q * 4
+        heads, grid = h, bsz
+    else:
+        # x, B and C (two stages in f32, which copies the next chunk's while
+        # this one's run; one in bf16, which fits two blocks per SM instead);
+        # the two halves of C·stateᵀ and one of the decayed C·Bᵀ·X; two
+        # stages of three decay vectors
+        stages = 1 if el == 2 else 2
+        smem = stages * (x_tile + 2 * bc_tile) + 3 * p * ldy * 4 + 2 * 3 * q * 4
+        heads, grid = 1, bsz * h
+    return dict(variant="rows" if rows else "carried", heads_per_block=heads, grid=grid,
+                smem=smem, blocks_per_sm=2 if rows or el == 2 else 1)
+
+
 def ssd_fused(x, a, b, c, chunk_size: int = 64):
     """Chunked SSD scan, same contract as :func:`ssd` with G = 1: kernel K8.
 
@@ -138,8 +175,9 @@ def ssd_fused(x, a, b, c, chunk_size: int = 64):
     (P, N, chunk) = (64, 128, 64); anything else raises. x and a are read
     contiguous; b and c are read where they lie when their rows are
     contiguous and 16-byte aligned (they reach the scan as column slices of
-    the conv output), else copied. Each call adds one to
-    ``ssd_fused.launches`` and to ``ssd_fused.launches_by_dtype``.
+    the conv output), else copied. :func:`k8_plan` picks the kernel. Each
+    call adds one to ``ssd_fused.launches`` and to
+    ``ssd_fused.launches_by_dtype``.
     """
     if x.device.type == "cpu":
         return ssd_plain(x, a, b, c, chunk_size)
@@ -153,8 +191,9 @@ def ssd_fused(x, a, b, c, chunk_size: int = 64):
     if tuple(a.shape) != (bsz, l, h) or tuple(b.shape) != (bsz, l, 1, n) or b.shape != c.shape:
         raise ValueError(f"ssd_fused: a {tuple(a.shape)}, b {tuple(b.shape)}, c "
                          f"{tuple(c.shape)} do not fit x {tuple(x.shape)}")
-    if bsz > 2 ** 31 - 1 or h > 65535:
-        raise ValueError(f"ssd_fused: batch {bsz} x heads {h} exceed one launch")
+    plan = k8_plan(bsz, l, h, x.dtype)
+    if plan["grid"] > 2 ** 31 - 1 or plan["smem"] > _SMEM_BLOCK_MAX:
+        raise ValueError(f"ssd_fused: batch {bsz} x heads {h} exceed one launch ({plan})")
     x, a = x.contiguous(), a.contiguous()
     per16 = 16 // x.element_size()
 
@@ -171,6 +210,7 @@ def ssd_fused(x, a, b, c, chunk_size: int = 64):
     _build.check(lib.sesa_ssd(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
                               y.data_ptr(), b.stride(0), b.stride(1), c.stride(0), c.stride(1),
                               bsz, l, h, int(x.dtype == torch.bfloat16),
+                              int(plan["variant"] == "rows"), plan["smem"], plan["grid"],
                               torch.cuda.current_stream(x.device).cuda_stream), "sesa_ssd")
     ssd_fused.launches += 1
     ssd_fused.launches_by_dtype["bf16" if x.dtype == torch.bfloat16 else "f32"] += 1

@@ -10,7 +10,8 @@ import jax.numpy as jnp
 
 from sesa_tpu.ops.ssd import ssd as jax_ssd
 from sesa_tpu.ops.ssd import ssd_pallas
-from sesa_tpu_torch.ops.ssd import segsum, ssd, ssd_fused, ssd_plain, use_fused_ssd
+from sesa_tpu_torch.ops import ssd as ssd_ops
+from sesa_tpu_torch.ops.ssd import k8_plan, segsum, ssd, ssd_fused, ssd_plain, use_fused_ssd
 
 # the f32 tolerance tests/test_ssd_pallas.py holds the Pallas kernel to: the
 # four implementations sum the same f32 products in different orders
@@ -141,3 +142,65 @@ def test_gate_shapes(change, takes):
     x, a = Fake((2, l, 4, p), dt), Fake((2, l, 4), torch.bfloat16 if change.get("mixed") else dt)
     b = c = Fake((2, l, g, n), dt)
     assert use_fused_ssd(x, a, b, c, change.get("chunk", 64)) is takes
+
+
+# an H100 SM's shared memory, and what each resident block takes of it for
+# the system
+SMEM_SM, SMEM_PER_BLOCK_RESERVED = 233472, 1024
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("bsz,l,h", [
+    (684, 704, 8),      # band_rnn
+    (8280, 64, 8),      # band_comm
+    (1001, 64, 8),      # a last wave left part empty
+    (3, 64, 1), (2, 64, 3), (2, 64, 11),
+    (2, 192, 3), (5, 256, 8), (1, 192, 1), (8280, 128, 8),
+])
+def test_k8_plan(bsz, l, h, dtype):
+    """K8's launch plan: one-chunk sequences take the rows kernel, a block per
+    batch row that walks all its heads; longer ones a block per (batch row,
+    head) pair. The shared memory fits a block's opt-in limit and lets the
+    planned blocks share an SM."""
+    plan = k8_plan(bsz, l, h, dtype)
+    rows = plan["variant"] == "rows"
+    assert rows == (l == 64)
+    assert plan["heads_per_block"] == (h if rows else 1)
+    assert plan["grid"] == (bsz if rows else bsz * h)
+    assert plan["blocks_per_sm"] == (2 if rows or dtype == torch.bfloat16 else 1)
+    assert plan["smem"] <= ssd_ops._SMEM_BLOCK_MAX
+    assert (plan["smem"] + SMEM_PER_BLOCK_RESERVED) * plan["blocks_per_sm"] <= SMEM_SM
+
+
+@pytest.mark.parametrize("dtype,carried,rows", [(torch.bfloat16, 100_864, 55_296),
+                                                (torch.float32, 230_912, 106_496)],
+                         ids=["bf16", "f32"])
+def test_k8_plan_smem_is_the_kernels_layout(dtype, carried, rows):
+    """The plan's shared memory is the layout csrc/ssd.cu states and checks
+    (ss_carried_smem, ss_rows_smem): a change to either side shows here."""
+    assert k8_plan(2, 128, 8, dtype)["smem"] == carried
+    assert k8_plan(2, 64, 8, dtype)["smem"] == rows
+
+
+def _tf32_split(v):
+    """K8's split by masks: hi keeps the top 11 significant bits, lo = v - hi
+    masked the same way (csrc/ssd.cu split_tf32)."""
+    mask = np.uint32(0xFFFFE000)
+    hi = (v.view(np.uint32) & mask).view(np.float32)
+    lo = ((v - hi).view(np.uint32) & mask).view(np.float32)
+    return hi, lo
+
+
+def test_tf32_split_premise():
+    """bf16 values widened to f32 are their own TF32 high part (lo = 0), and
+    for any f32 value hi + lo is within 2^-20 |v| of it."""
+    rng = np.random.default_rng(0)
+    v = (rng.standard_normal(100_000) * 2.0 ** rng.integers(-60, 60, 100_000)).astype(np.float32)
+    wide = torch.from_numpy(v).to(torch.bfloat16).float().numpy()
+    assert not (wide.view(np.uint32) & np.uint32(0xFFFF)).any()
+    hi, lo = _tf32_split(wide)
+    assert np.array_equal(hi, wide) and not lo.any()
+    hi, lo = _tf32_split(v)
+    err = np.abs(hi.astype(np.float64) + lo - v.astype(np.float64))
+    assert (err <= 2.0 ** -20 * np.abs(v.astype(np.float64))).all()
+    assert (np.abs(v - hi) > 0).any()  # the low parts carry something
