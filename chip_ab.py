@@ -1,24 +1,28 @@
-"""Time kernels K2, K3 and K8 of two trees of the repository against each
-other on one NVIDIA GPU, in turns.
+"""Time kernels K1, K2, K3, K6 and K8 of two trees of the repository against
+each other on one NVIDIA GPU, in turns.
 
     git archive <commit> | tar -x -C chip_parent    # the base tree (gitignored)
     python3 chip_ab.py --base chip_parent --pairs 4
-    python3 chip_ab.py --base chip_parent --pairs 3 --kernels K8
+    python3 chip_ab.py --base chip_parent --pairs 3 --kernels K1,K6
 
 Each turn is a subprocess that imports ``sesa_tpu_torch`` from one tree
 (``--base`` or this checkout), builds that tree's libraries of the kernels
-asked for (``--kernels``, default all three), makes the inputs of
-``chip_smoke.py``'s kernels phase from one seed at the main paths' shapes (K2
-at the flagship's 256,680 x 512 -> 2048 rms/GELU form and the mel-band
-conformer's 248,400 x 384 -> 1536 ln/SiLU/0.5 form; K3 at BH 2976 x S 690 x D
-64 through strided views; K8 at bs_mamba2's band_rnn B 684 x L 704 and
-band_comm B 8280 x L 64, H 8, in bf16 and in f32), checks each kernel against
-its plain version, and times it with CUDA events, beside the library
-yardsticks (the F.linear composites, SDPA under each backend, the einsum
-scan ``ssd_einsum``). Turns run base, new, new, base, base, new, ... so that
-drift of the card falls on both trees. Prints each turn, the median and range
-of each kernel by tree, and last the card's name and power limit; writes
-everything to chiprun_out/chip_ab.json.
+asked for (``--kernels``, default all five), makes the inputs of
+``chip_smoke.py``'s kernels phase from one seed at the main paths' shapes (K1
+at the flagship's time leg b 372 x n 690 and freq leg b 4140 x n 62 in mode 0
+and the time leg in mode 2, d 512, 8 heads x 64; K2 at the flagship's 256,680
+x 512 -> 2048 rms/GELU form and the mel-band conformer's 248,400 x 384 -> 1536
+ln/SiLU/0.5 form; K3 at BH 2976 x S 690 x D 64 through strided views; K6 at
+Apollo's b 320 x n 1901, d 256 -> 1024, k 7; K8 at bs_mamba2's band_rnn B 684
+x L 704 and band_comm B 8280 x L 64, H 8, in bf16 and in f32), checks each
+kernel against its plain version, and times it with CUDA events, beside the
+library yardsticks (cuBLAS + SDPA, the F.linear composites, SDPA under each
+backend, the cuDNN conv composite, the einsum scan ``ssd_einsum``). K1's and
+K6's rows also give device time by kernel (torch.profiler) in each tree's
+first turn. Turns run base, new, new, base, base, new, ... so that drift of
+the card falls on both trees. Prints each turn, the median and range of each
+kernel by tree, and last the card's name and power limit; writes everything
+to chiprun_out/chip_ab.json.
 """
 
 from __future__ import annotations
@@ -35,11 +39,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 # the rows of each kernel in the summary, each with its library yardstick
-ROWS = {"K2": ["K2", "K2ln"], "K3": ["K3"],
+ROWS = {"K1": ["K1_time", "K1_freq", "K1m2_time"], "K2": ["K2", "K2ln"], "K3": ["K3"],
+        "K6": ["K6"],
         "K8": [f"K8_{leg}_{tag}" for leg in ("band_rnn", "band_comm") for tag in ("bf16", "f32")]}
 
 
-def worker(tree: str, kernels) -> None:
+def worker(tree: str, kernels, breakdown: bool) -> None:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
@@ -52,11 +57,14 @@ def worker(tree: str, kernels) -> None:
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    _build.build_all([lib for k, lib in (("K2", "ff"), ("K3", "vmem_attention"), ("K8", "ssd"))
-                      if k in kernels])
+    _build.build_all([cs.LIBRARIES[k] for k in kernels])
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(6)
     res = {"tree": tree}
+    if "K1" in kernels:
+        k1(cs, dev, res, tree, breakdown)
+    if "K6" in kernels:
+        k6(cs, dev, res, tree, breakdown)
     if "K2" in kernels:
         k2(cs, gen, dev, res, tree)
     if "K3" in kernels:
@@ -64,6 +72,64 @@ def worker(tree: str, kernels) -> None:
     if "K8" in kernels:
         k8(cs, dev, res, tree)
     print("AB " + json.dumps(res), flush=True)
+
+
+def k1(cs, dev, res, tree, breakdown):
+    """K1 at the flagship's two legs in mode 0 and the time leg in mode 2
+    (the value-residual model's later layers: V lerped, no residual), each
+    checked against fused_attention_block_plain; cuBLAS + SDPA (with
+    torch.lerp in mode 2) is the yardstick."""
+    import torch
+
+    from sesa_tpu_torch.ops.attention import fused_attention_block, fused_attention_block_plain
+
+    gen = torch.Generator().manual_seed(1)
+    d, heads, dh = 512, 8, 64
+    for key, b, n, mode in (("K1_time", cs.BATCH * cs.BANDS, cs.FRAMES, 0),
+                            ("K1_freq", cs.BATCH * cs.FRAMES, cs.BANDS, 0),
+                            ("K1m2_time", cs.BATCH * cs.BANDS, cs.FRAMES, 2)):
+        args, rope = cs._k1_args(gen, b, n, d, heads, dh, dh, dev)
+        x = args[0]
+        if mode == 0:
+            kw = dict(rope=rope)
+            lib = lambda: cs.k1_library(*args, rope)  # noqa: E731
+        else:
+            vr = (cs._weights(gen, (heads, d), d, dev), cs._weights(gen, (heads,), d, dev),
+                  torch.randn((b, n, heads * dh), generator=gen).to(dev, torch.bfloat16))
+            kw = dict(rope=rope, vr=vr, add_residual=False)
+            lib = lambda: cs.k1_vr_library(*args, rope, vr, False)  # noqa: E731
+        out, ref = fused_attention_block(*args, **kw), fused_attention_block_plain(*args, **kw)
+        if mode == 2:
+            cs.compare(f"{tree} {key}, pre-mix V", out[1], ref[1], torch.zeros((), device=dev))
+            out, ref = out[0], ref[0]
+        cs.compare(f"{tree} {key}", out, ref, x if mode == 0 else torch.zeros((), device=dev))
+        del out, ref
+        res[key] = cs.time_ms(lambda: fused_attention_block(*args, **kw), reps=20, warmup=3)
+        res[key + "_library"] = cs.time_ms(lib, reps=20, warmup=3)
+        if breakdown:
+            res[key + "_parts"] = cs.device_breakdown(lambda: fused_attention_block(*args, **kw))
+        del x, args
+        torch.cuda.empty_cache()
+
+
+def k6(cs, dev, res, tree, breakdown):
+    """K6 at Apollo's shape, checked against fused_apollo_conv_plain; the
+    cuDNN grouped conv + F.linear composite is the yardstick."""
+    import torch
+
+    from sesa_tpu_torch.ops.convblock import fused_apollo_conv, fused_apollo_conv_plain
+
+    gen = torch.Generator().manual_seed(3)
+    b, n, d = cs.APOLLO_BPRIME * cs.APOLLO_BANDS, cs.APOLLO_FRAMES, cs.APOLLO_MODEL["feature_dim"]
+    p = cs._apollo_conv_params(gen, d, 7, dev)
+    x = (0.5 * torch.randn((b, n, d), generator=gen)).to(dev, torch.bfloat16)
+    cs.compare(f"{tree} K6", fused_apollo_conv(x, p), fused_apollo_conv_plain(x, p), x)
+    res["K6"] = cs.time_ms(lambda: fused_apollo_conv(x, p), reps=20, warmup=3)
+    res["K6_library"] = cs.time_ms(lambda: cs.k6_library(x, p), reps=20, warmup=3)
+    if breakdown:
+        res["K6_parts"] = cs.device_breakdown(lambda: fused_apollo_conv(x, p))
+    del x
+    torch.cuda.empty_cache()
 
 
 def k2(cs, gen, dev, res, tree):
@@ -139,11 +205,12 @@ def main() -> int:
     parser.add_argument("--kernels", type=lambda v: v.split(","), default=list(ROWS),
                         help=f"a subset of {list(ROWS)}")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
+    parser.add_argument("--breakdown", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not set(args.kernels) <= set(ROWS):
         parser.error(f"--kernels takes a subset of {list(ROWS)}")
     if args.worker:
-        worker(args.worker, args.kernels)
+        worker(args.worker, args.kernels, args.breakdown)
         return 0
     import torch
 
@@ -156,9 +223,11 @@ def main() -> int:
     for i in range(args.pairs):
         order += [args.base, HERE] if i % 2 == 0 else [HERE, args.base]
     turns = []
-    for tree in order:
+    for i, tree in enumerate(order):
+        # device time by kernel in each tree's first turn
+        first = order.index(tree) == i
         r = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree,
-                            "--kernels", ",".join(args.kernels)],
+                            "--kernels", ",".join(args.kernels)] + (["--breakdown"] if first else []),
                            capture_output=True, text=True, timeout=600)
         sys.stdout.write(r.stdout)
         if r.returncode != 0:
@@ -179,6 +248,11 @@ def main() -> int:
         print(f"{k}: base {b['median']:.3f} [{b['lo']:.3f}-{b['hi']:.3f}] ms, "
               f"new {nw['median']:.3f} [{nw['lo']:.3f}-{nw['hi']:.3f}] ms, "
               f"library {lib['median']:.3f} [{lib['lo']:.3f}-{lib['hi']:.3f}] ms")
+    for t in turns:
+        for k in rows:
+            for ms, n, name in t.get(k + "_parts", []):
+                print(f"{k} {'base' if t['tree'] == args.base else 'new'} by kernel: "
+                      f"{ms:.3f} ms x{n:g} {name[:90]}")
     card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip()

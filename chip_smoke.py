@@ -18,9 +18,12 @@ and prints no result line):
    f32), holds each against its plain PyTorch version on the same inputs,
    times the kernel, the plain version and a library composite (cuBLAS,
    SDPA under its fastest backend of flash, cuDNN and efficient, cuDNN, the
-   einsum scan), and computes each kernel's bound from its shapes; K2's
-   rows also give device time by kernel, ours and the composite's. K2 is
-   also checked at token counts that leave its last tile part empty, K3 at
+   einsum scan), and computes each kernel's bound from its shapes; K1's, K2's
+   and K6's rows also give device time by kernel (K1: norm, projection, vr
+   pass, core, out; K6: dw, up, down), K2's the composite's too. K1 is also
+   checked at small ragged shapes (dim_head 32 and 64, n 1 to 690 across
+   its core's two routes, no and partial rope, all three modes, no
+   residual), K2 at token counts that leave its last tile part empty, K3 at
    the edges of its gate (S 256, 257, 1000, 2048) for D 32, 64 and 128, and
    K4 to K8 at small ragged shapes (other head widths, clipping, short and
    even kernels, partial and no rope, sequences beyond one tile, one and
@@ -60,7 +63,8 @@ and prints no result line):
    K8's f32 form, with model parity in f32; K8's launches are counted by
    dtype.
 10. profile: device time by kernel over one warm model call of the flagship,
-   the mel-band conformer, apollo, the four-stream roformer and bs_mamba2
+   the mel-band conformer, apollo, the value-residual and four-stream
+   roformers and bs_mamba2
    (torch.profiler), with the idle share read from the traced call itself.
 
 Prints the ``kernels`` JSON line, the card's name and power limit, and last
@@ -178,6 +182,15 @@ def device_breakdown(fn, calls=3):
     rows = [(getattr(e, "self_device_time_total", 0) / 1e3 / calls, e.count / calls, e.key)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     return sorted((r for r in rows if r[0] > 0), reverse=True)
+
+
+def log_breakdown(row, label, fn, what="kernel"):
+    """Device time by kernel of ``fn`` (one of a row's sub-kernels, or its
+    library composite's) into ``row[what + "_breakdown"]``, and logged."""
+    parts = device_breakdown(fn)
+    row[f"{what}_breakdown"] = parts
+    log(f"  {label} {what} by kernel: " + "; ".join(
+        f"{name[:60]} {ms:.3f} ms x{n:g}" for ms, n, name in parts))
 
 
 def compare(name, out, ref, x):
@@ -536,6 +549,35 @@ def _k7_args(gen, b, n, heads, dh, rot, device):
     return qkv, heads, dh ** -0.5, rope
 
 
+# K1's small ragged shapes: (b, n, d, heads, dim_head, rotary width or None,
+# mode, with the residual)
+K1_SMALL = ((3, 62, 128, 1, 64, 64, 0, True), (5, 65, 192, 2, 32, None, 0, True),
+            (2, 257, 256, 8, 32, 16, 1, True), (1, 690, 128, 2, 64, 32, 2, False),
+            (7, 62, 64, 2, 32, 32, 2, False), (4, 65, 128, 4, 64, 48, 1, True),
+            (2, 257, 64, 1, 64, None, 0, False), (3, 690, 192, 3, 64, 64, 0, True),
+            (5, 1, 128, 2, 32, 32, 2, False))
+
+
+def _k1_args(gen, b, n, d, heads, dh, rot, device):
+    """K1's positional arguments (x, gamma, wqkv, wg, bg, wo, heads, scale)
+    and rope tables of width ``rot`` (None: no rope) from the default
+    frequencies."""
+    import torch
+
+    from sesa_tpu_torch.ops.rope import default_freqs, rope_tables
+
+    hd = heads * dh
+    x = (0.5 * torch.randn((b, n, d), generator=gen)).to(device, torch.bfloat16)
+    args = (x, _near_one(gen, d, device), _weights(gen, (3 * hd, d), d, device),
+            _weights(gen, (heads, d), d, device), _weights(gen, (heads,), d, device),
+            _weights(gen, (d, hd), hd, device), heads, dh ** -0.5)
+    rope = None
+    if rot is not None:
+        rope = tuple(r.to(device, torch.bfloat16).contiguous() for r in
+                     rope_tables(torch.from_numpy(default_freqs(rot)).to(device), n))
+    return args, rope
+
+
 def _k4_args(gen, b, n, d, heads, dh, max_pos, device):
     import torch
 
@@ -605,6 +647,7 @@ def phase_kernels(only=None):
                              replaces="sesa_tpu/ops/attention.py:461", max_abs_err=err,
                              ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                              **_bound(flops, nbytes), kernel="K1"))
+            log_breakdown(rows[-1], f"K1 {leg} leg", lambda: fused_attention_block(*args, rope=rope))
 
             # the value-residual modes: mode 1 (first layer: with the residual,
             # returns the pre-mix V) and mode 2 (later layers: V lerped toward a
@@ -634,8 +677,34 @@ def phase_kernels(only=None):
                     **_bound(flops + (2 * tokens * d * heads if mode == 2 else 0),
                              nbytes + 2 * (tokens * hd + extra)),
                     kernel=f"K1m{mode}"))
+                log_breakdown(rows[-1], f"K1 mode {mode} {leg} leg",
+                              lambda: fused_attention_block(*args, **kw))
             del x, v_first
             torch.cuda.empty_cache()
+
+        # K1 at small ragged shapes, across the core's routes (n <= 64: two
+        # (sequence, head) units a tile, an odd count of them; n > 64: tiles of
+        # 192 queries, the last one part empty), both head widths, widths that
+        # leave lanes of the norm pass idle, no rope and partial rope, the three
+        # modes, with and without the residual
+        for b, n, d, heads, dh, rot, mode, resid in K1_SMALL:
+            args, rope = _k1_args(gen, b, n, d, heads, dh, rot, dev)
+            x = args[0]
+            vr = None
+            if mode == 1:
+                vr = (None, None, None)
+            elif mode == 2:
+                vr = (_weights(gen, (heads, d), d, dev), _weights(gen, (heads,), d, dev),
+                      torch.randn((b, n, heads * dh), generator=gen).to(dev, torch.bfloat16))
+            kw = dict(rope=rope, vr=vr, add_residual=resid)
+            out, ref = fused_attention_block(*args, **kw), fused_attention_block_plain(*args, **kw)
+            label = (f"K1 small mode {mode} (b={b}, n={n}, d={d}, {heads}x{dh}, rope {rot}, "
+                     f"{'with' if resid else 'no'} residual)")
+            if vr is not None:
+                compare(f"{label}, pre-mix V", out[1], ref[1], zero)
+                out, ref = out[0], ref[0]
+            compare(label, out, ref, x if resid else zero)
+        torch.cuda.synchronize()
 
     if want("K2"):
         # K2, both forms: roformer at the flagship shape, conformer at the mel one
@@ -668,12 +737,8 @@ def phase_kernels(only=None):
                              **_bound(4 * tokens * d * hidden,
                                       2 * (2 * tokens * d + 2 * hidden * d + hidden + 3 * d)),
                              kernel=key))
-            for what, fn in (("kernel", lambda: fused_ff_residual(*args, **kw)),
-                             ("library", lib)):
-                parts = device_breakdown(fn)
-                rows[-1][f"{what}_breakdown"] = parts
-                log(f"  K2 {label} {what} by kernel: " + "; ".join(
-                    f"{name[:60]} {ms:.3f} ms x{n:g}" for ms, n, name in parts))
+            log_breakdown(rows[-1], f"K2 {label}", lambda: fused_ff_residual(*args, **kw))
+            log_breakdown(rows[-1], f"K2 {label}", lib, what="library")
             # token counts that leave the last 128-row tile part empty
             for ragged in (1, 257, 1000):
                 xr = x[:ragged].clone()
@@ -761,6 +826,7 @@ def phase_kernels(only=None):
                          **_bound(2 * tokens * 2 * d * hidden + 2 * tokens * k * d,
                                   2 * (2 * tokens * d + 2 * d * hidden + k * d + 3 * d + hidden)),
                          kernel="K6"))
+        log_breakdown(rows[-1], "K6", lambda: fused_apollo_conv(x, p))
         del x
         torch.cuda.empty_cache()
 
@@ -1235,8 +1301,9 @@ def phase_chain(sessions, song, expected):
 def phase_new_paths(song, calls):
     """The experimental roformers (value residual; four residual streams) and
     bs_mamba2 through cli.main, then model parity of each (kernels against
-    plain versions), then the profile of the four-stream model and of
-    bs_mamba2. Each session is dropped before the next model loads."""
+    plain versions), then the profile of the value-residual and four-stream
+    models and of bs_mamba2. Each session is dropped before the next model
+    loads."""
     import torch
 
     depth = FLAGSHIP_MODEL["depth"]
@@ -1273,7 +1340,7 @@ def phase_new_paths(song, calls):
             raise RuntimeError(f"{label} parity: launches {parity['launches']} in one model "
                                f"call, expected {per_call}")
         out["parity"].append(parity)
-        if key in ("hc", "bs_mamba2"):
+        if key in ("vr", "hc", "bs_mamba2"):
             out["profile"][label] = phase_profile(model_type, session, song, label=label)
         del session
         torch.cuda.empty_cache()

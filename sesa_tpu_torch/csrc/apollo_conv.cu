@@ -26,13 +26,20 @@
 //            warp reduction gives the norm with no second pass over memory;
 //            bf16(bf16(y * rsqrt(mean + eps)) * gamma) leaves in 16-byte
 //            stores.
-//   2. up:   wgmma GEMM (gemm.cuh) with W1, + b1, SiLU in f32, bf16 hidden.
-//   3. down: the same with W2, + b2, bf16, + x residual in the epilogue.
+//   2. up:   W1 on gemm_ws.cuh (persistent, TMA producer warp, two ping-pong
+//            consumer warpgroups; at K = d <= 512 the block's slice of W1
+//            stays in shared memory), + b1, SiLU in f32 (silu_fast: the fast
+//            divide, a few f32 ulps from an IEEE divide, far below the bf16
+//            rounding that follows), bf16 hidden.
+//   3. down: W2 on gemm_ws.cuh (K = 4d streams both operands), + b2, bf16,
+//            + x residual in the epilogue.
+// Both products take their persistent grids from the host
+// (ops/ff.py ff_gemm_schedule).
 // The normed activation and the hidden cross device memory once each way
 // (2 x 0.31 GB and 2 x 1.25 GB at Apollo's shape, ~0.93 ms of traffic, more
 // than the products' time); a persistent kernel that keeps the hidden tile on
 // chip between the two GEMMs is later work.
-#include "gemm.cuh"
+#include "gemm_ws.cuh"
 
 namespace sesa {
 
@@ -161,26 +168,24 @@ int sesa_apollo_dw(const void* x, const void* taps, const void* dwb, const void*
                                    (const bf16*)gamma, (bf16*)xn, batch, n, d, k, eps, s);
 }
 
-// h = bf16(silu(xn . w1^T + b1))
+// h = bf16(silu(xn . w1^T + b1)); grid: blocks of the persistent product
 int sesa_apollo_up(const void* xn, const void* w1, const void* b1, void* h, int tokens,
-                   int dim, int hidden, void* stream) {
-  GemmArgs p = {};
-  p.A = (const bf16*)xn; p.B1 = (const bf16*)w1; p.bias1 = (const bf16*)b1;
-  p.C1 = (bf16*)h;
-  p.M = tokens; p.N = hidden; p.K = dim; p.n1 = hidden; p.ldc1 = hidden;
-  p.out_scale = 1.0f;
-  return launch_gemm<EPI_BIAS_SILU>(p, (cudaStream_t)stream);
+                   int dim, int hidden, int grid, void* stream) {
+  WsArgs p = {};
+  p.bias = (const bf16*)b1; p.C = (bf16*)h;
+  p.M = tokens; p.N = hidden; p.K = dim; p.out_scale = 1.0f;
+  return launch_gemm_ws<WS_BIAS_SILU>((const bf16*)xn, (const bf16*)w1, p, grid,
+                                      (cudaStream_t)stream);
 }
 
-// out = bf16(bf16(h . w2^T + b2) + x)
+// out = bf16(bf16(h . w2^T + b2) + x); grid: blocks of the persistent product
 int sesa_apollo_down(const void* h, const void* w2, const void* b2, const void* x, void* out,
-                     int tokens, int dim, int hidden, void* stream) {
-  GemmArgs p = {};
-  p.A = (const bf16*)h; p.B1 = (const bf16*)w2; p.bias1 = (const bf16*)b2;
-  p.resid = (const bf16*)x; p.C1 = (bf16*)out;
-  p.M = tokens; p.N = dim; p.K = hidden; p.n1 = dim; p.ldc1 = dim;
-  p.out_scale = 1.0f;
-  return launch_gemm<EPI_RESID>(p, (cudaStream_t)stream);
+                     int tokens, int dim, int hidden, int grid, void* stream) {
+  WsArgs p = {};
+  p.bias = (const bf16*)b2; p.resid = (const bf16*)x; p.C = (bf16*)out;
+  p.M = tokens; p.N = dim; p.K = hidden; p.out_scale = 1.0f;
+  return launch_gemm_ws<WS_RESID>((const bf16*)h, (const bf16*)w2, p, grid,
+                                  (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -136,9 +136,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
-// x * sigmoid(x) (SiLU, swish) with the fast exp: a few f32 ulps, far below
-// the bf16 rounding that follows
-__device__ __forceinline__ float silu(float x) { return x / (1.0f + __expf(-x)); }
 
 // tanh-approximate GELU, the form jax.nn.gelu(approximate=True) computes;
 // tanh(u) = 1 - 2 / (exp(2u) + 1) with the fast exp and divide (a few f32

@@ -262,7 +262,7 @@ int sesa_conf_attn_proj(const void* x, const void* gamma, const void* beta, void
   if (rc != 0) return rc;
   GemmArgs p = {};
   p.A = (const bf16*)xn; p.B1 = (const bf16*)wqkv; p.C1 = (bf16*)qkv;
-  p.M = tokens; p.N = n_out; p.K = dim; p.n1 = n_out; p.ldc1 = n_out;
+  p.M = tokens; p.N = n_out; p.K = dim; p.ldc1 = n_out;
   p.out_scale = 1.0f;
   return launch_gemm<EPI_RESID>(p, s);
 }
@@ -291,7 +291,7 @@ int sesa_conf_attn_out(const void* ao, const void* wo, const void* bo, const voi
   GemmArgs p = {};
   p.A = (const bf16*)ao; p.B1 = (const bf16*)wo; p.bias1 = (const bf16*)bo;
   p.resid = (const bf16*)x; p.C1 = (bf16*)out;
-  p.M = tokens; p.N = dim; p.K = hd; p.n1 = dim; p.ldc1 = dim;
+  p.M = tokens; p.N = dim; p.K = hd; p.ldc1 = dim;
   p.out_scale = 1.0f;
   return launch_gemm<EPI_RESID>(p, (cudaStream_t)stream);
 }

@@ -119,7 +119,7 @@ int sesa_conv_up(const void* x, const void* gamma, const void* beta, void* xn, c
   GemmArgs p = {};
   p.A = (const bf16*)xn; p.B1 = (const bf16*)w1i; p.bias1 = (const bf16*)b1i;
   p.C1 = (bf16*)glu;
-  p.M = tokens; p.N = e2; p.K = dim; p.n1 = e2; p.ldc1 = e2 / 2;
+  p.M = tokens; p.N = e2; p.K = dim; p.ldc1 = e2 / 2;
   p.out_scale = 1.0f;
   return launch_gemm<EPI_GLU>(p, s);
 }
@@ -142,7 +142,7 @@ int sesa_conv_down(const void* y, const void* w2, const void* b2, const void* x,
   GemmArgs p = {};
   p.A = (const bf16*)y; p.B1 = (const bf16*)w2; p.bias1 = (const bf16*)b2;
   p.resid = (const bf16*)x; p.C1 = (bf16*)out;
-  p.M = tokens; p.N = dim; p.K = e; p.n1 = dim; p.ldc1 = dim;
+  p.M = tokens; p.N = dim; p.K = e; p.ldc1 = dim;
   p.out_scale = 1.0f;
   return launch_gemm<EPI_RESID>(p, (cudaStream_t)stream);
 }

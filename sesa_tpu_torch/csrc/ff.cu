@@ -41,7 +41,7 @@ int sesa_ff_up(const void* x, const void* gamma, const void* beta, void* xn, con
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
   if (form == 0) {
-    rc = launch_rms_norm<RMS_FF>((const bf16*)x, (const bf16*)gamma, (bf16*)xn, tokens, dim, s);
+    rc = launch_rms_norm((const bf16*)x, (const bf16*)gamma, (bf16*)xn, tokens, dim, s);
   } else if (form == 1) {
     rc = launch_layer_norm((const bf16*)x, (const bf16*)gamma, (const bf16*)beta, (bf16*)xn,
                            tokens, dim, s);

@@ -1,7 +1,8 @@
-// The flash-attention loop of K1's core (attention.cu): softmax(q . k^T *
-// scale) . v for one (sequence, head, BQ-query tile), left unnormalised in
-// registers for the caller's epilogue. K3 runs its own Hopper core
-// (flash_wgmma.cuh); moving K1 onto that core is later work.
+// The flash-attention loop of K1's core for sequences of at most 64
+// (attention.cu attn_core_kernel, the freq leg): softmax(q . k^T * scale) . v
+// for one (sequence, head, BQ-query tile), left unnormalised in registers
+// for the caller's epilogue. Longer sequences (K1's time leg, K3) run the
+// persistent Hopper core flash_wgmma.cuh.
 //
 // K/V tiles of 64 keys are double-buffered through cp.async, fragments come
 // by ldmatrix (V transposed by ldmatrix.trans), the two products are

@@ -1,6 +1,12 @@
-// K3's attention core on Hopper: softmax(q . k^T * scale) . v over whole
-// sequences, one persistent block per SM walking over (sequence, BQ-query)
-// tiles, BQ = 64 per consumer warpgroup.
+// The attention core on Hopper of K3 (vmem_attention.cu) and K1
+// (attention.cu): softmax(q . k^T * scale) . v over whole sequences, one
+// persistent block per SM walking over (sequence, BQ-query) tiles, BQ = 64
+// per consumer warpgroup.
+//
+// A compile-time option, off for K3: with GATE the output row of token (b,
+// pos), head h is multiplied by bf16(gates[(b * n + pos) * gate_ld + h])
+// before the store: bf16(bf16(o / l) * bf16(gate)), the rounding points of
+// the TPU kernel's ao * gate (sesa_tpu/ops/attention.py _attn_block_kernel).
 //
 // Roles (NCW + 1 warpgroups: NCW = 3 consumers at D <= 64, 2 at D 128):
 //   warpgroup 0, the producer: one thread issues every copy. It loads a
@@ -62,6 +68,8 @@ struct FlashArgs {
   long long ob, oh, os;  // output strides in elements: batch, head, row
   int heads, n, q_tiles, tiles, rank;
   float scale_log2;  // scale * log2(e), > 0
+  const float* gates;  // GATE: (batch * n, gate_ld) f32, the heads' gates first
+  int gate_ld;
 };
 
 // one box of rows [row, row + box rows) at column `col` of head (hi, bi):
@@ -160,7 +168,7 @@ __device__ __forceinline__ void flash_pack(const float (&s)[64], uint32_t (&pa)[
       pa[4 * kk + i] = pack_bf16x2(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
 }
 
-template <int DH, int NCW>
+template <int DH, int NCW, bool GATE = false>
 __global__ void __launch_bounds__(FlashCfg<DH, NCW>::THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const FlashArgs p) {
@@ -244,10 +252,21 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     if (cw == NCW - 1) next_turn();  // consumer 0 issues first
     int it = 0;  // K/V tiles consumed so far
     for (int ti = 0, tile = blockIdx.x; tile < p.tiles; ++ti, tile += gridDim.x) {
-      const int seq = tile / p.q_tiles, q0 = (tile % p.q_tiles) * C::BQ;
+      // this consumer's sequence (bi, hi) and the position of its first row
+      const int seq = tile / p.q_tiles;
+      const long long bi = seq / p.heads, hi = seq % p.heads;
+      const int row0 = (tile % p.q_tiles) * C::BQ + cw * 64;
+      // GATE: this thread's rows' gates, loaded now and used in the epilogue
+      float gate[2] = {0.f, 0.f};
+      if (GATE) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int pos = row0 + warp * 16 + g + 8 * h;
+          if (pos < n) gate[h] = rbf(p.gates[(bi * n + pos) * p.gate_ld + hi]);
+        }
+      }
       const int qb = ti % C::QBUF;
       const unsigned char* q_wg = sQ + qb * C::Q_BYTES + cw * 64 * C::SW;
-      const long long bi = seq / p.heads, hi = seq % p.heads;
       float o[DH / 2], s[64], m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
       float corr[2];
       uint32_t pa[32];  // P as the A fragments of P . V
@@ -318,13 +337,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 #pragma unroll
       for (int j = 0; j < DH / 8; ++j)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < 2; ++h) {
+          float v0 = o[4 * j + 2 * h] * inv[h], v1 = o[4 * j + 2 * h + 1] * inv[h];
+          if (GATE) {
+            v0 = rbf(v0) * gate[h];
+            v1 = rbf(v1) * gate[h];
+          }
           *reinterpret_cast<uint32_t*>(stage_o + (warp * 16 + g + 8 * h) * C::OLD + 8 * j + 2 * t) =
-              pack_bf16x2(o[4 * j + 2 * h] * inv[h], o[4 * j + 2 * h + 1] * inv[h]);
+              pack_bf16x2(v0, v1);
+        }
       named_bar_sync(1 + cw, 128);
       bf16* og = p.o + bi * p.ob + hi * p.oh;
       for (int ci = tid; ci < 64 * (DH / 8); ci += 128) {
-        const int r = ci / (DH / 8), ch = ci % (DH / 8), pos = q0 + cw * 64 + r;
+        const int r = ci / (DH / 8), ch = ci % (DH / 8), pos = row0 + r;
         if (pos < n)
           *reinterpret_cast<uint4*>(og + (long long)pos * p.os + ch * 8) =
               *reinterpret_cast<const uint4*>(stage_o + r * C::OLD + ch * 8);
@@ -333,9 +358,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   }
 }
 
+// host: the (sequence, BQ-query) tiles of a launch over batch x heads
+// sequences of n rows
+template <int DH, int NCW>
+inline long long flash_tiles(long long batch, int heads, int n) {
+  return batch * heads * ((n + FlashCfg<DH, NCW>::BQ - 1) / FlashCfg<DH, NCW>::BQ);
+}
+
 // host: the three tensor maps (rank 4: dims (d, s, h, b); rank 3: (d, s, bh);
 // byte strides of dims 1..rank-1) and the persistent launch, one block per SM
-template <int DH, int NCW>
+template <int DH, int NCW, bool GATE = false>
 inline int launch_flash_wgmma(FlashArgs a, const void* q, const void* k, const void* v,
                               const uint64_t* dims, const uint64_t* qs, const uint64_t* ks,
                               const uint64_t* vs, int batch, cudaStream_t stream) {
@@ -348,14 +380,14 @@ inline int launch_flash_wgmma(FlashArgs a, const void* q, const void* k, const v
   if (rc == 0) rc = make_tmap_bf16(&tv, v, a.rank, dims, vs, box_kv, C::SW);
   if (rc != 0) return rc;
   a.q_tiles = (a.n + C::BQ - 1) / C::BQ;
-  const long long tiles = (long long)batch * a.heads * a.q_tiles;
+  const long long tiles = flash_tiles<DH, NCW>(batch, a.heads, a.n);
   const int sms = sm_count();
   if (tiles < 1 || tiles > 0x7fffffffLL || sms < 1) return (int)cudaErrorInvalidValue;
   a.tiles = (int)tiles;
   const int grid = (int)(tiles < sms ? tiles : sms);
-  cudaFuncSetAttribute(flash_wgmma_kernel<DH, NCW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       C::SMEM);
-  flash_wgmma_kernel<DH, NCW><<<grid, C::THREADS, C::SMEM, stream>>>(tq, tk, tv, a);
+  auto kernel = flash_wgmma_kernel<DH, NCW, GATE>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(tq, tk, tv, a);
   return (int)cudaGetLastError();
 }
 

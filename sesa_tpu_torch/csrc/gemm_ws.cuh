@@ -1,14 +1,19 @@
-// A persistent, warp-specialised tensor-core GEMM with a fused epilogue, the
-// two products of K2 (ff.cu):
+// A persistent, warp-specialised tensor-core GEMM with a fused epilogue: the
+// two products of K2 (ff.cu), K1's projection and out products
+// (attention.cu) and K6's up and down products (apollo_conv.cu):
 //   C[M, N] = epilogue( A[M, K] . B[N, K]^T )
 // B keeps the torch (out_features, in_features) layout, so both operands are
 // K-contiguous and read by TMA as 64-wide K slices with the 128-byte swizzle.
 //
-// Epilogues (f32, the rounding points of gemm.cuh's EPI_BIAS_GELU,
-// EPI_BIAS_SILU and EPI_RESID):
+// Epilogues (f32, the rounding points of the TPU kernels):
 //   WS_BIAS_GELU  C = bf16(gelu_tanh(acc + bias))
 //   WS_BIAS_SILU  C = bf16(silu(acc + bias))  (silu_fast)
 //   WS_RESID      C = bf16(bf16((acc + bias) * out_scale) + resid)
+//   WS_QKV_ROPE   C = bf16(acc), with rope in bf16 arithmetic on the q and k
+//                 columns (< rope_cols) at position row % seq_len, on the
+//                 rounded values as they leave; no bias
+//   WS_OUT        C = bf16(bf16(acc) + resid), or bf16(acc) when resid is
+//                 null; no bias, no scale
 //
 // Design. One block of 384 threads per SM walks over 128 x 128 output tiles
 // with a static stride (tile, tile + grid, ...). Tile i is row block
@@ -46,14 +51,22 @@
 
 namespace sesa {
 
-enum WsEpilogue { WS_BIAS_GELU = 0, WS_BIAS_SILU = 1, WS_RESID = 2 };
+enum WsEpilogue { WS_BIAS_GELU = 0, WS_BIAS_SILU = 1, WS_RESID = 2, WS_QKV_ROPE = 3,
+                  WS_OUT = 4 };
+
+__host__ __device__ constexpr bool ws_has_bias(int epi) { return epi <= WS_RESID; }
 
 struct WsArgs {
-  const bf16* bias;   // (N,)
-  const bf16* resid;  // (M, N), WS_RESID only
+  const bf16* bias;   // (N,), the epilogues with a bias
+  const bf16* resid;  // (M, N), WS_RESID; WS_OUT: or null
   bf16* C;            // (M, N)
   int M, N, K, n_tiles, tiles;
   float out_scale;
+  // WS_QKV_ROPE: tables (seq_len, rot_w) or null (no rope); dim_head a power
+  // of 2; the q and k columns are those below rope_cols
+  const bf16* cos_t;
+  const bf16* sin_t;
+  int seq_len, rot_w, dim_head, rope_cols;
 };
 
 constexpr int WS_BM = 128, WS_BN = 128, WS_BK = 64;
@@ -75,9 +88,47 @@ struct WsLayout {
   static_assert(SMEM <= 232448, "shared memory of one block");
 };
 
-// x * sigmoid(x) with the fast exp and divide (a few f32 ulps, far below the
-// bf16 rounding that follows; common.cuh's silu divides to IEEE precision)
+// x * sigmoid(x) with the fast exp and divide: a few f32 ulps from x / (1 +
+// exp(-x)) divided to IEEE precision, far below the bf16 rounding that follows
 __device__ __forceinline__ float silu_fast(float x) { return __fdividef(x, 1.0f + __expf(-x)); }
+
+// WS_QKV_ROPE: the offset in its head of a 16-byte chunk of 8 columns from
+// col that the rope reaches (q and k columns, offsets below rot_w), else -1
+__device__ __forceinline__ int ws_rope_offset(int col, const WsArgs& p) {
+  if (p.cos_t == nullptr || col >= p.rope_cols) return -1;
+  const int d = col & (p.dim_head - 1);
+  return d < p.rot_w ? d : -1;
+}
+
+// the cos and sin pairs of the chunk's interleaved (even, odd) column pairs
+// at offset d of row `row` (sequence position row % seq_len)
+__device__ __forceinline__ void ws_rope_load(uint32_t (&cw)[4], uint32_t (&sw)[4], int row, int d,
+                                             const WsArgs& p) {
+  const int idx = (row % p.seq_len) * p.rot_w + d;  // even: 4-byte loads
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (d + 2 * e < p.rot_w) {
+      cw[e] = *reinterpret_cast<const uint32_t*>(p.cos_t + idx + 2 * e);
+      sw[e] = *reinterpret_cast<const uint32_t*>(p.sin_t + idx + 2 * e);
+    }
+  }
+}
+
+// rope on the chunk's bf16 pairs in bf16 arithmetic, as the TPU kernel:
+// y = bf16(bf16(x * cos) + bf16(rotate_half(x) * sin))
+__device__ __forceinline__ void ws_rope_apply(uint4& v, const uint32_t (&cw)[4],
+                                              const uint32_t (&sw)[4], int d, const WsArgs& p) {
+  uint32_t* vp = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (d + 2 * e >= p.rot_w) continue;
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vp + e));
+    const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&cw[e]));
+    const float2 sn = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&sw[e]));
+    vp[e] = pack_bf16x2(rbf(rbf(x.x * c.x) + rbf(-x.y * sn.x)),
+                        rbf(rbf(x.y * c.y) + rbf(x.x * sn.y)));
+  }
+}
 
 // element offset of (row r, even column c) in a staging tile
 __device__ __forceinline__ int ws_c_off(int r, int c) {
@@ -107,14 +158,18 @@ __device__ __forceinline__ void ws_stage_half(const float (&acc)[64], const floa
   for (int j = 0; j < WS_BN / 8; ++j) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float v0 = acc[4 * j + 2 * h] + b[j].x, v1 = acc[4 * j + 2 * h + 1] + b[j].y;
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (ws_has_bias(EPI)) {
+        v0 += b[j].x;
+        v1 += b[j].y;
+      }
       if (EPI == WS_BIAS_GELU) {
         v0 = gelu_tanh(v0);
         v1 = gelu_tanh(v1);
       } else if (EPI == WS_BIAS_SILU) {
         v0 = silu_fast(v0);
         v1 = silu_fast(v1);
-      } else if (p.out_scale != 1.0f) {
+      } else if (EPI == WS_RESID && p.out_scale != 1.0f) {
         v0 *= p.out_scale;
         v1 *= p.out_scale;
       }
@@ -126,30 +181,43 @@ __device__ __forceinline__ void ws_stage_half(const float (&acc)[64], const floa
 
 // the staging tile's 64 rows out to rows m0.. of C in coalesced 16-byte
 // chunks, eight a thread in two batches of four; WS_RESID adds the
-// residual. A batch's loads all come before its stores, which the loads
-// could otherwise not pass.
+// residual, WS_OUT where it has one, WS_QKV_ROPE ropes the bf16 values
+// (here, where a warp's table loads are whole rows, and not in
+// ws_stage_half, where they were scattered over eight rows). A batch's
+// loads all come before its stores, which the loads could otherwise not
+// pass.
 template <int EPI>
 __device__ __forceinline__ void ws_store_half(const bf16* tile, int tid, int m0, int n0,
                                               const WsArgs& p) {
   constexpr int BATCH = 4, PER = 64 * (WS_BN / 8) / 128;
   const int ncols = min(WS_BN, p.N - n0);
+  const bool resid = EPI == WS_RESID || (EPI == WS_OUT && p.resid != nullptr);
 #pragma unroll
   for (int b0 = 0; b0 < PER; b0 += BATCH) {
     uint4 v[BATCH], x[BATCH];
+    uint32_t cw[BATCH][4], sw[BATCH][4];
     bool ok[BATCH];
 #pragma unroll
     for (int i = 0; i < BATCH; ++i) {
       const int c = tid + 128 * (b0 + i), r = c / (WS_BN / 8), c8 = (c % (WS_BN / 8)) * 8;
       ok[i] = m0 + r < p.M && c8 < ncols;
       v[i] = *reinterpret_cast<const uint4*>(tile + ws_c_off(r, c8));
-      if (EPI == WS_RESID && ok[i])
+      if (resid && ok[i])
         x[i] = *reinterpret_cast<const uint4*>(p.resid + (size_t)(m0 + r) * p.N + n0 + c8);
+      if (EPI == WS_QKV_ROPE) {
+        const int d = ws_rope_offset(n0 + c8, p);
+        if (d >= 0 && ok[i]) ws_rope_load(cw[i], sw[i], m0 + r, d, p);
+      }
     }
 #pragma unroll
     for (int i = 0; i < BATCH; ++i) {
       const int c = tid + 128 * (b0 + i), r = c / (WS_BN / 8), c8 = (c % (WS_BN / 8)) * 8;
       if (!ok[i]) continue;
-      if (EPI == WS_RESID) {  // bf16(y) + x, rounded: the TPU kernel's residual add
+      if (EPI == WS_QKV_ROPE) {
+        const int d = ws_rope_offset(n0 + c8, p);
+        if (d >= 0) ws_rope_apply(v[i], cw[i], sw[i], d, p);
+      }
+      if (resid) {  // bf16(y) + x, rounded: the TPU kernel's residual add
         uint32_t* vp = reinterpret_cast<uint32_t*>(&v[i]);
         const uint32_t* xp = reinterpret_cast<const uint32_t*>(&x[i]);
 #pragma unroll
@@ -266,7 +334,7 @@ gemm_ws_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
       // epilogue, one 64-row half at a time: bias and activation into the
       // staging tile, then out in row chunks
       float2 bias[WS_BN / 8];
-      ws_load_bias(bias, t, n0, p);
+      if (ws_has_bias(EPI)) ws_load_bias(bias, t, n0, p);
       named_bar_sync(1 + cw, 128);  // the previous half has left the staging tile
       ws_stage_half<EPI>(acc0, bias, tile_c, warp, g, t, p);
       named_bar_sync(1 + cw, 128);
@@ -277,6 +345,11 @@ gemm_ws_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
       ws_store_half<EPI>(tile_c, tid, m0 + 64, n0, p);
     }
   }
+}
+
+// host: the dynamic shared memory of a launch at depth K
+inline int ws_smem_bytes(int K) {
+  return K <= WS_KT_RES * WS_BK ? WsLayout<true>::SMEM : WsLayout<false>::SMEM;
 }
 
 // host: the tensor maps of A (M, K) and B (N, K), both row-major bf16, and

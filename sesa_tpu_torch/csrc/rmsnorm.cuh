@@ -1,10 +1,9 @@
-// Row normalisation passes. RMSNorm, shared by K1 and K2 (lucidrains form:
-// l2-normalise with the norm clamped at 1e-12, then * sqrt(d) * gamma), with
-// the bf16 rounding points of the TPU kernels:
-//   RMS_ATTN  xn = bf16(bf16((x * sqrt(d)) / max(|x|, 1e-12)) * gamma)
-//             (sesa_tpu/ops/attention.py:389-392)
-//   RMS_FF    xn = bf16(bf16(x * (sqrt(d) / max(|x|, 1e-12))) * gamma)
-//             (sesa_tpu/ops/ff.py:40-42)
+// Row normalisation passes. K2's RMSNorm (lucidrains form: l2-normalise with
+// the norm clamped at 1e-12, then * sqrt(d) * gamma), with the bf16 rounding
+// points of the TPU kernel (sesa_tpu/ops/ff.py:40-42):
+//   xn = bf16(bf16(x * (sqrt(d) / max(|x|, 1e-12))) * gamma)
+// (K1's RMSNorm, which divides by the norm, is in its norm pass beside the
+// gates, attention.cu.)
 // LayerNorm, shared by K2's conformer form, K4 and K5 (sesa_tpu/ops/ff.py:44-48,
 // attention.py:594-599, convblock.py:77-82): f32 mean and biased variance,
 // eps 1e-5, xn = bf16(bf16(bf16((x - mu) * rsqrt(var + eps)) * gamma) + beta).
@@ -21,9 +20,6 @@
 
 namespace sesa {
 
-enum RmsMode { RMS_ATTN = 0, RMS_FF = 1 };
-
-template <int MODE>
 __global__ void __launch_bounds__(256)
 rms_norm_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
                      bf16* __restrict__ xn, int rows, int d) {
@@ -52,7 +48,7 @@ rms_norm_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const float f = bf2f(e[2 * i + j]);
-        const float s = (MODE == RMS_ATTN) ? rbf((f * sqrt_d) / nrm) : rbf(f * inv);
+        const float s = rbf(f * inv);
         y[j] = s * bf2f(ge[2 * i + j]);
       }
       op[i] = pack_bf16x2(y[0], y[1]);
@@ -61,10 +57,9 @@ rms_norm_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
   }
 }
 
-template <int MODE>
 inline int launch_rms_norm(const bf16* x, const bf16* gamma, bf16* xn, int rows, int d,
                            cudaStream_t stream) {
-  rms_norm_rows_kernel<MODE><<<(rows + 7) / 8, 256, 0, stream>>>(x, gamma, xn, rows, d);
+  rms_norm_rows_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(x, gamma, xn, rows, d);
   return (int)cudaGetLastError();
 }
 

@@ -33,10 +33,10 @@ _L = ctypes.c_longlong
 # C signatures of every exported function, by library
 SIGNATURES = {
     "attention": {
-        "sesa_attn_proj": [_P] * 10 + [_I] * 7 + [_P],
+        "sesa_attn_proj": [_P] * 10 + [_I] * 9 + [_P],
         "sesa_attn_vr": [_P] * 4 + [_I] * 4 + [_P],
-        "sesa_attn_core": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-        "sesa_attn_out": [_P, _P, _P, _P, _I, _I, _I, _P],
+        "sesa_attn_core": [_P] * 3 + [_I] * 5 + [_F, _I] + [_L] * 10 + [_I, _I, _P],
+        "sesa_attn_out": [_P] * 4 + [_I] * 5 + [_P],
     },
     "ff": {
         "sesa_ff_up": [_P] * 7 + [_I] * 5 + [_P],
@@ -54,8 +54,8 @@ SIGNATURES = {
     },
     "apollo_conv": {
         "sesa_apollo_dw": [_P] * 5 + [_I] * 4 + [_F, _P],
-        "sesa_apollo_up": [_P] * 4 + [_I] * 3 + [_P],
-        "sesa_apollo_down": [_P] * 5 + [_I] * 3 + [_P],
+        "sesa_apollo_up": [_P] * 4 + [_I] * 4 + [_P],
+        "sesa_apollo_down": [_P] * 5 + [_I] * 4 + [_P],
     },
     "rope_attention": {
         "sesa_rope_attn": [_P] * 4 + [_I] * 6 + [_F, _P],

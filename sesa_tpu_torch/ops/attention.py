@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from sesa_tpu_torch.ops import _build
-from sesa_tpu_torch.ops.ff import layer_norm_rounded
+from sesa_tpu_torch.ops.ff import ff_gemm_schedule, layer_norm_rounded, ws_smem_bytes
 from sesa_tpu_torch.ops.rope import apply_rope
 
 
@@ -210,6 +210,67 @@ def fused_attention_block_plain(x, gamma, wqkv, wg, bg, wo, heads, scale, rope=N
 
 
 _K1_DIM_HEADS = (32, 64)
+# the core's routes (csrc/attention.cu K1CoreRoute): the persistent
+# flash_wgmma core on (sequence, 192-query) tiles, or for n <= 64 one block of
+# flash_core<dh, 64> per (sequence, head)
+_K1_ROUTES = {"tiles": 0, "short": 1}
+_K1_SHORT_MAX_N = 64
+
+
+def _flash_smem(dh: int, ncw: int) -> int:
+    """Dynamic shared memory of ``flash_wgmma_kernel<dh, ncw>``: the layout of
+    ``csrc/flash_wgmma.cuh`` ``FlashCfg`` (Q buffers, K and V stages, the
+    output staging tiles, the mbarriers, 1024 bytes of alignment slack)."""
+    stages, qbuf = (2, 1) if dh == 128 else (3, 2)
+    q_bytes, kv_bytes = 64 * ncw * dh * 2, 128 * dh * 2
+    bars = qbuf * q_bytes + 2 * stages * kv_bytes + ncw * 64 * (dh + 8) * 2
+    return bars + 8 * (2 * qbuf + 3 * stages) + 1024
+
+
+def _flash_core_smem(dh: int, bq: int = 64) -> int:
+    """Dynamic shared memory of ``attn_core_kernel<dh, bq>``: the Q tile and two
+    K and two V buffers of 64 keys, rows padded by 8 (``csrc/flash_core.cuh``
+    ``flash_core_smem_bytes``)."""
+    return (bq + 4 * 64) * (dh + 8) * 2
+
+
+def k1_plan(b: int, n: int, d: int, heads: int, dh: int, sms: int, mix: bool = False) -> dict:
+    """The host side of kernel K1: what each of its launches gets.
+
+    For ``b`` sequences of ``n`` tokens of width ``d``, ``heads`` × ``dh``,
+    on a card of ``sms`` SMs, with the value-residual mix (mode 2) or not:
+
+    - ``norm``: the gate columns ``side`` that the norm pass computes beside
+      xn, the heads' gates and with ``mix`` the heads' mix after them;
+    - ``proj`` and ``out``: the persistent GEMMs (``csrc/gemm_ws.cuh``) over
+      (b·n, 3·h·dh) at depth d and (b·n, d) at depth h·dh, each with its
+      ``tiles``, ``grid`` (:func:`ff_gemm_schedule`) and ``smem``;
+    - ``core``: the gated attention core, its ``route`` and ``route_id``:
+      "tiles" for n > 64 (``csrc/flash_wgmma.cuh``, persistent: ``tiles`` of
+      (sequence, 192 queries), ``grid`` one block per SM and never more than
+      tiles), "short" for n ≤ 64 (``csrc/flash_core.cuh``: one block per
+      (sequence, head), ``tiles`` = ``grid`` = b·h); ``smem``; the qkv
+      buffer as the tiles route's three tensor maps read it, (d, s, h, b)
+      with ``dims`` (dh, n, h, b), byte ``strides`` of dims 1-3 (a row of
+      qkv, a head, a sequence) and element ``offsets`` of q, k and v; and the
+      element ``out_strides`` (batch, head, row) of the (b, n, h, dh)
+      output.
+
+    ``csrc/attention.cu`` refuses a plan that does not match its layouts."""
+    tokens, hd = b * n, heads * dh
+    plan = {"norm": dict(side=(2 if mix else 1) * heads)}
+    for name, cols, depth in (("proj", 3 * hd, d), ("out", d, hd)):
+        tiles, grid = ff_gemm_schedule(tokens, cols, sms)
+        plan[name] = dict(tiles=tiles, grid=grid, smem=ws_smem_bytes(depth))
+    if n <= _K1_SHORT_MAX_N:
+        route, tiles, grid, smem = "short", b * heads, b * heads, _flash_core_smem(dh)
+    else:
+        tiles = b * heads * -(-n // 192)
+        route, grid, smem = "tiles", min(tiles, sms), _flash_smem(dh, 3)
+    plan["core"] = dict(route=route, route_id=_K1_ROUTES[route], tiles=tiles, grid=grid, smem=smem,
+                        dims=(dh, n, heads, b), strides=(2 * 3 * hd, 2 * dh, 2 * n * 3 * hd),
+                        offsets=(0, hd, 2 * hd), out_strides=(n * hd, dh, hd))
+    return plan
 
 
 def use_fused_attention(x: torch.Tensor, heads: int, dim_head: int) -> bool:
@@ -264,19 +325,22 @@ def fused_attention_block(x, gamma, wqkv, wg, bg, wo, heads, scale, rope=None, v
     for name, t, shape in tensors:
         _build.check_tensor("fused_attention_block", name, t, shape, torch.bfloat16)
     cos_p = sin_p = None
-    w = 0
+    rot = 0
     if rope is not None:
         cos, sin = rope
-        w = cos.shape[-1]
-        if w % 2 or w > dh:
-            raise ValueError(f"fused_attention_block: rotary width {w} must be even and <= {dh}")
+        rot = cos.shape[-1]
+        if rot % 2 or rot > dh:
+            raise ValueError(f"fused_attention_block: rotary width {rot} must be even and "
+                             f"<= {dh}")
         for name, t in (("cos", cos), ("sin", sin)):
-            _build.check_tensor("fused_attention_block", name, t, (n, w), torch.bfloat16)
+            _build.check_tensor("fused_attention_block", name, t, (n, rot), torch.bfloat16)
         cos_p, sin_p = cos.data_ptr(), sin.data_ptr()
-    # the mix projection rides in the projection GEMM as h more gate columns
-    side = heads
+    # the norm pass computes the mix beside the gates: h more rows of W_g
+    plan = k1_plan(b, n, d, heads, dh, torch.cuda.get_device_properties(x.device)
+                   .multi_processor_count, mix=v_first is not None)
+    core, side = plan["core"], plan["norm"]["side"]
     if v_first is not None:
-        wg, bg, side = torch.cat([wg, wvr]), torch.cat([bg, bvr]), 2 * heads
+        wg, bg = torch.cat([wg, wvr]), torch.cat([bg, bvr])
 
     lib = _build.load("attention")
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -286,10 +350,10 @@ def fused_attention_block(x, gamma, wqkv, wg, bg, wo, heads, scale, rope=None, v
     ao = torch.empty((tokens, hd), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     _build.check(lib.sesa_attn_proj(x.data_ptr(), gamma.data_ptr(), xn.data_ptr(),
-                                    wqkv.data_ptr(),
-                                    wg.data_ptr(), bg.data_ptr(), cos_p, sin_p,
-                                    qkv.data_ptr(), gates.data_ptr(), tokens, d, heads, dh,
-                                    n, w, side, stream), "sesa_attn_proj")
+                                    wqkv.data_ptr(), wg.data_ptr(), bg.data_ptr(), cos_p, sin_p,
+                                    qkv.data_ptr(), gates.data_ptr(), tokens, d, heads, dh, n,
+                                    rot, side, plan["proj"]["grid"], plan["proj"]["smem"],
+                                    stream), "sesa_attn_proj")
     v_pre = None
     if vr is not None:
         v_pre = torch.empty((b, n, hd), dtype=x.dtype, device=x.device)
@@ -298,10 +362,13 @@ def fused_attention_block(x, gamma, wqkv, wg, bg, wo, heads, scale, rope=None, v
                                       v_pre.data_ptr(), tokens, heads, dh, side, stream),
                      "sesa_attn_vr")
     _build.check(lib.sesa_attn_core(qkv.data_ptr(), gates.data_ptr(), ao.data_ptr(), b, n,
-                                    heads, dh, side, float(scale), stream), "sesa_attn_core")
+                                    heads, dh, side, float(scale), core["route_id"],
+                                    *core["dims"], *core["strides"], *core["out_strides"],
+                                    core["grid"], core["smem"], stream), "sesa_attn_core")
     _build.check(lib.sesa_attn_out(ao.data_ptr(), wo.data_ptr(),
                                    x.data_ptr() if add_residual else None,
-                                   out.data_ptr(), tokens, d, hd, stream), "sesa_attn_out")
+                                   out.data_ptr(), tokens, d, hd, plan["out"]["grid"],
+                                   plan["out"]["smem"], stream), "sesa_attn_out")
     fused_attention_block.launches += 1
     fused_attention_block.launches_by_mode[0 if vr is None else 1 if v_first is None else 2] += 1
     return out if vr is None else (out, v_pre)

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from sesa_tpu_torch.ops import _build
-from sesa_tpu_torch.ops.ff import layer_norm_rounded
+from sesa_tpu_torch.ops.ff import ff_gemm_schedule, layer_norm_rounded
 
 
 def conv_pad(kernel: int):
@@ -148,6 +148,13 @@ def fused_apollo_conv_plain(x, p, eps: float = 1e-5):
     return out + x
 
 
+def k6_gemm_grids(tokens: int, d: int, hidden: int, sms: int):
+    """The persistent grids of K6's up product (tokens, hidden) at depth d and
+    down product (tokens, d) at depth hidden, both on ``csrc/gemm_ws.cuh``
+    (:func:`ff_gemm_schedule`)."""
+    return ff_gemm_schedule(tokens, hidden, sms)[1], ff_gemm_schedule(tokens, d, sms)[1]
+
+
 def fused_apollo_conv(x, p):
     """x (b, n, d) -> x + ConvActNorm(x) for an Apollo seq_net block ``p``
     (dw_w (d, 1, k), dw_b, norm, pw1_w (4d, d), pw1_b, pw2_w (d, 4d), pw2_b,
@@ -179,6 +186,8 @@ def fused_apollo_conv(x, p):
 
     lib = _build.load("apollo_conv")
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    up_grid, down_grid = k6_gemm_grids(tokens, d, hidden, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
     xn = torch.empty((tokens, d), dtype=x.dtype, device=x.device)
     h = torch.empty((tokens, hidden), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
@@ -186,10 +195,11 @@ def fused_apollo_conv(x, p):
                                     p["norm"].data_ptr(), xn.data_ptr(), b, n, d, k, 1e-5,
                                     stream), "sesa_apollo_dw")
     _build.check(lib.sesa_apollo_up(xn.data_ptr(), w1.data_ptr(), p["pw1_b"].data_ptr(),
-                                    h.data_ptr(), tokens, d, hidden, stream), "sesa_apollo_up")
+                                    h.data_ptr(), tokens, d, hidden, up_grid, stream),
+                 "sesa_apollo_up")
     _build.check(lib.sesa_apollo_down(h.data_ptr(), w2.data_ptr(), p["pw2_b"].data_ptr(),
-                                      x.data_ptr(), out.data_ptr(), tokens, d, hidden, stream),
-                 "sesa_apollo_down")
+                                      x.data_ptr(), out.data_ptr(), tokens, d, hidden, down_grid,
+                                      stream), "sesa_apollo_down")
     fused_apollo_conv.launches += 1
     return out
 

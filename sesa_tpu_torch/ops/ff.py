@@ -56,6 +56,20 @@ def fused_ff_residual_plain(x, gamma, w1, b1, w2, b2, *, beta=None, norm="rms",
 _TILE = 128
 
 
+def ws_smem_bytes(k: int) -> int:
+    """Dynamic shared memory of a persistent GEMM at depth ``k``: the layout
+    of ``csrc/gemm_ws.cuh`` ``WsLayout`` (at k ≤ 512 the B slice resident, 8
+    k-steps of 16 KB, and a ring of 4 A stages; else a ring of 5 A + B
+    stages; two 16 KB staging tiles, the mbarriers, 1024 bytes of alignment
+    slack)."""
+    slice_bytes = 128 * 64 * 2
+    if k <= 8 * 64:
+        stages, ring = 4, 8 * slice_bytes + 4 * slice_bytes
+    else:
+        stages, ring = 5, 5 * 2 * slice_bytes
+    return ring + 2 * 64 * _TILE * 2 + 8 * (2 * stages + 3) + 1024
+
+
 def ff_gemm_schedule(tokens: int, n: int, sms: int):
     """The persistent grid of one of K2's products over a (tokens, n) output:
     ``(tiles, grid)``, with ⌈tokens / 128⌉ · ⌈n / 128⌉ tiles of 128 × 128 and

@@ -28,7 +28,9 @@ from sesa_tpu_torch.convert import convert_checkpoint
 from sesa_tpu_torch.convert.from_jax import params_from_jax
 from sesa_tpu_torch.models import apollo, get_model
 from sesa_tpu_torch.ops.attention import fused_rope_attention, fused_rope_attention_plain
-from sesa_tpu_torch.ops.convblock import fused_apollo_conv, fused_apollo_conv_plain
+from sesa_tpu_torch.ops.convblock import (fused_apollo_conv, fused_apollo_conv_plain,
+                                          k6_gemm_grids)
+from sesa_tpu_torch.ops.ff import ff_gemm_schedule
 from sesa_tpu_torch.ops.stft import hann_window, istft_ri, stft_ri
 from sesa_tpu_torch.runtime.session import InferenceSession
 from sesa_tpu_torch.tree import tree_map
@@ -342,3 +344,25 @@ def test_session_prepares_the_weights_once(tiny):
     s.separate(mix)
     assert s._prepared[torch.bfloat16] is first and s.rescues == 0
     assert first["layers"][0]["band_net"]["qkv_w_cm"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("tokens,d", [(320 * 1901, 256), (3 * 62, 128), (1, 64), (1001, 512)])
+def test_k6_gemm_grids_cover_every_tile_once(tokens, d):
+    """K6's up (tokens, 4d) and down (tokens, d) products on the persistent
+    GEMM: each grid is a multiple of the column blocks, one block per SM at
+    most, and hands every 128 x 128 output tile to exactly one block, which
+    keeps one column block of the weights."""
+    hidden = 4 * d
+    for sms in (132, 7):
+        grids = k6_gemm_grids(tokens, d, hidden, sms)
+        for cols, grid in zip((hidden, d), grids):
+            n_tiles = -(-cols // 128)
+            tiles = ff_gemm_schedule(tokens, cols, sms)[0]
+            assert tiles == -(-tokens // 128) * n_tiles
+            assert grid % n_tiles == 0 and 1 <= grid <= min(tiles, max(sms, n_tiles))
+            seen = np.zeros(tiles, np.int64)
+            for block in range(grid):
+                mine = np.arange(block, tiles, grid)
+                assert len(set(mine % n_tiles)) <= 1
+                seen[mine] += 1
+            assert (seen == 1).all()
