@@ -1,5 +1,5 @@
-"""Time kernels K1, K2, K3, K6 and K8 of two trees of the repository against
-each other on one NVIDIA GPU, in turns.
+"""Time kernels K1 to K6 and K8 of two trees of the repository against each
+other on one NVIDIA GPU, in turns.
 
     git archive <commit> | tar -x -C chip_parent    # the base tree (gitignored)
     python3 chip_ab.py --base chip_parent --pairs 4
@@ -7,19 +7,22 @@ each other on one NVIDIA GPU, in turns.
 
 Each turn is a subprocess that imports ``sesa_tpu_torch`` from one tree
 (``--base`` or this checkout), builds that tree's libraries of the kernels
-asked for (``--kernels``, default all five), makes the inputs of
+asked for (``--kernels``, default all seven), makes the inputs of
 ``chip_smoke.py``'s kernels phase from one seed at the main paths' shapes (K1
 at the flagship's time leg b 372 x n 690 and freq leg b 4140 x n 62 in mode 0
 and the time leg in mode 2, d 512, 8 heads x 64; K2 at the flagship's 256,680
 x 512 -> 2048 rms/GELU form and the mel-band conformer's 248,400 x 384 -> 1536
-ln/SiLU/0.5 form; K3 at BH 2976 x S 690 x D 64 through strided views; K6 at
+ln/SiLU/0.5 form; K3 at BH 2976 x S 690 x D 64 through strided views; K4 and
+K5 at the mel-band conformer's time leg b 360 x n 690 and freq leg b 4140 x n
+60, d 384 (K4: 8 heads x 64, P 512; K5: e 768, k 31); K6 at
 Apollo's b 320 x n 1901, d 256 -> 1024, k 7; K8 at bs_mamba2's band_rnn B 684
 x L 704 and band_comm B 8280 x L 64, H 8, in bf16 and in f32), checks each
 kernel against its plain version, and times it with CUDA events, beside the
 library yardsticks (cuBLAS + SDPA, the F.linear composites, SDPA under each
-backend, the cuDNN conv composite, the einsum scan ``ssd_einsum``). K1's and
-K6's rows also give device time by kernel (torch.profiler) in each tree's
-first turn. Turns run base, new, new, base, base, new, ... so that drift of
+backend, LayerNorm + cuBLAS + SDPA with the Shaw bias as a mask, the cuDNN
+conv composites, the einsum scan ``ssd_einsum``). K1's, K4's, K5's and K6's
+rows also give device time by kernel (torch.profiler) in each tree's first
+turn. Turns run base, new, new, base, base, new, ... so that drift of
 the card falls on both trees. Prints each turn, the median and range of each
 kernel by tree, and last the card's name and power limit; writes everything
 to chiprun_out/chip_ab.json.
@@ -40,7 +43,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # the rows of each kernel in the summary, each with its library yardstick
 ROWS = {"K1": ["K1_time", "K1_freq", "K1m2_time"], "K2": ["K2", "K2ln"], "K3": ["K3"],
-        "K6": ["K6"],
+        "K4": ["K4_time", "K4_freq"], "K5": ["K5_time", "K5_freq"], "K6": ["K6"],
         "K8": [f"K8_{leg}_{tag}" for leg in ("band_rnn", "band_comm") for tag in ("bf16", "f32")]}
 
 
@@ -63,6 +66,10 @@ def worker(tree: str, kernels, breakdown: bool) -> None:
     res = {"tree": tree}
     if "K1" in kernels:
         k1(cs, dev, res, tree, breakdown)
+    if "K4" in kernels:
+        k4(cs, dev, res, tree, breakdown)
+    if "K5" in kernels:
+        k5(cs, dev, res, tree, breakdown)
     if "K6" in kernels:
         k6(cs, dev, res, tree, breakdown)
     if "K2" in kernels:
@@ -109,6 +116,59 @@ def k1(cs, dev, res, tree, breakdown):
         if breakdown:
             res[key + "_parts"] = cs.device_breakdown(lambda: fused_attention_block(*args, **kw))
         del x, args
+        torch.cuda.empty_cache()
+
+
+def _conformer_legs(cs):
+    """The mel-band conformer's two legs, (row suffix, b, n)."""
+    return (("time", cs.BATCH * cs.MEL_BANDS, cs.FRAMES),
+            ("freq", cs.BATCH * cs.FRAMES, cs.MEL_BANDS))
+
+
+def k4(cs, dev, res, tree, breakdown):
+    """K4 at the mel-band conformer's two legs, checked against
+    fused_conformer_attention_plain; LayerNorm + cuBLAS + SDPA with the Shaw
+    bias as attn_mask is the yardstick."""
+    import torch
+
+    from sesa_tpu_torch.ops.attention import (fused_conformer_attention,
+                                              fused_conformer_attention_plain)
+
+    gen = torch.Generator().manual_seed(4)
+    d, heads, dh, max_pos = cs.MELCONF_MODEL["dim"], 8, 64, 512
+    for leg, b, n in _conformer_legs(cs):
+        key = f"K4_{leg}"
+        args = cs._k4_args(gen, b, n, d, heads, dh, max_pos, dev)
+        cs.compare(f"{tree} {key}", fused_conformer_attention(*args),
+                   fused_conformer_attention_plain(*args), args[0])
+        res[key] = cs.time_ms(lambda: fused_conformer_attention(*args), reps=20, warmup=3)
+        res[key + "_library"] = cs.time_ms(lambda: cs.k4_library(*args), reps=5, warmup=1)
+        if breakdown:
+            res[key + "_parts"] = cs.device_breakdown(lambda: fused_conformer_attention(*args))
+        del args
+        torch.cuda.empty_cache()
+
+
+def k5(cs, dev, res, tree, breakdown):
+    """K5 at the mel-band conformer's two legs (e 768, k 31), checked against
+    fused_conformer_conv_plain; LayerNorm + cuBLAS + cuDNN's grouped conv is
+    the yardstick."""
+    import torch
+
+    from sesa_tpu_torch.ops.convblock import fused_conformer_conv, fused_conformer_conv_plain
+
+    gen = torch.Generator().manual_seed(5)
+    d = cs.MELCONF_MODEL["dim"]
+    p = cs._conv_params(gen, d, 2 * d, 31, dev)
+    for leg, b, n in _conformer_legs(cs):
+        key = f"K5_{leg}"
+        x = (0.5 * torch.randn((b, n, d), generator=gen)).to(dev, torch.bfloat16)
+        cs.compare(f"{tree} {key}", fused_conformer_conv(x, p), fused_conformer_conv_plain(x, p), x)
+        res[key] = cs.time_ms(lambda: fused_conformer_conv(x, p), reps=20, warmup=3)
+        res[key + "_library"] = cs.time_ms(lambda: cs.k5_library(x, p), reps=5, warmup=1)
+        if breakdown:
+            res[key + "_parts"] = cs.device_breakdown(lambda: fused_conformer_conv(x, p))
+        del x
         torch.cuda.empty_cache()
 
 

@@ -18,14 +18,16 @@ and prints no result line):
    f32), holds each against its plain PyTorch version on the same inputs,
    times the kernel, the plain version and a library composite (cuBLAS,
    SDPA under its fastest backend of flash, cuDNN and efficient, cuDNN, the
-   einsum scan), and computes each kernel's bound from its shapes; K1's, K2's
-   and K6's rows also give device time by kernel (K1: norm, projection, vr
-   pass, core, out; K6: dw, up, down), K2's the composite's too. K1 is also
+   einsum scan), and computes each kernel's bound from its shapes; K1's, K2's,
+   K4's, K5's and K6's rows also give device time by kernel (K1: norm,
+   projection, vr pass, core, out; K4: norm, projection, table, core, out;
+   K5: norm, up, dw, down; K6: dw, up, down), K2's the composite's too. K1 is also
    checked at small ragged shapes (dim_head 32 and 64, n 1 to 690 across
    its core's two routes, no and partial rope, all three modes, no
    residual), K2 at token counts that leave its last tile part empty, K3 at
    the edges of its gate (S 256, 257, 1000, 2048) for D 32, 64 and 128, and
-   K4 to K8 at small ragged shapes (other head widths, clipping, short and
+   K4 to K8 at small ragged shapes (K4 across its core's two routes, other
+   head widths, clipping and none, short and
    even kernels, partial and no rope, sequences beyond one tile, one and
    three chunks, an impulse the state must carry, fast decays). With
    ``--only``, phases 1-2 build and check just the kernels named.
@@ -65,7 +67,8 @@ and prints no result line):
 10. profile: device time by kernel over one warm model call of the flagship,
    the mel-band conformer, apollo, the value-residual and four-stream
    roformers and bs_mamba2
-   (torch.profiler), with the idle share read from the traced call itself.
+   (torch.profiler), with the idle share read from the traced call itself;
+   a launch of the retired cp.async GEMM (``gemm_nt_kernel``) fails it.
 
 Prints the ``kernels`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
@@ -578,6 +581,17 @@ def _k1_args(gen, b, n, d, heads, dh, rot, device):
     return args, rope
 
 
+# K4's small shapes (b, n, d, heads, dim_head, P): the mma route (n <= 64, or
+# dim_head 128) and the tiles route (n > 64 at dim_head 32 or 64), P below and
+# above n, one key tile and several
+K4_SMALL = ((3, 64, 128, 2, 64, 512), (3, 65, 128, 2, 64, 16), (3, 130, 64, 2, 32, 64),
+            (5, 40, 64, 2, 32, 16), (2, 300, 64, 2, 32, 512), (2, 129, 128, 2, 64, 512),
+            (2, 200, 128, 2, 64, 80), (2, 70, 128, 1, 128, 512), (2, 300, 256, 2, 128, 100))
+# K5's small shapes (b, n, d, k)
+K5_SMALL = ((3, 100, 64, 7), (2, 33, 128, 8), (4, 64, 64, 31), (2, 300, 64, 31),
+            (3, 130, 128, 32), (5, 1, 64, 31))
+
+
 def _k4_args(gen, b, n, d, heads, dh, max_pos, device):
     import torch
 
@@ -597,7 +611,7 @@ def phase_kernels(only=None):
 
     from sesa_tpu_torch.ops.attention import (fused_attention_block, fused_attention_block_plain,
                                               fused_conformer_attention,
-                                              fused_conformer_attention_plain,
+                                              fused_conformer_attention_plain, k4_plan,
                                               fused_rope_attention, fused_rope_attention_plain,
                                               vmem_attention, vmem_attention_plain)
     from sesa_tpu_torch.ops.convblock import (fused_apollo_conv, fused_apollo_conv_plain,
@@ -750,6 +764,7 @@ def phase_kernels(only=None):
 
     if want("K4") or want("K5"):
         # K4 and K5 at the mel-band conformer shapes
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         d, heads, dh, max_pos, k = MELCONF_MODEL["dim"], 8, 64, 512, 31
         hd, e = heads * dh, 2 * d
         conv_p = _conv_params(gen, d, e, k, dev)
@@ -771,6 +786,8 @@ def phase_kernels(only=None):
                                               reps=2, warmup=1),
                              library_ms=time_ms(lambda: k4_library(*args)),
                              **_bound(flops, nbytes), kernel="K4"))
+            log(f"  K4 {leg} leg core route: {k4_plan(b, n, d, heads, dh, sms)['core']['route']}")
+            log_breakdown(rows[-1], f"K4 {leg} leg", lambda: fused_conformer_attention(*args))
             torch.cuda.empty_cache()
 
             out = fused_conformer_conv(x, conv_p)
@@ -788,18 +805,23 @@ def phase_kernels(only=None):
                                               reps=2, warmup=1),
                              library_ms=time_ms(lambda: k5_library(x, conv_p)),
                              **_bound(flops, nbytes), kernel="K5"))
+            log_breakdown(rows[-1], f"K5 {leg} leg", lambda: fused_conformer_conv(x, conv_p))
             del args, x
             torch.cuda.empty_cache()
 
-        # K4 and K5 at small ragged shapes: the other head widths, clipping of the
-        # Shaw distances, short sequences, a short and an even conv kernel
-        for b, n, d, heads, dh, max_pos in ((3, 130, 64, 2, 32, 64), (5, 40, 64, 2, 32, 16),
-                                            (2, 70, 128, 1, 128, 512), (2, 200, 128, 2, 64, 80)):
+        # K4 and K5 at small ragged shapes: both core routes (n 64 and 65, and
+        # dim_head 128 on the mma route at any n), the three head widths,
+        # clipping of the Shaw distances (P below n) and none (P above n), one
+        # and several key tiles, a short sequence; the conv kernel short, even
+        # (8 and 32) and at its main size, sequences of one row, of one tile
+        # and of several tiles
+        for b, n, d, heads, dh, max_pos in K4_SMALL:
             args = _k4_args(gen, b, n, d, heads, dh, max_pos, dev)
-            compare(f"K4 small (b={b}, n={n}, d={d}, {heads}x{dh}, P={max_pos})",
+            route = k4_plan(b, n, d, heads, dh, sms)["core"]["route"]
+            compare(f"K4 small, {route} route (b={b}, n={n}, d={d}, {heads}x{dh}, P={max_pos})",
                     fused_conformer_attention(*args), fused_conformer_attention_plain(*args),
                     args[0])
-        for b, n, d, k in ((3, 100, 64, 7), (2, 33, 128, 8), (4, 64, 64, 31)):
+        for b, n, d, k in K5_SMALL:
             p = _conv_params(gen, d, 2 * d, k, dev)
             x = (0.5 * torch.randn((b, n, d), generator=gen)).to(dev, torch.bfloat16)
             compare(f"K5 small (b={b}, n={n}, d={d}, k={k})", fused_conformer_conv(x, p),
@@ -1198,6 +1220,10 @@ def phase_profile(model_type, session, song, label=None):
         if e.device_type == DeviceType.CUDA and dev_us > 0:
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
+    # the retired cp.async GEMM must not run on any path
+    stale = [r[2] for r in rows if "gemm_nt_kernel" in r[2]]
+    if stale:
+        raise RuntimeError(f"profile {model_type}: retired kernel launched: {stale}")
     busy, wall = sum(r[0] for r in rows), min(walls[1:])
     sesa = sum(r[0] for r in rows if r[2].startswith(("sesa::", "void sesa::")))
     spans = [(e.time_range.start, e.time_range.end) for e in prof.events()

@@ -18,40 +18,58 @@
 //
 // Design. The TPU kernel held a whole sequence's qkv and its (n, n) logits in
 // VMEM and skewed q . E_exp^T into the logits with a strided lane roll. Here:
-//   1. proj: LayerNorm row pass (rmsnorm.cuh) -> GEMM against W_qkv, bf16 qkv.
-//   2. core: flash attention per (sequence, head, 64- or 128-query tile),
-//      K/V tiles of 64 keys double-buffered through cp.async. For each
-//      (query tile, key tile) pair the distances i - j span BQ + 63 values;
-//      the table rows clip(i - j, -P, P) + P for that span are staged beside
-//      K and V. Each warp multiplies its 16 query rows against the 80 staged
-//      rows its own distances reach (mma.sync, f32 sums), keeps that q . E
-//      tile in shared memory, and adds element
-//      qE[i][(i - i0) - (j - j0) + 63] to q . k^T in f32 before the scale,
-//      as the TPU kernel does. Online f32 softmax, keys >= n masked, rows >= n
-//      not written.
-//   3. out: GEMM with W_o, + b_o, bf16, + x residual in the epilogue.
+//   1. proj: LayerNorm row pass (rmsnorm.cuh) -> qkv = bf16(xn . W_qkv^T) on
+//      gemm_ws.cuh (WS_OUT without a residual: persistent, TMA, ping-pong
+//      consumers, W_qkv's slice resident at d <= 512).
+//   2. core: for sequences longer than 64 (the time leg) flash_shaw.cuh:
+//      persistent, TMA producer warp, wgmma, two consumer warpgroups on
+//      (sequence, 128-query) tiles, q, k and v read in place from the qkv
+//      buffer through (d, s, h, b) tensor maps; the Shaw bias as a third
+//      product against a pre-clipped expanded table that the wrapper builds
+//      on the device, skewed through shared memory in f32 and added to
+//      q . k^T before the scale. For sequences of at most 64 (the freq leg,
+//      n 60) and for dim_head 128, conf_attn_core_kernel below: one block of
+//      four warps per (sequence, head, 64-query tile), mma.sync; K/V tiles of
+//      64 keys double-buffered through cp.async. For each (query tile, key
+//      tile) pair the distances i - j span 127 values; the table rows
+//      clip(i - j, -P, P) + P for that span are staged beside K and V. Each
+//      warp multiplies its 16 query rows against the 80 staged rows its own
+//      distances reach (f32 sums), keeps that q . E tile in shared memory,
+//      and adds element qE[i][(i - i0) - (j - j0) + 63] to q . k^T in f32
+//      before the scale, as the TPU kernel does. Both: online f32 softmax,
+//      keys >= n masked, rows >= n not written.
+//   3. out: out = bf16(bf16(ao . W_o^T + b_o) + x) on gemm_ws.cuh (WS_RESID).
 // xn, qkv and the attention output cross device memory once each, which the
 // fused TPU kernel avoided; one persistent kernel is later work.
-#include "gemm.cuh"
+//
+// The host plans every launch (ops/attention.py k4_plan): the GEMMs' grids,
+// the core's route, tensor maps, expanded-table rows and grid, and each
+// launch's shared memory; the entry points refuse a plan that does not match
+// the layouts here.
+#include "flash_shaw.cuh"
+#include "gemm_ws.cuh"
+#include "rmsnorm.cuh"
 
 namespace sesa {
 
-constexpr int CA_BK = 64;    // keys per tile; 16 query rows per warp
+constexpr int CA_BQ = 64;    // query rows per block: four warps of 16
+constexpr int CA_BK = 64;    // keys per tile
 constexpr int CA_QE_W = 80;  // table rows one warp's 16 rows reach per key tile (79 used)
 constexpr int CA_LDQE = 84;  // f32 row stride of a warp's q . E tile
 
-template <int DH, int BQ>
+template <int DH>
 constexpr int conf_attn_smem_bytes() {
   // Q, K x 2, V x 2, E x 2 (BQ + 64 rows) in bf16, then one q . E tile per warp
-  return (BQ + 4 * CA_BK + 2 * (BQ + CA_BK)) * (DH + 8) * 2 + (BQ / 16) * 16 * CA_LDQE * 4;
+  return (CA_BQ + 4 * CA_BK + 2 * (CA_BQ + CA_BK)) * (DH + 8) * 2 +
+         (CA_BQ / 16) * 16 * CA_LDQE * 4;
 }
 
-// BQ query rows per block (BQ / 16 warps); scale_log2 = scale * log2(e)
-template <int DH, int BQ>
-__global__ void __launch_bounds__(BQ * 2)
+// one block per (sequence, head, 64-query tile); scale_log2 = scale * log2(e)
+template <int DH>
+__global__ void __launch_bounds__(CA_BQ * 2)
 conf_attn_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ rel,
                       bf16* __restrict__ ao, int n, int heads, int max_pos, float scale_log2) {
-  constexpr int LD = DH + 8, THREADS = BQ * 2, ER = BQ + CA_BK;
+  constexpr int BQ = CA_BQ, LD = DH + 8, THREADS = BQ * 2, ER = BQ + CA_BK;
   extern __shared__ __align__(16) unsigned char ca_smem[];
   bf16* sQ = reinterpret_cast<bf16*>(ca_smem);
   auto sK = [&](int b) { return sQ + (BQ + b * CA_BK) * LD; };
@@ -62,7 +80,7 @@ conf_attn_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ rel
   const int hd = heads * DH, stride = 3 * hd;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  // ldmatrix.x4 lane addressing (see gemm.cuh)
+  // ldmatrix.x4 lane addressing of the m16n8k16 fragments (common.cuh)
   const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
   const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 8;
   float* qe_w = reinterpret_cast<float*>(sQ + (BQ + 4 * CA_BK + 2 * ER) * LD) +
@@ -233,67 +251,121 @@ conf_attn_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ rel
   }
 }
 
-}  // namespace sesa
+// the core's routes: flash_shaw tiles (n > 64, dim_head 32 or 64), or the
+// mma.sync core, one block per (sequence, head, 64-query tile)
+enum K4CoreRoute { K4_CORE_TILES = 0, K4_CORE_MMA = 1 };
+constexpr int K4_MMA_MAX_N = 64;
 
-using namespace sesa;
+inline bool k4_tiles_route(int n, int dim_head) {
+  return n > K4_MMA_MAX_N && (dim_head == 32 || dim_head == 64);
+}
 
-template <int DH, int BQ>
-static int launch_conf_attn_core(const void* qkv, const void* rel, void* ao, int batch, int n,
-                                 int heads, int max_pos, float scale_log2, cudaStream_t s) {
-  constexpr int smem = conf_attn_smem_bytes<DH, BQ>();
-  cudaFuncSetAttribute(conf_attn_core_kernel<DH, BQ>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  dim3 grid((n + BQ - 1) / BQ, heads, batch);
-  conf_attn_core_kernel<DH, BQ><<<grid, BQ * 2, smem, s>>>(
+template <int DH>
+inline int launch_conf_attn_mma(const void* qkv, const void* rel, void* ao, int batch, int n,
+                                int heads, int max_pos, float scale_log2, int grid, int smem,
+                                cudaStream_t s) {
+  constexpr int want = conf_attn_smem_bytes<DH>();
+  const int q_tiles = (n + CA_BQ - 1) / CA_BQ;
+  if (smem != want || grid != (long long)q_tiles * heads * batch)
+    return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(conf_attn_core_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       want);
+  conf_attn_core_kernel<DH><<<dim3(q_tiles, heads, batch), CA_BQ * 2, want, s>>>(
       (const bf16*)qkv, (const bf16*)rel, (bf16*)ao, n, heads, max_pos, scale_log2);
   return (int)cudaGetLastError();
 }
 
+template <int DH>
+inline int launch_conf_attn_tiles(const bf16* qkv, const void* table, void* ao, int batch, int n,
+                                  int heads, float scale_log2, const uint64_t* dims,
+                                  const uint64_t* strides, int grid, int smem, cudaStream_t s) {
+  const int sms = sm_count();
+  const long long tiles = shaw_tiles<DH>(batch, heads, n);
+  if (smem != ShawCfg<DH>::SMEM || sms < 1 || grid != (tiles < sms ? tiles : sms))
+    return (int)cudaErrorInvalidValue;
+  const int hd = heads * DH;
+  ShawArgs a = {};
+  a.o = (bf16*)ao; a.ob = (long long)n * hd; a.oh = DH; a.os = hd;
+  a.heads = heads; a.n = n; a.n_pad = (n + 127) / 128 * 128; a.scale_log2 = scale_log2;
+  return launch_flash_shaw<DH>(a, qkv, qkv + hd, qkv + 2 * hd, table, dims, strides, batch, grid,
+                               s);
+}
+
+}  // namespace sesa
+
+using namespace sesa;
+
 extern "C" {
 
 // xn = layer_norm(x) * gamma + beta; qkv = bf16(xn . wqkv^T); xn is
-// (tokens, dim) scratch, qkv (tokens, n_out)
+// (tokens, dim) scratch, qkv (tokens, n_out). grid, smem: the product's
+// persistent grid and shared memory (k4_plan)
 int sesa_conf_attn_proj(const void* x, const void* gamma, const void* beta, void* xn,
-                        const void* wqkv, void* qkv, int tokens, int dim, int n_out,
-                        void* stream) {
+                        const void* wqkv, void* qkv, int tokens, int dim, int n_out, int grid,
+                        int smem, void* stream) {
+  if (smem != ws_smem_bytes(dim)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int rc = launch_layer_norm((const bf16*)x, (const bf16*)gamma, (const bf16*)beta,
                                    (bf16*)xn, tokens, dim, s);
   if (rc != 0) return rc;
-  GemmArgs p = {};
-  p.A = (const bf16*)xn; p.B1 = (const bf16*)wqkv; p.C1 = (bf16*)qkv;
-  p.M = tokens; p.N = n_out; p.K = dim; p.ldc1 = n_out;
-  p.out_scale = 1.0f;
-  return launch_gemm<EPI_RESID>(p, s);
+  WsArgs p = {};
+  p.C = (bf16*)qkv;
+  p.M = tokens; p.N = n_out; p.K = dim; p.out_scale = 1.0f;
+  return launch_gemm_ws<WS_OUT>((const bf16*)xn, (const bf16*)wqkv, p, grid, s);
 }
 
 // ao = softmax((q . k^T + q . rel[clip(i - j, -P, P) + P]) * scale) . v per
-// (sequence, head); rel is the (2P + 1, dim_head) table. 64-query tiles for
-// sequences that fit one (the freq leg) and for dim_head 128, else 128.
-int sesa_conf_attn_core(const void* qkv, const void* rel, void* ao, int batch, int n,
-                        int heads, int dim_head, int max_pos, float scale, void* stream) {
+// (sequence, head), (b, n, h, dh); q, k, v read from qkv (batch * n, 3 *
+// heads * dim_head). route (K4CoreRoute): the tiles route reads q, k and v
+// through the plan's (d, s, h, b) maps (dims d0..d3, byte strides s1..s3)
+// and the expanded table `table` (table_rows = 2 * n_pad rows, row r =
+// rel[clip(r - (n_pad - 1), -P, P) + P]); the mma route reads the
+// (2P + 1, dim_head) table rel (table_rows 0). Output element strides ob,
+// oh, os; grid, smem: the plan's blocks and shared memory
+int sesa_conf_attn_core(const void* qkv, const void* table, const void* rel, void* ao, int batch,
+                        int n, int heads, int dim_head, int max_pos, float scale, int route,
+                        long long d0, long long d1, long long d2, long long d3, long long s1,
+                        long long s2, long long s3, long long ob, long long oh, long long os,
+                        int table_rows, int grid, int smem, void* stream) {
+  const int hd = heads * dim_head;
+  const bool tiles = k4_tiles_route(n, dim_head);
+  const int n_pad = (n + 127) / 128 * 128;
+  if ((dim_head != 32 && dim_head != 64 && dim_head != 128) || !(scale > 0.f) || n < 1 ||
+      batch < 1 || route != (tiles ? K4_CORE_TILES : K4_CORE_MMA) || d0 != dim_head ||
+      d1 != n || d2 != heads || d3 != batch || s1 != 2LL * 3 * hd || s2 != 2LL * dim_head ||
+      s3 != 2LL * n * 3 * hd || ob != (long long)n * hd || oh != dim_head || os != hd ||
+      table_rows != (tiles ? 2 * n_pad : 0))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float sl2 = scale * 1.4426950408889634f;
+  if (tiles) {
+    const uint64_t dims[4] = {(uint64_t)d0, (uint64_t)d1, (uint64_t)d2, (uint64_t)d3};
+    const uint64_t strides[3] = {(uint64_t)s1, (uint64_t)s2, (uint64_t)s3};
+    const bf16* q = (const bf16*)qkv;
+    return dim_head == 64
+               ? launch_conf_attn_tiles<64>(q, table, ao, batch, n, heads, sl2, dims, strides,
+                                            grid, smem, s)
+               : launch_conf_attn_tiles<32>(q, table, ao, batch, n, heads, sl2, dims, strides,
+                                            grid, smem, s);
+  }
   if (dim_head == 32)
-    return n <= 64 ? launch_conf_attn_core<32, 64>(qkv, rel, ao, batch, n, heads, max_pos, sl2, s)
-                   : launch_conf_attn_core<32, 128>(qkv, rel, ao, batch, n, heads, max_pos, sl2, s);
+    return launch_conf_attn_mma<32>(qkv, rel, ao, batch, n, heads, max_pos, sl2, grid, smem, s);
   if (dim_head == 64)
-    return n <= 64 ? launch_conf_attn_core<64, 64>(qkv, rel, ao, batch, n, heads, max_pos, sl2, s)
-                   : launch_conf_attn_core<64, 128>(qkv, rel, ao, batch, n, heads, max_pos, sl2, s);
-  if (dim_head == 128)
-    return launch_conf_attn_core<128, 64>(qkv, rel, ao, batch, n, heads, max_pos, sl2, s);
-  return (int)cudaErrorInvalidValue;
+    return launch_conf_attn_mma<64>(qkv, rel, ao, batch, n, heads, max_pos, sl2, grid, smem, s);
+  return launch_conf_attn_mma<128>(qkv, rel, ao, batch, n, heads, max_pos, sl2, grid, smem, s);
 }
 
-// out = bf16(bf16(ao . wo^T + bo) + x)
+// out = bf16(bf16(ao . wo^T + bo) + x); grid, smem: the product's persistent
+// grid and shared memory (k4_plan)
 int sesa_conf_attn_out(const void* ao, const void* wo, const void* bo, const void* x,
-                       void* out, int tokens, int dim, int hd, void* stream) {
-  GemmArgs p = {};
-  p.A = (const bf16*)ao; p.B1 = (const bf16*)wo; p.bias1 = (const bf16*)bo;
-  p.resid = (const bf16*)x; p.C1 = (bf16*)out;
-  p.M = tokens; p.N = dim; p.K = hd; p.ldc1 = dim;
-  p.out_scale = 1.0f;
-  return launch_gemm<EPI_RESID>(p, (cudaStream_t)stream);
+                       void* out, int tokens, int dim, int hd, int grid, int smem,
+                       void* stream) {
+  if (smem != ws_smem_bytes(hd)) return (int)cudaErrorInvalidValue;
+  WsArgs p = {};
+  p.bias = (const bf16*)bo; p.resid = (const bf16*)x; p.C = (bf16*)out;
+  p.M = tokens; p.N = dim; p.K = hd; p.out_scale = 1.0f;
+  return launch_gemm_ws<WS_RESID>((const bf16*)ao, (const bf16*)wo, p, grid,
+                                  (cudaStream_t)stream);
 }
 
 }  // extern "C"

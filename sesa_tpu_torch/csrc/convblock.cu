@@ -17,88 +17,163 @@
 //
 // Design. One TPU program held a slab of whole sequences and the (rows, e)
 // GLU and conv activations in VMEM. Here:
-//   1. up:   LayerNorm row pass (rmsnorm.cuh) -> GEMM against W1, whose rows
-//            the wrapper interleaves (a0, g0, a1, g1, ...) so that each
-//            thread's column pair is one (a, g): + b1, GLU in f32, bf16
-//            store of the (T, e) GLU output (convblock.py:93).
-//   2. dw:   the depthwise stencil. A block stages 64 rows of one sequence
-//            and 64 channels, plus a halo of k - 1 rows, in shared memory
-//            (zero outside [0, n)), with the lucidrains padding
-//            (k / 2 before, k / 2 - (k + 1) % 2 after: _conv_apply,
-//            conformer_core.py:143, also right for even k). Each thread
-//            keeps a channel pair's taps in registers and slides them over
-//            8 consecutive rows (39 shared loads for 8 x 31 taps); f32 sums,
-//            * scale + shift, swish in f32, bf16 store.
-//   3. down: GEMM with W2, + b2, bf16, + x residual in the epilogue.
+//   1. up:   LayerNorm row pass (rmsnorm.cuh) -> the persistent GEMM of
+//            gemm_ws.cuh against W1 (WS_BIAS_GLU: W1's slice resident at
+//            d <= 512), whose rows the wrapper interleaves (a0, g0, a1, g1,
+//            ...) so that each thread's column pair is one (a, g): + b1, GLU
+//            in f32, bf16 store of the (T, e) GLU output (convblock.py:93).
+//   2. dw:   the depthwise stencil, bound by the bytes of the GLU output in
+//            and y out (0.76 GB, 0.23 ms) and by its f32 FMAs on the CUDA
+//            cores (2 * T * k * e, ~0.18 ms). A persistent grid walks over
+//            tiles of up to 128 rows of one sequence (one whole sequence on
+//            the freq leg, n 60) and 64 channels, two tiles in flight a
+//            block: the tile plus its halo arrives in bf16 as one TMA box
+//            while the previous tile is summed, rows outside [0, n) as TMA's
+//            zeros (the lucidrains padding, k / 2 before, k / 2 - (k + 1) % 2
+//            after: _conv_apply, conformer_core.py:143, also right for even
+//            k), so no thread computes a staging address. Each lane keeps
+//            a channel pair's taps in registers and slides them over its
+//            warp's 16 consecutive rows (47 shared loads for 16 x 32 taps);
+//            f32 sums in tap order, * scale + shift, swish in f32, bf16
+//            store.
+//   3. down: the persistent GEMM with W2 (WS_RESID: + b2, bf16, + x).
 // The GLU and conv activations cross device memory once each way (4 x 0.38 GB
 // at the main path's shape, ~0.46 ms of traffic); keeping them on chip needs
-// a persistent kernel with the stencil between the two GEMMs, later work.
-#include "gemm.cuh"
+// the stencil in the down product's producer, later work.
+//
+// The host plans every launch (ops/convblock.py k5_plan): the GEMMs' grids
+// and shared memory and the stencil's tile rows; the entry points refuse a
+// plan that does not match the layouts here.
+#include "gemm_ws.cuh"
+#include "rmsnorm.cuh"
 
 namespace sesa {
 
-constexpr int DW_ROWS = 64;  // sequence rows per block
-constexpr int DW_CH = 64;    // channels per block: 32 pairs
-constexpr int DW_KMAX = 32;  // taps held in registers (taps >= k are zero)
-constexpr int DW_RPT = 8;    // consecutive rows per thread
+constexpr int DW_CH = 64;     // channels per block: a channel pair per lane
+constexpr int DW_KMAX = 32;   // taps held in registers (taps >= k are zero)
+constexpr int DW_RPT = 16;    // consecutive rows per warp
+constexpr int DW_WARPS = 8;   // warps of the largest tile: 128 rows
+constexpr int DW_SROWS = DW_WARPS * DW_RPT + DW_KMAX - 1;  // staged rows, halo included
 
-__global__ void __launch_bounds__(256)
-dwconv_bn_swish_kernel(const bf16* __restrict__ hin, const bf16* __restrict__ taps,
+// x * sigmoid(x) with ex2 and rcp on the special-function unit and no range
+// fix-ups (x -> -inf: 1 / inf = 0): two of its instructions a value, the
+// epilogue's share of that unit
+__device__ __forceinline__ float swish_sfu(float x) {
+  return x * fast_rcp(1.0f + fast_exp2(-1.4426950408889634f * x));
+}
+
+// A persistent grid of blocks of 16 rows a warp (rows = 16 * warps); block b
+// takes a contiguous run of the work items (channel slice, sequence, row
+// tile), in that order, so that its items share their taps and neighbouring
+// tiles' halos meet in L2. Two staging buffers: one thread loads the next
+// item's rows by TMA while the block sums the current one. The tensor map is
+// (e, n, batch), so the rows outside [0, n) of a sequence, the padding,
+// arrive as TMA's zero fill: staged row r of an item is sequence row
+// i0 - pad_l + r.
+__global__ void __launch_bounds__(DW_WARPS * 32, 2)
+dwconv_bn_swish_kernel(const __grid_constant__ CUtensorMap tg, const bf16* __restrict__ taps,
                        const bf16* __restrict__ scale, const bf16* __restrict__ shift,
-                       bf16* __restrict__ y, int n, int e, int k, int pad_l) {
-  __shared__ float2 s[DW_ROWS + DW_KMAX - 1][DW_CH / 2];
-  const int i0 = blockIdx.x * DW_ROWS, c0 = blockIdx.y * DW_CH;
-  const size_t seq0 = (size_t)blockIdx.z * n;
-  const int cp = threadIdx.x & 31, rg = threadIdx.x >> 5;
+                       bf16* __restrict__ y, int batch, int n, int e, int k, int pad_l,
+                       int items) {
+  __shared__ __align__(128) bf16 s[2][DW_SROWS][DW_CH];
+  __shared__ uint64_t full[2];
+  const int rows = blockDim.x / 32 * DW_RPT, tiles = (n + rows - 1) / rows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = (items + gridDim.x - 1) / gridDim.x;
+  const int first = blockIdx.x * per, last = min(items, first + per);
+  const uint32_t box_bytes = (rows + DW_KMAX - 1) * DW_CH * 2;
 
-  // staged row r is sequence row i0 - pad_l + r; zero outside [0, n)
-  for (int idx = threadIdx.x; idx < (DW_ROWS + DW_KMAX - 1) * (DW_CH / 2); idx += 256) {
-    const int r = idx / (DW_CH / 2), c = idx % (DW_CH / 2), pos = i0 - pad_l + r;
-    float2 v = make_float2(0.f, 0.f);
-    if (pos >= 0 && pos < n)
-      v = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(hin + (seq0 + pos) * e + c0 + 2 * c));
-    s[r][c] = v;
+  if (threadIdx.x == 0) {
+    mbar_init(full, 1);
+    mbar_init(full + 1, 1);
+    mbar_init_fence();
   }
-  float2 tp[DW_KMAX];
-#pragma unroll
-  for (int t = 0; t < DW_KMAX; ++t)
-    tp[t] = t < k ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                        taps + (size_t)t * e + c0 + 2 * cp))
-                  : make_float2(0.f, 0.f);
   __syncthreads();
-
-  // out[i] = sum_t taps[t] * h[i + t - pad_l] = sum_t taps[t] * s[i - i0 + t],
-  // summed in tap order as the TPU kernel
-  const int rbase = rg * DW_RPT;
-  float2 acc[DW_RPT];
+  // an item's row tile, sequence and channel slice, stepped in order
+  int tile = first % tiles, seq = first / tiles % batch, slice = first / (tiles * batch);
+  auto load = [&](int buf, int t, int q, int c) {
+    mbar_expect_tx(full + buf, box_bytes);
+    tma_load_3d(&s[buf][0][0], &tg, full + buf, c * DW_CH, t * rows - pad_l, q);
+  };
+  if (threadIdx.x == 0 && first < last) load(0, tile, seq, slice);
+  float2 tp[DW_KMAX], sc = make_float2(0.f, 0.f), sh = make_float2(0.f, 0.f);
+  int c_taps = -1;  // the channel slice whose taps tp holds
+  for (int item = first, it = 0; item < last; ++item, ++it) {
+    const int buf = it & 1;
+    if (threadIdx.x == 0 && item + 1 < last) {
+      int t = tile + 1, q = seq, c = slice;
+      if (t == tiles) {
+        t = 0;
+        if (++q == batch) q = 0, ++c;
+      }
+      load(buf ^ 1, t, q, c);
+    }
+    const int c0 = slice * DW_CH, i0 = tile * rows;
+    const size_t seq0 = (size_t)seq * n;
+    if (c0 != c_taps) {
+      c_taps = c0;
 #pragma unroll
-  for (int r = 0; r < DW_RPT; ++r) acc[r] = make_float2(0.f, 0.f);
+      for (int t = 0; t < DW_KMAX; ++t)
+        tp[t] = t < k ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                            taps + (size_t)t * e + c0 + 2 * lane))
+                      : make_float2(0.f, 0.f);
+      sc = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(scale + c0 + 2 * lane));
+      sh = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(shift + c0 + 2 * lane));
+    }
+    mbar_wait(full + buf, (it >> 1) & 1);
+    const int rbase = warp * DW_RPT;
+    if (i0 + rbase < n) {
+      // out[i] = sum_t taps[t] * h[i + t - pad_l] = sum_t taps[t] * s[i - i0 + t],
+      // summed in tap order as the TPU kernel; taps >= k are zero, so the
+      // staged rows past the k - 1 rows of halo only need to be finite
+      float2 acc[DW_RPT];
 #pragma unroll
-  for (int j = 0; j < DW_RPT + DW_KMAX - 1; ++j) {
-    const float2 v = s[rbase + j][cp];
+      for (int r = 0; r < DW_RPT; ++r) acc[r] = make_float2(0.f, 0.f);
 #pragma unroll
-    for (int r = 0; r < DW_RPT; ++r) {
-      const int t = j - r;
-      if (t >= 0 && t < DW_KMAX) {
-        acc[r].x = fmaf(tp[t].x, v.x, acc[r].x);
-        acc[r].y = fmaf(tp[t].y, v.y, acc[r].y);
+      for (int j = 0; j < DW_RPT + DW_KMAX - 1; ++j) {
+        const float2 v = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&s[buf][rbase + j][2 * lane]));
+#pragma unroll
+        for (int r = 0; r < DW_RPT; ++r) {
+          const int t = j - r;
+          if (t >= 0 && t < DW_KMAX) {
+            acc[r].x = fmaf(tp[t].x, v.x, acc[r].x);
+            acc[r].y = fmaf(tp[t].y, v.y, acc[r].y);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < DW_RPT; ++r) {
+        const int i = i0 + rbase + r;
+        if (i < n) {  // no `break`: the loop must stay unrolled (acc in registers)
+          const float v0 = acc[r].x * sc.x + sh.x, v1 = acc[r].y * sc.y + sh.y;
+          *reinterpret_cast<uint32_t*>(y + (seq0 + i) * e + c0 + 2 * lane) =
+              pack_bf16x2(swish_sfu(v0), swish_sfu(v1));
+        }
       }
     }
+    __syncthreads();  // every warp has read this buffer before it is loaded again
+    if (++tile == tiles) {
+      tile = 0;
+      if (++seq == batch) seq = 0, ++slice;
+    }
   }
+}
 
-  const float2 sc =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(scale + c0 + 2 * cp));
-  const float2 sh =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(shift + c0 + 2 * cp));
-#pragma unroll
-  for (int r = 0; r < DW_RPT; ++r) {
-    const int i = i0 + rbase + r;
-    if (i >= n) continue;
-    const float v0 = acc[r].x * sc.x + sh.x, v1 = acc[r].y * sc.y + sh.y;
-    *reinterpret_cast<uint32_t*>(y + (seq0 + i) * e + c0 + 2 * cp) =
-        pack_bf16x2(v0 * sigmoidf_(v0), v1 * sigmoidf_(v1));
-  }
+// the stencil's tile: 16 rows a warp, as many warps as the sequence needs up
+// to DW_WARPS
+inline int dw_tile_rows(int n) {
+  const int warps = (n + DW_RPT - 1) / DW_RPT;
+  return DW_RPT * (warps < DW_WARPS ? warps : DW_WARPS);
+}
+
+// its persistent grid: 16 warps an SM (two blocks of 8 warps, or four of
+// 4, ...), never more blocks than work items
+inline long long dw_grid(int batch, int n, int e, int sms) {
+  const int rows = dw_tile_rows(n);
+  const long long items = (long long)batch * ((n + rows - 1) / rows) * (e / DW_CH);
+  const long long fill = (long long)sms * (16 / (rows / DW_RPT));
+  return items < fill ? items : fill;
 }
 
 }  // namespace sesa
@@ -109,42 +184,55 @@ extern "C" {
 
 // glu = bf16(GLU(layer_norm(x) * gamma + beta) . w1i^T + b1i)), with w1i and
 // b1i interleaved (a0, g0, a1, g1, ...); xn is (tokens, dim) scratch, glu is
-// (tokens, e2 / 2)
+// (tokens, e2 / 2). grid, smem: the product's persistent grid and shared
+// memory (k5_plan)
 int sesa_conv_up(const void* x, const void* gamma, const void* beta, void* xn, const void* w1i,
-                 const void* b1i, void* glu, int tokens, int dim, int e2, void* stream) {
+                 const void* b1i, void* glu, int tokens, int dim, int e2, int grid, int smem,
+                 void* stream) {
+  if (smem != ws_smem_bytes(dim)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int rc = launch_layer_norm((const bf16*)x, (const bf16*)gamma, (const bf16*)beta,
                                    (bf16*)xn, tokens, dim, s);
   if (rc != 0) return rc;
-  GemmArgs p = {};
-  p.A = (const bf16*)xn; p.B1 = (const bf16*)w1i; p.bias1 = (const bf16*)b1i;
-  p.C1 = (bf16*)glu;
-  p.M = tokens; p.N = e2; p.K = dim; p.ldc1 = e2 / 2;
-  p.out_scale = 1.0f;
-  return launch_gemm<EPI_GLU>(p, s);
+  WsArgs p = {};
+  p.bias = (const bf16*)b1i; p.C = (bf16*)glu;
+  p.M = tokens; p.N = e2; p.K = dim; p.out_scale = 1.0f;
+  return launch_gemm_ws<WS_BIAS_GLU>((const bf16*)xn, (const bf16*)w1i, p, grid, s);
 }
 
 // y = bf16(swish(dwconv(glu) * scale + shift)) per sequence of n rows;
-// taps (k, e), k <= 32
+// taps (k, e), k <= 32; rows, grid: the plan's tile rows and persistent
+// blocks (k5_plan)
 int sesa_conv_dw(const void* glu, const void* taps, const void* scale, const void* shift,
-                 void* y, int batch, int n, int e, int k, void* stream) {
-  if (k < 1 || k > DW_KMAX || e % DW_CH) return (int)cudaErrorInvalidValue;
-  dim3 grid((n + DW_ROWS - 1) / DW_ROWS, e / DW_CH, batch);
-  dwconv_bn_swish_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const bf16*)glu, (const bf16*)taps, (const bf16*)scale, (const bf16*)shift, (bf16*)y,
-      n, e, k, k / 2);
+                 void* y, int batch, int n, int e, int k, int rows, int grid, void* stream) {
+  const int sms = sm_count();
+  const long long items = (long long)batch * ((n + rows - 1) / rows) * (e / DW_CH);
+  if (k < 1 || k > DW_KMAX || e % DW_CH || n < 1 || batch < 1 || sms < 1 ||
+      rows != dw_tile_rows(n) || grid != dw_grid(batch, n, e, sms) || items > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  // (e, n, batch): the rows of one item and its halo are one box
+  const uint64_t dims[3] = {(uint64_t)e, (uint64_t)n, (uint64_t)batch};
+  const uint64_t strides[2] = {(uint64_t)e * 2, (uint64_t)n * e * 2};
+  const uint32_t box[3] = {(uint32_t)DW_CH, (uint32_t)(rows + DW_KMAX - 1), 1};
+  CUtensorMap tg;
+  const int rc = make_tmap_bf16(&tg, glu, 3, dims, strides, box, 0);
+  if (rc != 0) return rc;
+  dwconv_bn_swish_kernel<<<grid, rows / DW_RPT * 32, 0, (cudaStream_t)stream>>>(
+      tg, (const bf16*)taps, (const bf16*)scale, (const bf16*)shift, (bf16*)y, batch, n, e, k,
+      k / 2, (int)items);
   return (int)cudaGetLastError();
 }
 
-// out = bf16(bf16(y . w2^T + b2) + x)
+// out = bf16(bf16(y . w2^T + b2) + x); grid, smem: the product's persistent
+// grid and shared memory (k5_plan)
 int sesa_conv_down(const void* y, const void* w2, const void* b2, const void* x, void* out,
-                   int tokens, int dim, int e, void* stream) {
-  GemmArgs p = {};
-  p.A = (const bf16*)y; p.B1 = (const bf16*)w2; p.bias1 = (const bf16*)b2;
-  p.resid = (const bf16*)x; p.C1 = (bf16*)out;
-  p.M = tokens; p.N = dim; p.K = e; p.ldc1 = dim;
-  p.out_scale = 1.0f;
-  return launch_gemm<EPI_RESID>(p, (cudaStream_t)stream);
+                   int tokens, int dim, int e, int grid, int smem, void* stream) {
+  if (smem != ws_smem_bytes(e)) return (int)cudaErrorInvalidValue;
+  WsArgs p = {};
+  p.bias = (const bf16*)b2; p.resid = (const bf16*)x; p.C = (bf16*)out;
+  p.M = tokens; p.N = dim; p.K = e; p.out_scale = 1.0f;
+  return launch_gemm_ws<WS_RESID>((const bf16*)y, (const bf16*)w2, p, grid,
+                                  (cudaStream_t)stream);
 }
 
 }  // extern "C"

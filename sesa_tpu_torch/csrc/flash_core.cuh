@@ -43,7 +43,7 @@ __device__ __forceinline__ void flash_core(bf16* smem, const bf16* __restrict__ 
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int t = lane & 3;
-  // ldmatrix.x4 lane addressing (see gemm.cuh)
+  // ldmatrix.x4 lane addressing of the m16n8k16 fragments (common.cuh)
   const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
   const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 8;
 

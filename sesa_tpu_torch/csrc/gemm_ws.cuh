@@ -1,6 +1,7 @@
 // A persistent, warp-specialised tensor-core GEMM with a fused epilogue: the
 // two products of K2 (ff.cu), K1's projection and out products
-// (attention.cu) and K6's up and down products (apollo_conv.cu):
+// (attention.cu), K4's qkv and out products (conformer_attention.cu), K5's up
+// and down products (convblock.cu) and K6's (apollo_conv.cu):
 //   C[M, N] = epilogue( A[M, K] . B[N, K]^T )
 // B keeps the torch (out_features, in_features) layout, so both operands are
 // K-contiguous and read by TMA as 64-wide K slices with the 128-byte swizzle.
@@ -14,6 +15,10 @@
 //                 rounded values as they leave; no bias
 //   WS_OUT        C = bf16(bf16(acc) + resid), or bf16(acc) when resid is
 //                 null; no bias, no scale
+//   WS_BIAS_GLU   B's rows come interleaved (a0, g0, a1, g1, ...), so each
+//                 thread's column pair (2c, 2c + 1) is one (a, g):
+//                 C[:, c] = bf16((a + bias[2c]) * sigmoid(g + bias[2c + 1])),
+//                 C is (M, N / 2); a tile's 128 columns leave as 64
 //
 // Design. One block of 384 threads per SM walks over 128 x 128 output tiles
 // with a static stride (tile, tile + grid, ...). Tile i is row block
@@ -43,8 +48,8 @@
 // bytes per k-step.
 //
 // Ragged M and N: TMA fills rows past M or N with zeros and the stores are
-// masked; K must be a multiple of 64 and N a multiple of 8 (checked by the
-// host).
+// masked; K must be a multiple of 64 and N a multiple of 8, of 16 for
+// WS_BIAS_GLU (checked by the host).
 #pragma once
 
 #include "hopper.cuh"
@@ -52,9 +57,15 @@
 namespace sesa {
 
 enum WsEpilogue { WS_BIAS_GELU = 0, WS_BIAS_SILU = 1, WS_RESID = 2, WS_QKV_ROPE = 3,
-                  WS_OUT = 4 };
+                  WS_OUT = 4, WS_BIAS_GLU = 5 };
 
-__host__ __device__ constexpr bool ws_has_bias(int epi) { return epi <= WS_RESID; }
+__host__ __device__ constexpr bool ws_has_bias(int epi) {
+  return epi <= WS_RESID || epi == WS_BIAS_GLU;
+}
+// output columns of one 128-column tile, and of C
+__host__ __device__ constexpr int ws_out_cols(int epi, int n) {
+  return epi == WS_BIAS_GLU ? n / 2 : n;
+}
 
 struct WsArgs {
   const bf16* bias;   // (N,), the epilogues with a bias
@@ -163,6 +174,11 @@ __device__ __forceinline__ void ws_stage_half(const float (&acc)[64], const floa
         v0 += b[j].x;
         v1 += b[j].y;
       }
+      if (EPI == WS_BIAS_GLU) {  // one output column 4j + t per (a, g) pair
+        tile[ws_c_off(16 * warp + g + 8 * h, 4 * j + t)] =
+            __float2bfloat16_rn(__fdividef(v0, 1.0f + __expf(-v1)));
+        continue;
+      }
       if (EPI == WS_BIAS_GELU) {
         v0 = gelu_tanh(v0);
         v1 = gelu_tanh(v1);
@@ -180,7 +196,8 @@ __device__ __forceinline__ void ws_stage_half(const float (&acc)[64], const floa
 }
 
 // the staging tile's 64 rows out to rows m0.. of C in coalesced 16-byte
-// chunks, eight a thread in two batches of four; WS_RESID adds the
+// chunks, eight a thread in two batches of four (WS_BIAS_GLU: 64 columns,
+// four a thread in one batch, to columns n0 / 2.. of C); WS_RESID adds the
 // residual, WS_OUT where it has one, WS_QKV_ROPE ropes the bf16 values
 // (here, where a warp's table loads are whole rows, and not in
 // ws_stage_half, where they were scattered over eight rows). A batch's
@@ -189,8 +206,9 @@ __device__ __forceinline__ void ws_stage_half(const float (&acc)[64], const floa
 template <int EPI>
 __device__ __forceinline__ void ws_store_half(const bf16* tile, int tid, int m0, int n0,
                                               const WsArgs& p) {
-  constexpr int BATCH = 4, PER = 64 * (WS_BN / 8) / 128;
-  const int ncols = min(WS_BN, p.N - n0);
+  constexpr int OW = ws_out_cols(EPI, WS_BN), BATCH = 4, PER = 64 * (OW / 8) / 128;
+  const int ldc = ws_out_cols(EPI, p.N), c0 = ws_out_cols(EPI, n0);
+  const int ncols = min(OW, ldc - c0);
   const bool resid = EPI == WS_RESID || (EPI == WS_OUT && p.resid != nullptr);
 #pragma unroll
   for (int b0 = 0; b0 < PER; b0 += BATCH) {
@@ -199,11 +217,11 @@ __device__ __forceinline__ void ws_store_half(const bf16* tile, int tid, int m0,
     bool ok[BATCH];
 #pragma unroll
     for (int i = 0; i < BATCH; ++i) {
-      const int c = tid + 128 * (b0 + i), r = c / (WS_BN / 8), c8 = (c % (WS_BN / 8)) * 8;
+      const int c = tid + 128 * (b0 + i), r = c / (OW / 8), c8 = (c % (OW / 8)) * 8;
       ok[i] = m0 + r < p.M && c8 < ncols;
       v[i] = *reinterpret_cast<const uint4*>(tile + ws_c_off(r, c8));
       if (resid && ok[i])
-        x[i] = *reinterpret_cast<const uint4*>(p.resid + (size_t)(m0 + r) * p.N + n0 + c8);
+        x[i] = *reinterpret_cast<const uint4*>(p.resid + (size_t)(m0 + r) * ldc + c0 + c8);
       if (EPI == WS_QKV_ROPE) {
         const int d = ws_rope_offset(n0 + c8, p);
         if (d >= 0 && ok[i]) ws_rope_load(cw[i], sw[i], m0 + r, d, p);
@@ -211,7 +229,7 @@ __device__ __forceinline__ void ws_store_half(const bf16* tile, int tid, int m0,
     }
 #pragma unroll
     for (int i = 0; i < BATCH; ++i) {
-      const int c = tid + 128 * (b0 + i), r = c / (WS_BN / 8), c8 = (c % (WS_BN / 8)) * 8;
+      const int c = tid + 128 * (b0 + i), r = c / (OW / 8), c8 = (c % (OW / 8)) * 8;
       if (!ok[i]) continue;
       if (EPI == WS_QKV_ROPE) {
         const int d = ws_rope_offset(n0 + c8, p);
@@ -227,7 +245,7 @@ __device__ __forceinline__ void ws_store_half(const bf16* tile, int tid, int m0,
           vp[e] = pack_bf16x2(a.x + y.x, a.y + y.y);
         }
       }
-      *reinterpret_cast<uint4*>(p.C + (size_t)(m0 + r) * p.N + n0 + c8) = v[i];
+      *reinterpret_cast<uint4*>(p.C + (size_t)(m0 + r) * ldc + c0 + c8) = v[i];
     }
   }
 }
@@ -358,7 +376,8 @@ inline int ws_smem_bytes(int K) {
 template <int EPI>
 inline int launch_gemm_ws(const bf16* A, const bf16* B, WsArgs p, int grid, cudaStream_t stream) {
   p.n_tiles = (p.N + WS_BN - 1) / WS_BN;
-  if (p.K % WS_BK || p.N % 8 || p.M < 1 || p.N < 1 || grid < 1 || grid % p.n_tiles)
+  if (p.K % WS_BK || ws_out_cols(EPI, p.N) % 8 || p.N % 8 || p.M < 1 || p.N < 1 || grid < 1 ||
+      grid % p.n_tiles)
     return (int)cudaErrorInvalidValue;
   const uint64_t dims_a[2] = {(uint64_t)p.K, (uint64_t)p.M};
   const uint64_t dims_b[2] = {(uint64_t)p.K, (uint64_t)p.N};

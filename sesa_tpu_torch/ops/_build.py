@@ -43,14 +43,14 @@ SIGNATURES = {
         "sesa_ff_down": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     },
     "conformer_attention": {
-        "sesa_conf_attn_proj": [_P] * 6 + [_I] * 3 + [_P],
-        "sesa_conf_attn_core": [_P] * 3 + [_I] * 5 + [_F, _P],
-        "sesa_conf_attn_out": [_P] * 5 + [_I] * 3 + [_P],
+        "sesa_conf_attn_proj": [_P] * 6 + [_I] * 5 + [_P],
+        "sesa_conf_attn_core": [_P] * 4 + [_I] * 5 + [_F, _I] + [_L] * 10 + [_I] * 3 + [_P],
+        "sesa_conf_attn_out": [_P] * 5 + [_I] * 5 + [_P],
     },
     "convblock": {
-        "sesa_conv_up": [_P] * 7 + [_I] * 3 + [_P],
-        "sesa_conv_dw": [_P] * 5 + [_I] * 4 + [_P],
-        "sesa_conv_down": [_P] * 5 + [_I] * 3 + [_P],
+        "sesa_conv_up": [_P] * 7 + [_I] * 5 + [_P],
+        "sesa_conv_dw": [_P] * 5 + [_I] * 6 + [_P],
+        "sesa_conv_down": [_P] * 5 + [_I] * 5 + [_P],
     },
     "apollo_conv": {
         "sesa_apollo_dw": [_P] * 5 + [_I] * 4 + [_F, _P],

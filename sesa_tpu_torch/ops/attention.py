@@ -7,7 +7,7 @@ to ``vmem_attention``, kernel K3: whole-sequence attention over (BH, S, D).
 with the value-residual modes of the experimental roformers.
 ``fused_conformer_attention`` is kernel K4: the conformer attention block
 (LayerNorm, qkv, attention with the Shaw relative-position bias, out
-projection with bias, residual). ``fused_rope_attention`` is kernel K7: rope
+projection with bias, residual), planned by ``k4_plan``. ``fused_rope_attention`` is kernel K7: rope
 and attention over the qkv projection's packed output. On a CUDA tensor each
 launches its hand-written kernel or chain (``csrc/attention.cu``,
 ``csrc/vmem_attention.cu``, ``csrc/conformer_attention.cu``,
@@ -427,13 +427,102 @@ def fused_conformer_attention_plain(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo, he
     return out + x
 
 
+# the core's routes (csrc/conformer_attention.cu K4CoreRoute): the persistent
+# flash_shaw core on (sequence, 128-query) tiles for n > 64 at dim_head 32 or
+# 64, or the mma.sync core, one block per (sequence, head, 64-query tile),
+# for n <= 64 (the freq leg) and for dim_head 128, whose table box does not
+# fit beside the q.E tiles
+_K4_ROUTES = {"tiles": 0, "mma": 1}
+_K4_MMA_MAX_N = 64
+_K4_TILE_DIM_HEADS = (32, 64)
+
+
+def _shaw_buffers(dh: int) -> dict:
+    """Shared memory of ``flash_shaw_kernel<dh>`` by buffer: the layout of
+    ``csrc/flash_shaw.cuh`` ``ShawCfg`` (one Q buffer of 128 rows, two stages
+    of K and V of 128 keys and of the 256-row table box, eight warps' f32 q.E
+    tiles of 16 x 152, the mbarriers, 1024 bytes of alignment slack)."""
+    return dict(q=128 * dh * 2, k=2 * 128 * dh * 2, v=2 * 128 * dh * 2, table=2 * 256 * dh * 2,
+                qe=8 * 16 * 152 * 4, barriers=8 * 8, slack=1024)
+
+
+def _conf_mma_buffers(dh: int) -> dict:
+    """Shared memory of ``conf_attn_core_kernel<dh>`` by buffer
+    (``csrc/conformer_attention.cu`` ``conf_attn_smem_bytes``): the Q tile,
+    two K and two V buffers of 64 keys and two table buffers of 128 rows, rows
+    padded by 8, and four warps' f32 q.E tiles of 16 x 84."""
+    row = (dh + 8) * 2
+    return dict(q=64 * row, k=2 * 64 * row, v=2 * 64 * row, table=2 * 128 * row,
+                qe=4 * 16 * 84 * 4)
+
+
+def k4_plan(b: int, n: int, d: int, heads: int, dh: int, sms: int) -> dict:
+    """The host side of kernel K4: what each of its launches gets.
+
+    For ``b`` sequences of ``n`` tokens of width ``d``, ``heads`` × ``dh``,
+    on a card of ``sms`` SMs:
+
+    - ``proj`` and ``out``: the persistent GEMMs (``csrc/gemm_ws.cuh``) over
+      (b·n, 3·h·dh) at depth d and (b·n, d) at depth h·dh, each with its
+      ``tiles``, ``grid`` (:func:`ff_gemm_schedule`) and ``smem``;
+    - ``core``: the attention core with the Shaw bias, its ``route`` and
+      ``route_id``: "tiles" for n > 64 at dh 32 or 64
+      (``csrc/flash_shaw.cuh``, persistent: ``tiles`` of (sequence, 128
+      queries), ``grid`` one block per SM and never more than tiles), "mma"
+      otherwise (one block per (sequence, head, 64 queries): ``tiles`` =
+      ``grid``); ``buffers``, the shared memory of each buffer, and their
+      sum ``smem``; the qkv buffer as the tiles route's three tensor maps
+      read it (q, k and v at columns 0, h·dh and 2·h·dh), (d, s, h, b) with
+      ``dims`` (dh, n, h, b) and byte ``strides`` of dims 1-3; the element
+      ``out_strides`` (batch, head, row) of the (b, n, h, dh) output; and
+      the expanded table of the tiles route (:func:`shaw_table`):
+      ``table_rows`` (2·n_pad, n_pad = n rounded up to 128; 0 on the mma
+      route) and ``box_origin``, the first row of the 256-row box of the
+      tile pair (q0, k0) being q0 - k0 + ``box_origin``.
+
+    ``csrc/conformer_attention.cu`` refuses a plan that does not match its
+    layouts."""
+    tokens, hd = b * n, heads * dh
+    plan = {}
+    for name, cols, depth in (("proj", 3 * hd, d), ("out", d, hd)):
+        tiles, grid = ff_gemm_schedule(tokens, cols, sms)
+        plan[name] = dict(tiles=tiles, grid=grid, smem=ws_smem_bytes(depth))
+    n_pad = -(-n // 128) * 128
+    if n > _K4_MMA_MAX_N and dh in _K4_TILE_DIM_HEADS:
+        route, tiles = "tiles", b * heads * -(-n // 128)
+        grid, buffers, table_rows = min(tiles, sms), _shaw_buffers(dh), 2 * n_pad
+    else:
+        route, tiles = "mma", b * heads * -(-n // 64)
+        grid, buffers, table_rows = tiles, _conf_mma_buffers(dh), 0
+    plan["core"] = dict(route=route, route_id=_K4_ROUTES[route], tiles=tiles, grid=grid,
+                        buffers=buffers, smem=sum(buffers.values()),
+                        dims=(dh, n, heads, b), strides=(2 * 3 * hd, 2 * dh, 2 * n * 3 * hd),
+                        out_strides=(n * hd, dh, hd), table_rows=table_rows,
+                        box_origin=n_pad - 128)
+    return plan
+
+
+def shaw_table(rel_pos_emb: torch.Tensor, n: int) -> torch.Tensor:
+    """K4's expanded Shaw table for sequences of ``n``, built where
+    ``rel_pos_emb`` (2P + 1, dh) lies: (2·n_pad, dh) with n_pad = n rounded
+    up to 128 and row r = rel_pos_emb[clip(r - (n_pad - 1), -P, P) + P], the
+    row of distance i - j at i - j + n_pad - 1. The distances of any (query
+    tile, key tile) pair of the tiles route are then one run of rows (the
+    JAX wrapper's ``e_exp`` holds the same rows in the opposite order)."""
+    max_pos = (rel_pos_emb.shape[0] - 1) // 2
+    n_pad = -(-n // 128) * 128
+    idx = torch.arange(2 * n_pad, device=rel_pos_emb.device) - (n_pad - 1)
+    return rel_pos_emb.index_select(0, idx.clamp(-max_pos, max_pos) + max_pos)
+
+
 def fused_conformer_attention(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo, heads, scale=None):
     """x (b, n, d) -> x + conformer-attention(layer_norm(x)): kernel K4.
 
     CPU tensors run :func:`fused_conformer_attention_plain`. CUDA tensors
     must be bf16, contiguous, with d and h·dh multiples of 64 and dh in
     {32, 64, 128}; anything else raises. P comes from the table's rows.
-    Each call adds one to ``fused_conformer_attention.launches``.
+    :func:`k4_plan` plans the launches. Each call adds one to
+    ``fused_conformer_attention.launches``.
     """
     if x.device.type == "cpu":
         return fused_conformer_attention_plain(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo,
@@ -445,8 +534,7 @@ def fused_conformer_attention(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo, heads, s
         raise ValueError(f"fused_conformer_attention: unsupported d={d}, heads={heads}, "
                          f"dim_head={dh} (the kernel takes dim_head 32, 64 or 128 and d, "
                          "heads * dim_head multiples of 64)")
-    tokens = b * n
-    if -(-tokens // 128) > 65535 or b > 65535:
+    if b > 65535 or b * heads * -(-n // 64) > 2 ** 31 - 1:
         raise ValueError(f"fused_conformer_attention: {b} sequences of {n} exceed one launch")
     rows = rel_pos_emb.shape[0]
     if rows % 2 == 0:
@@ -458,21 +546,31 @@ def fused_conformer_attention(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo, heads, s
                            ("wqkv", wqkv, (3 * hd, d)), ("rel_pos_emb", rel_pos_emb, (rows, dh)),
                            ("wo", wo, (d, hd)), ("bo", bo, (d,))):
         _build.check_tensor("fused_conformer_attention", name, t, shape, torch.bfloat16)
+    plan = k4_plan(b, n, d, heads, dh,
+                   torch.cuda.get_device_properties(x.device).multi_processor_count)
+    core = plan["core"]
+    table = shaw_table(rel_pos_emb, n) if core["route"] == "tiles" else None
 
     lib = _build.load("conformer_attention")
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    tokens = b * n
     xn = torch.empty((tokens, d), dtype=x.dtype, device=x.device)
     qkv = torch.empty((tokens, 3 * hd), dtype=x.dtype, device=x.device)
     ao = torch.empty((tokens, hd), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     _build.check(lib.sesa_conf_attn_proj(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
                                          xn.data_ptr(), wqkv.data_ptr(), qkv.data_ptr(),
-                                         tokens, d, 3 * hd, stream), "sesa_conf_attn_proj")
-    _build.check(lib.sesa_conf_attn_core(qkv.data_ptr(), rel_pos_emb.data_ptr(), ao.data_ptr(),
+                                         tokens, d, 3 * hd, plan["proj"]["grid"],
+                                         plan["proj"]["smem"], stream), "sesa_conf_attn_proj")
+    _build.check(lib.sesa_conf_attn_core(qkv.data_ptr(), None if table is None else
+                                         table.data_ptr(), rel_pos_emb.data_ptr(), ao.data_ptr(),
                                          b, n, heads, dh, (rows - 1) // 2, float(scale),
-                                         stream), "sesa_conf_attn_core")
+                                         core["route_id"], *core["dims"], *core["strides"],
+                                         *core["out_strides"], core["table_rows"], core["grid"],
+                                         core["smem"], stream), "sesa_conf_attn_core")
     _build.check(lib.sesa_conf_attn_out(ao.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-                                        x.data_ptr(), out.data_ptr(), tokens, d, hd, stream),
+                                        x.data_ptr(), out.data_ptr(), tokens, d, hd,
+                                        plan["out"]["grid"], plan["out"]["smem"], stream),
                  "sesa_conf_attn_out")
     fused_conformer_attention.launches += 1
     return out

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from sesa_tpu_torch.ops import _build
-from sesa_tpu_torch.ops.ff import ff_gemm_schedule, layer_norm_rounded
+from sesa_tpu_torch.ops.ff import ff_gemm_schedule, layer_norm_rounded, ws_smem_bytes
 
 
 def conv_pad(kernel: int):
@@ -68,24 +68,60 @@ def fused_conformer_conv_plain(x, p):
     return out + x
 
 
+# K5's depthwise stencil (csrc/convblock.cu): 16 rows a warp, at most 8 warps
+# a block, 64 channels a block, taps in registers up to 32, a persistent grid
+# of 16 warps an SM; two TMA staging buffers of (tile + 31 rows of halo) x 64
+# channels in bf16, static shared memory
+_DW_ROWS_PER_WARP, _DW_MAX_WARPS, _DW_CH, _DW_KMAX = 16, 8, 64, 32
+_DW_WARPS_PER_SM = 16
+_DW_SMEM = 2 * (_DW_ROWS_PER_WARP * _DW_MAX_WARPS + _DW_KMAX - 1) * _DW_CH * 2
+
+
+def k5_plan(b: int, n: int, d: int, e: int, sms: int) -> dict:
+    """The host side of kernel K5: what each of its launches gets.
+
+    For ``b`` sequences of ``n`` tokens of width ``d`` and conv width ``e``
+    on a card of ``sms`` SMs: ``up`` and ``down``, the persistent GEMMs
+    (``csrc/gemm_ws.cuh``) over (b·n, 2e) at depth d (the GLU epilogue
+    stores e columns) and (b·n, d) at depth e, each with its ``tiles``,
+    ``grid`` (:func:`ff_gemm_schedule`) and ``smem``; ``dw``, the depthwise
+    stencil: its tile ``rows`` (16 a warp, as many warps as n needs up to 8:
+    one whole sequence when n ≤ 128), ``threads``, its work ``items`` (row
+    tiles × e / 64 channel slices × b), the persistent ``grid`` (16 warps
+    an SM, never more blocks than items; block i takes the contiguous run of
+    ⌈items / grid⌉ items from i·⌈items / grid⌉) and static ``smem``.
+    ``csrc/convblock.cu`` refuses a plan that does not match its layouts."""
+    tokens = b * n
+    plan = {}
+    for name, cols, depth in (("up", 2 * e, d), ("down", d, e)):
+        tiles, grid = ff_gemm_schedule(tokens, cols, sms)
+        plan[name] = dict(tiles=tiles, grid=grid, smem=ws_smem_bytes(depth))
+    warps = min(_DW_MAX_WARPS, -(-n // _DW_ROWS_PER_WARP))
+    rows = _DW_ROWS_PER_WARP * warps
+    items = b * -(-n // rows) * (e // _DW_CH)
+    plan["dw"] = dict(rows=rows, threads=32 * warps, items=items,
+                      grid=min(items, sms * (_DW_WARPS_PER_SM // warps)), smem=_DW_SMEM)
+    return plan
+
+
 def fused_conformer_conv(x, p):
     """x (b, n, d) -> x + conv_module(x) for the conformer conv params ``p``:
     kernel K5.
 
     CPU tensors run :func:`fused_conformer_conv_plain`. CUDA tensors must be
     bf16 with d and e multiples of 64 and at most 32 taps; anything else
-    raises. Each call adds one to ``fused_conformer_conv.launches``.
+    raises. :func:`k5_plan` plans the launches. Each call adds one to
+    ``fused_conformer_conv.launches``.
     """
     if x.device.type == "cpu":
         return fused_conformer_conv_plain(x, p)
     b, n, d = x.shape
     w1, b1, taps, scale, shift, w2, b2 = conv_weights(p, x.dtype)
     e, k = w2.shape[1], taps.shape[0]
-    if d % 64 or e % 64 or k > 32 or w1.shape != (2 * e, d):
+    if d % 64 or e % 64 or k > _DW_KMAX or w1.shape != (2 * e, d):
         raise ValueError(f"fused_conformer_conv: unsupported d={d}, e={e}, kernel={k} (the "
                          "kernel takes d and e multiples of 64 and at most 32 taps)")
-    tokens = b * n
-    if -(-tokens // 128) > 65535 or b > 65535:
+    if b > 65535:
         raise ValueError(f"fused_conformer_conv: {b} sequences of {n} exceed one launch")
     # interleave the a and g rows of W1 (a0, g0, a1, g1, ...): each thread of
     # the GEMM epilogue then holds one (a, g) pair
@@ -99,21 +135,26 @@ def fused_conformer_conv(x, p):
                            ("scale", scale, (e,)), ("shift", shift, (e,)),
                            ("w2", w2, (d, e)), ("b2", b2, (d,))):
         _build.check_tensor("fused_conformer_conv", name, t, shape, torch.bfloat16)
+    plan = k5_plan(b, n, d, e, torch.cuda.get_device_properties(x.device).multi_processor_count)
 
     lib = _build.load("convblock")
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    tokens = b * n
     xn = torch.empty((tokens, d), dtype=x.dtype, device=x.device)
     glu = torch.empty((tokens, e), dtype=x.dtype, device=x.device)
     y = torch.empty((tokens, e), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     _build.check(lib.sesa_conv_up(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), xn.data_ptr(),
                                   w1i.data_ptr(), b1i.data_ptr(), glu.data_ptr(), tokens, d,
-                                  2 * e, stream), "sesa_conv_up")
+                                  2 * e, plan["up"]["grid"], plan["up"]["smem"], stream),
+                 "sesa_conv_up")
     _build.check(lib.sesa_conv_dw(glu.data_ptr(), taps.data_ptr(), scale.data_ptr(),
-                                  shift.data_ptr(), y.data_ptr(), b, n, e, k, stream),
+                                  shift.data_ptr(), y.data_ptr(), b, n, e, k,
+                                  plan["dw"]["rows"], plan["dw"]["grid"], stream),
                  "sesa_conv_dw")
     _build.check(lib.sesa_conv_down(y.data_ptr(), w2.data_ptr(), b2.data_ptr(), x.data_ptr(),
-                                    out.data_ptr(), tokens, d, e, stream), "sesa_conv_down")
+                                    out.data_ptr(), tokens, d, e, plan["down"]["grid"],
+                                    plan["down"]["smem"], stream), "sesa_conv_down")
     fused_conformer_conv.launches += 1
     return out
 
