@@ -1,5 +1,5 @@
-"""Time kernels K1 to K6 and K8 of two trees of the repository against each
-other on one NVIDIA GPU, in turns.
+"""Time kernels K1 to K8 of two trees of the repository against each other on
+one NVIDIA GPU, in turns.
 
     git archive <commit> | tar -x -C chip_parent    # the base tree (gitignored)
     python3 chip_ab.py --base chip_parent --pairs 4
@@ -7,7 +7,7 @@ other on one NVIDIA GPU, in turns.
 
 Each turn is a subprocess that imports ``sesa_tpu_torch`` from one tree
 (``--base`` or this checkout), builds that tree's libraries of the kernels
-asked for (``--kernels``, default all seven), makes the inputs of
+asked for (``--kernels``, default all eight), makes the inputs of
 ``chip_smoke.py``'s kernels phase from one seed at the main paths' shapes (K1
 at the flagship's time leg b 372 x n 690 and freq leg b 4140 x n 62 in mode 0
 and the time leg in mode 2, d 512, 8 heads x 64; K2 at the flagship's 256,680
@@ -15,17 +15,18 @@ x 512 -> 2048 rms/GELU form and the mel-band conformer's 248,400 x 384 -> 1536
 ln/SiLU/0.5 form; K3 at BH 2976 x S 690 x D 64 through strided views; K4 and
 K5 at the mel-band conformer's time leg b 360 x n 690 and freq leg b 4140 x n
 60, d 384 (K4: 8 heads x 64, P 512; K5: e 768, k 31); K6 at
-Apollo's b 320 x n 1901, d 256 -> 1024, k 7; K8 at bs_mamba2's band_rnn B 684
+Apollo's b 320 x n 1901, d 256 -> 1024, k 7; K7 at Apollo's b 7604 x n 80,
+8 heads x 32, full rope; K8 at bs_mamba2's band_rnn B 684
 x L 704 and band_comm B 8280 x L 64, H 8, in bf16 and in f32), checks each
 kernel against its plain version, and times it with CUDA events, beside the
 library yardsticks (cuBLAS + SDPA, the F.linear composites, SDPA under each
 backend, LayerNorm + cuBLAS + SDPA with the Shaw bias as a mask, the cuDNN
-conv composites, the einsum scan ``ssd_einsum``). K1's, K4's, K5's and K6's
-rows also give device time by kernel (torch.profiler) in each tree's first
-turn. Turns run base, new, new, base, base, new, ... so that drift of
-the card falls on both trees. Prints each turn, the median and range of each
-kernel by tree, and last the card's name and power limit; writes everything
-to chiprun_out/chip_ab.json.
+conv composites, rope in torch ops + SDPA, the einsum scan ``ssd_einsum``).
+K1's, K4's, K5's, K6's and K7's rows also give device time by kernel
+(torch.profiler) in each tree's first turn. Turns run base, new, new, base,
+base, new, ... so that drift of the card falls on both trees. Prints each
+turn, the median and range of each kernel by tree, and last the card's name
+and power limit; writes everything to chiprun_out/chip_ab.json.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # the rows of each kernel in the summary, each with its library yardstick
 ROWS = {"K1": ["K1_time", "K1_freq", "K1m2_time"], "K2": ["K2", "K2ln"], "K3": ["K3"],
-        "K4": ["K4_time", "K4_freq"], "K5": ["K5_time", "K5_freq"], "K6": ["K6"],
+        "K4": ["K4_time", "K4_freq"], "K5": ["K5_time", "K5_freq"], "K6": ["K6"], "K7": ["K7"],
         "K8": [f"K8_{leg}_{tag}" for leg in ("band_rnn", "band_comm") for tag in ("bf16", "f32")]}
 
 
@@ -72,6 +73,8 @@ def worker(tree: str, kernels, breakdown: bool) -> None:
         k5(cs, dev, res, tree, breakdown)
     if "K6" in kernels:
         k6(cs, dev, res, tree, breakdown)
+    if "K7" in kernels:
+        k7(cs, dev, res, tree, breakdown)
     if "K2" in kernels:
         k2(cs, gen, dev, res, tree)
     if "K3" in kernels:
@@ -189,6 +192,28 @@ def k6(cs, dev, res, tree, breakdown):
     if breakdown:
         res["K6_parts"] = cs.device_breakdown(lambda: fused_apollo_conv(x, p))
     del x
+    torch.cuda.empty_cache()
+
+
+def k7(cs, dev, res, tree, breakdown):
+    """K7 at Apollo's shape (b 7604 x n 80, 8 heads x 32, full rope), checked
+    against fused_rope_attention_plain; rope in torch ops + SDPA is the
+    yardstick."""
+    import torch
+
+    from sesa_tpu_torch.ops.attention import fused_rope_attention, fused_rope_attention_plain
+
+    gen = torch.Generator().manual_seed(7)
+    b, n, heads = cs.APOLLO_BPRIME * cs.APOLLO_FRAMES, cs.APOLLO_BANDS, 8
+    dh = cs.APOLLO_MODEL["feature_dim"] // heads
+    args = cs._k7_args(gen, b, n, heads, dh, dh, dev)
+    cs.compare(f"{tree} K7", fused_rope_attention(*args), fused_rope_attention_plain(*args),
+               torch.zeros((), device=dev))
+    res["K7"] = cs.time_ms(lambda: fused_rope_attention(*args), reps=20, warmup=3)
+    res["K7_library"] = cs.time_ms(lambda: cs.k7_library(*args), reps=20, warmup=3)
+    if breakdown:
+        res["K7_parts"] = cs.device_breakdown(lambda: fused_rope_attention(*args))
+    del args
     torch.cuda.empty_cache()
 
 

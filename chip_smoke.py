@@ -28,8 +28,10 @@ and prints no result line):
    the edges of its gate (S 256, 257, 1000, 2048) for D 32, 64 and 128, and
    K4 to K8 at small ragged shapes (K4 across its core's two routes, other
    head widths, clipping and none, short and
-   even kernels, partial and no rope, sequences beyond one tile, one and
-   three chunks, an impulse the state must carry, fast decays). With
+   even kernels, K7 at every dim_head it takes with partial and no rope,
+   one token, several boxes along n and a partial head group, sequences
+   beyond one tile, one and three chunks, an impulse the state must carry,
+   fast decays); K7's row also gives its device time. With
    ``--only``, phases 1-2 build and check just the kernels named.
 3. flagship: separates a generated 60 s stereo song through
    ``sesa_tpu_torch.cli.main`` with the flagship bs_roformer (dim 512,
@@ -53,7 +55,13 @@ and prints no result line):
    versions, both bf16 on the card (and against f32, for the record).
 8. mel-band roformer: one model call of 6 chunks at bench.py's
    ``_melband_setup`` shape (dim 384, depth 12, 60 mel bands) with the
-   kernels (K1, K2) and with their plain versions.
+   kernels (K1, K2) and with their plain versions. Then the per-kernel
+   choices off the main paths (``GATE_PATHS``, depth 1, one model call each
+   with the kernels and with their plain versions): Apollo at feature_dim
+   384 (K7 at dim_head 48 and K6) and 768 (K7 at dim_head 96, the ICBs
+   unfused), the mel-band conformer at dim_head 48 (K2 and K5, the attention
+   unfused) and at conv kernel 33 (K2 and K4, the conv unfused); launches as
+   the choice predicts, parity as in 7.
 9. experimental roformers and bs_mamba2: the same song through ``cli.main``
    with ``bs_roformer_experimental`` at the flagship widths with value
    residual learning (K1 in modes 1 and 2, K2 at depth 0), the same with
@@ -552,6 +560,31 @@ def _k7_args(gen, b, n, heads, dh, rot, device):
     return qkv, heads, dh ** -0.5, rope
 
 
+# K7's small ragged shapes (b, n, heads, dim_head, rotary width or None):
+# every dim_head the kernel takes, a group left partial (3 heads), one token,
+# several boxes along n (257, 530), no and partial rope, and batches whose
+# items wrap the ring of every block
+K7_SMALL = ((13, 12, 1, 64, None), (13, 33, 3, 32, 8), (13, 130, 1, 64, 64),
+            (13, 130, 3, 64, None), (13, 33, 3, 64, 64), (13, 12, 3, 32, 32),
+            (13, 80, 8, 16, 16), (13, 1, 3, 32, 32), (13, 1, 3, 16, None),
+            (13, 257, 3, 64, 64), (13, 257, 2, 16, 8), (5, 530, 2, 32, 32),
+            (13, 80, 8, 48, 48), (600, 33, 3, 48, 16), (13, 80, 8, 96, 96),
+            (13, 80, 3, 96, 32), (13, 80, 4, 80, 80), (13, 80, 8, 112, 112),
+            (13, 50, 2, 128, 128), (1000, 80, 8, 32, 32), (400, 257, 3, 64, 64))
+
+
+def _k7_plan_line(b, n, heads, dh, rot):
+    """K7's plan as one short string: group, stages, boxes along n, grid."""
+    import torch
+
+    from sesa_tpu_torch.ops.attention import k7_plan
+
+    p = k7_plan(b, n, heads, dh, rot or 0,
+                torch.cuda.get_device_properties(0).multi_processor_count)
+    return (f"G {p['group']}, {p['stages']} stages, {p['nbox']} x {p['box_rows']} rows, "
+            f"table {p['table']}, grid {p['grid']}")
+
+
 # K1's small ragged shapes: (b, n, d, heads, dim_head, rotary width or None,
 # mode, with the residual)
 K1_SMALL = ((3, 62, 128, 1, 64, 64, 0, True), (5, 65, 192, 2, 32, None, 0, True),
@@ -854,7 +887,8 @@ def phase_kernels(only=None):
 
     if want("K7"):
         # K7 at Apollo's shape: 4 x 1901 frame sequences of 80 bands, 8 heads x 32
-        b, n, heads, dh = APOLLO_BPRIME * APOLLO_FRAMES, APOLLO_BANDS, 8, d // 8
+        b, n, heads = APOLLO_BPRIME * APOLLO_FRAMES, APOLLO_BANDS, 8
+        dh = APOLLO_MODEL["feature_dim"] // heads
         args = _k7_args(gen, b, n, heads, dh, dh, dev)
         out = fused_rope_attention(*args)
         torch.cuda.synchronize()
@@ -873,12 +907,12 @@ def phase_kernels(only=None):
                          **_bound(4 * b * heads * n * n * dh,
                                   2 * (b * n * 4 * heads * dh + 2 * n * dh)),
                          kernel="K7"))
+        log_breakdown(rows[-1], "K7", lambda: fused_rope_attention(*args))
         del args
         torch.cuda.empty_cache()
 
     # K6 and K7 at small ragged shapes: short and long sequences against the
-    # 64-row tile, a 3-tap kernel; no rope, partial rotary, one and three
-    # heads, a sequence beyond one key tile, a batch that no grouping divides
+    # 64-row tile, a 3-tap kernel; K7 at K7_SMALL
     if want("K6"):
         for n, k in ((62, 7), (100, 3), (257, 7)):
             p = _apollo_conv_params(gen, 128, k, dev)
@@ -886,10 +920,10 @@ def phase_kernels(only=None):
             compare(f"K6 small (b=3, n={n}, d=128, k={k})", fused_apollo_conv(x, p),
                     fused_apollo_conv_plain(x, p), x)
     if want("K7"):
-        for n, heads, dh, rot in ((12, 1, 64, None), (33, 3, 32, 8), (130, 1, 64, 64),
-                                  (130, 3, 64, None), (33, 3, 64, 64), (12, 3, 32, 32)):
-            args = _k7_args(gen, 13, n, heads, dh, rot, dev)
-            compare(f"K7 small (b=13, n={n}, {heads}x{dh}, rope {rot})",
+        for b, n, heads, dh, rot in K7_SMALL:
+            args = _k7_args(gen, b, n, heads, dh, rot, dev)
+            compare(f"K7 small (b={b}, n={n}, {heads}x{dh}, rope {rot}, plan "
+                    f"{_k7_plan_line(b, n, heads, dh, rot)})",
                     fused_rope_attention(*args), fused_rope_attention_plain(*args), zero)
     torch.cuda.synchronize()
 
@@ -1106,10 +1140,10 @@ def _plain_swaps(model_type):
         return [(ssd_ops, "ssd_fused", ssd_ops.ssd_plain)]
     if model_type == "bs_roformer_experimental_hc":  # so does sdpa() with K3
         return [(attention_ops, "vmem_attention", attention_ops.vmem_attention_plain)]
-    if model_type == "apollo":
+    if model_type.startswith("apollo"):
         return [(apollo, "fused_rope_attention", fused_rope_attention_plain),
                 (apollo, "fused_apollo_conv", fused_apollo_conv_plain)]
-    if model_type == "mel_band_conformer":
+    if model_type.startswith("mel_band_conformer"):
         return [(conformer_core, "fused_ff_residual", fused_ff_residual_plain),
                 (conformer_core, "fused_conformer_attention", fused_conformer_attention_plain),
                 (conformer_core, "fused_conformer_conv", fused_conformer_conv_plain)]
@@ -1324,6 +1358,69 @@ def phase_chain(sessions, song, expected):
     return res
 
 
+# shapes off the main paths that the per-kernel choices send partly down the
+# plain chain, depth 1 each: (label, model type, model config)
+GATE_PATHS = (("apollo_fd384", "apollo", dict(APOLLO_MODEL, feature_dim=384, layer=1)),
+              ("apollo_fd768", "apollo", dict(APOLLO_MODEL, feature_dim=768, layer=1)),
+              ("mel_band_conformer_dh48", "mel_band_conformer",
+               dict(MELCONF_MODEL, depth=1, dim_head=48)),
+              ("mel_band_conformer_k33", "mel_band_conformer",
+               dict(MELCONF_MODEL, depth=1, conv_kernel_size=33)))
+# the kernels each of them must take: Apollo at dim_head 48 both, at 96 K7
+# with the ICBs unfused; the conformer at dim_head 48 K2 and K5 with the
+# attention unfused, at 33 taps K2 and K4 with the conv unfused
+GATE_KERNELS = {"apollo_fd384": {"K6", "K7"}, "apollo_fd768": {"K7"},
+                "mel_band_conformer_dh48": {"K2", "K5"}, "mel_band_conformer_k33": {"K2", "K4"}}
+
+
+def phase_gates(song):
+    """One model call of each of GATE_PATHS (seeded weights) with the kernels
+    and with their plain versions (model_parity: finite, >= 20 dB). The
+    kernels launched are those the model's choice (``apollo_kernels``,
+    ``conformer_kernels``) names for the call's shapes, each as often as the
+    layers reach it, and the choice is GATE_KERNELS."""
+    import torch
+
+    from sesa_tpu_torch.configs import AttrDict
+    from sesa_tpu_torch.models import apollo, get_model
+    from sesa_tpu_torch.models import conformer_core as cc
+    from sesa_tpu_torch.tree import tree_map
+
+    out = []
+    for label, model_type, model_cfg in GATE_PATHS:
+        config = AttrDict({"model": model_cfg})
+        params = get_model(model_type).init(torch.Generator().manual_seed(5), config)
+        params = tree_map(lambda p: p.cuda(), params)
+        batch = _chunking(model_type)[1]
+        if model_type == "apollo":
+            n = model_cfg["feature_dim"]
+            chosen = apollo.apollo_kernels("cuda", torch.bfloat16, APOLLO_BPRIME, APOLLO_FRAMES,
+                                           APOLLO_BANDS, n)
+            per_kernel = {"K7": model_cfg["layer"], "K6": 3 * model_cfg["layer"]}
+        else:
+            dim, dh = model_cfg["dim"], model_cfg.get("dim_head", 64)
+            legs = {cc.conformer_kernels("cuda", torch.bfloat16, b, n, dim, 8, dh, 4 * dim,
+                                         2 * dim, model_cfg.get("conv_kernel_size", 31))
+                    for b, n in ((batch * MEL_BANDS, FRAMES), (batch * FRAMES, MEL_BANDS))}
+            if len(legs) != 1:
+                raise RuntimeError(f"{label}: the time and freq legs take {legs}")
+            chosen = legs.pop()
+            blocks = 2 * model_cfg["depth"]  # a time and a freq block per layer
+            per_kernel = {"K2": 2 * blocks, "K4": blocks, "K5": blocks}
+        if chosen != GATE_KERNELS[label]:
+            raise RuntimeError(f"{label}: the choice takes {sorted(chosen)}, expected "
+                               f"{sorted(GATE_KERNELS[label])}")
+        res = model_parity(model_type, params, config, song, with_f32=False, label=label)
+        expected = expect(**{k: per_kernel[k] for k in chosen})
+        if res["launches"] != expected:
+            raise RuntimeError(f"{label}: launches {res['launches']}, expected {expected}")
+        res["kernels_chosen"] = sorted(chosen)
+        out.append(res)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_new_paths(song, calls):
     """The experimental roformers (value residual; four residual streams) and
     bs_mamba2 through cli.main, then model parity of each (kernels against
@@ -1440,6 +1537,7 @@ def main(argv=None) -> int:
     if got != per_call:
         raise RuntimeError(f"apollo parity: launches {got} in one model call, expected {per_call}")
     out["melband"] = phase_melband(song)
+    out["gates"] = phase_gates(song)
     out["profile"] = {mt: phase_profile(mt, s, song) for mt, s in sessions.items()}
     sessions.clear()
     torch.cuda.empty_cache()

@@ -1,6 +1,6 @@
 // Hopper building blocks of the warp-specialised kernels (flash_wgmma.cuh,
-// flash_shaw.cuh, gemm_ws.cuh): mbarriers, TMA tile loads, register
-// reallocation, named barriers, wgmma shared-memory descriptors and the wgmma
+// flash_shaw.cuh, gemm_ws.cuh, rope_attention.cu): mbarriers, TMA tile loads
+// and stores, register reallocation, named barriers, wgmma shared-memory descriptors and the wgmma
 // forms they use, and the host-side encoding of TMA tensor maps.
 //
 // Tiles arrive by TMA with the 128-byte (rows of 128 bytes) or 64-byte
@@ -93,6 +93,35 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* m, uin
       "l"(reinterpret_cast<uint64_t>(m)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// ---- TMA tile stores (one thread issues; completion by bulk async-group) ---
+
+// make this thread's shared-memory writes visible to the async proxy, i.e.
+// to a TMA store issued after a barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* m, const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(m)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed store groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// wait until at most N committed store groups are still in flight
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- warp specialisation ---------------------------------------------------

@@ -9,9 +9,10 @@ batched einsum; the odd final band runs separately.
 
 Under bf16 the band attention goes through kernel K7
 (``ops.attention.fused_rope_attention``) and every ICB block through kernel
-K6 (``ops.convblock.fused_apollo_conv``); in f32 (parity and the bf16 -> f32
-rescue) both stay on plain tensor code. The STFT, the iSTFT and the band
-features are always f32.
+K6 (``ops.convblock.fused_apollo_conv``) where ``apollo_kernels`` finds that
+the kernel takes the shape, and through the plain layers elsewhere; in f32
+(parity and the bf16 -> f32 rescue) both stay on plain tensor code. The STFT,
+the iSTFT and the band features are always f32.
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from sesa_tpu_torch.models.layers import kaiming_uniform
-from sesa_tpu_torch.ops.attention import fused_rope_attention, sdpa
-from sesa_tpu_torch.ops.convblock import fused_apollo_conv
+from sesa_tpu_torch.ops.attention import fused_rope_attention, k7_plan, sdpa
+from sesa_tpu_torch.ops.convblock import apollo_conv_shape_ok, fused_apollo_conv
 from sesa_tpu_torch.ops.stft import hann_window, istft_ri, stft_ri
 from sesa_tpu_torch.tree import tree_map
 
@@ -189,6 +190,32 @@ def _roformer_apply_folded(p, feat, num_head=NUM_HEAD):
     return _roformer_mlp(p, out)
 
 
+def apollo_kernels(device_type: str, dtype, rows: int, frames: int, bands: int,
+                   feature_dim: int, kernel: int = 7) -> frozenset:
+    """The kernels Apollo's layers run, a subset of {"K6", "K7"}: a pure
+    function of the device type, the dtype and the shapes (``rows`` = batch ×
+    channels, ``frames``, ``bands``, ``feature_dim`` N, the ICB's ``kernel``
+    taps).
+
+    Only bf16 takes kernels. On CUDA, K7 takes the band layers where
+    :func:`k7_plan` plans (rows · frames) sequences of ``bands`` at 8 heads
+    × N / 8 with full rope, else the band layer runs :func:`_roformer_apply`;
+    K6 takes the ICBs where :func:`apollo_conv_shape_ok` accepts (rows ·
+    bands · frames) tokens of N with hidden 4N, else they run
+    :func:`_conv_act_norm_apply` (sesa_tpu/models/apollo.py:222-230). On the
+    CPU both wrappers run their plain versions, which take every shape."""
+    if dtype != torch.bfloat16 or device_type not in ("cuda", "cpu"):
+        return frozenset()
+    if device_type == "cpu":
+        return frozenset({"K6", "K7"})
+    dh = feature_dim // NUM_HEAD
+    take = {"K7": feature_dim % NUM_HEAD == 0
+            and k7_plan(rows * frames, bands, NUM_HEAD, dh, dh) is not None,
+            "K6": apollo_conv_shape_ok(rows * bands * frames, feature_dim, 4 * feature_dim,
+                                       kernel)}
+    return frozenset(name for name, ok in take.items() if ok)
+
+
 def _conv_act_norm_apply(p, x, kernel=7):
     """(B, T, N) depthwise conv over T + RMSNorm + pointwise MLP, residual:
     the f32 path. The depthwise conv is ``kernel`` shifted multiply-adds, so
@@ -273,10 +300,10 @@ def apply(params, config, x, compute_dtype=None):
     del feat_uni, feat_last, uni, last, spec
     nband = feat.shape[1]
 
-    fused = feat.dtype == torch.bfloat16
+    kernels = apollo_kernels(feat.device.type, feat.dtype, bp, t, nband, n)
     for lp in params["layers"]:
         # band communication: the sequence axis is the bands, batched over (B', T)
-        if fused:
+        if "K7" in kernels:
             feat = _roformer_apply_folded(lp["band_net"], feat)
         else:
             z = feat.transpose(1, 2).reshape(-1, nband, n)
@@ -285,7 +312,7 @@ def apply(params, config, x, compute_dtype=None):
         # sequence modelling over the frames of each band
         z = feat.reshape(bp * nband, t, n)
         for blk in lp["seq_net"]:
-            z = fused_apollo_conv(z, blk) if fused else _conv_act_norm_apply(blk, z)
+            z = fused_apollo_conv(z, blk) if "K6" in kernels else _conv_act_norm_apply(blk, z)
         feat = z.reshape(bp, nband, t, n)
 
     # output heads: RMSNorm + 1x1 + GLU -> RI per band

@@ -8,9 +8,11 @@ Parameters are plain dicts of tensors with the JAX package's names and
 torch layouts; converter keys follow the lucidrains module layout
 (``layers.{i}.{ff1,attn,conv,ff2,post_norm}``).
 
-Dispatch: bf16 CUDA tensors whose shape passes ``use_fused_conformer`` run
-the block as kernels K2 (LayerNorm/SiLU/0.5 form) → K4 → K5 → K2 → post
-LayerNorm; everything else (f32, the CPU, other shapes) runs the plain chain.
+Dispatch: on bf16 CUDA tensors ``use_fused_conformer`` chooses, per
+sub-module, kernel K2 (LayerNorm/SiLU/0.5 form) for both feed-forwards, K4
+for the attention and K5 for the conv where each takes the shape; a
+sub-module whose kernel does not runs its plain chain, and everything else
+(f32, the CPU) runs the plain chain throughout.
 """
 
 from __future__ import annotations
@@ -22,9 +24,10 @@ import torch
 import torch.nn.functional as F
 
 from sesa_tpu_torch.models.layers import kaiming_uniform, layer_norm, swish
-from sesa_tpu_torch.ops.attention import fused_conformer_attention, shaw_rel_index
-from sesa_tpu_torch.ops.convblock import conv_pad, fused_conformer_conv
-from sesa_tpu_torch.ops.ff import fused_ff_residual
+from sesa_tpu_torch.ops.attention import (conformer_attention_shape_ok,
+                                          fused_conformer_attention, shaw_rel_index)
+from sesa_tpu_torch.ops.convblock import conformer_conv_shape_ok, conv_pad, fused_conformer_conv
+from sesa_tpu_torch.ops.ff import ff_shape_ok, fused_ff_residual
 
 MAX_POS_EMB = 512
 
@@ -147,13 +150,37 @@ def fused_conformer_shape_ok(n: int, dim_head: int, dim: int) -> bool:
     return n <= 2048 and dim_head <= 128 and dim % 64 == 0
 
 
-def use_fused_conformer(x, p, heads) -> bool:
-    """bf16 CUDA tensors of a shape :func:`fused_conformer_shape_ok` admits;
-    a deterministic test with no state and no environment knobs."""
+def conformer_kernels(device_type: str, dtype, batch: int, n: int, dim: int, heads: int,
+                      dim_head: int, hidden: int, e: int, k: int) -> frozenset:
+    """The kernels a conformer block runs, a subset of {"K2", "K4", "K5"}: a
+    pure function of the device type, the dtype and the shapes (``batch``
+    sequences of ``n`` tokens of width ``dim``, ``heads`` × ``dim_head``,
+    feed-forward ``hidden``, conv width ``e`` and ``k`` taps).
+
+    Only bf16 CUDA blocks of a shape :func:`fused_conformer_shape_ok`
+    admits take kernels, and each kernel only where its wrapper takes the
+    shape: K2 (both feed-forwards) :func:`ff_shape_ok`, K4
+    :func:`conformer_attention_shape_ok`, K5 :func:`conformer_conv_shape_ok`.
+    A sub-module whose kernel is not taken runs its unfused chain and the
+    residual, as sesa_tpu/models/conformer_core.py:182-216 does for the conv."""
+    if device_type != "cuda" or dtype != torch.bfloat16 \
+            or not fused_conformer_shape_ok(n, dim_head, dim):
+        return frozenset()
+    take = {"K2": ff_shape_ok(batch * n, dim, hidden),
+            "K4": conformer_attention_shape_ok(batch, n, dim, heads, dim_head),
+            "K5": conformer_conv_shape_ok(batch, dim, e, k)}
+    return frozenset(name for name, ok in take.items() if ok)
+
+
+def use_fused_conformer(x, p, heads) -> frozenset:
+    """:func:`conformer_kernels` for x (..., n, dim) and the block ``p``; empty
+    (false) on the CPU and in f32, with no state and no environment knobs."""
     n, dim = x.shape[-2:]
     dh = p["attn"]["to_q"]["weight"].shape[0] // heads
-    return (x.device.type == "cuda" and x.dtype == torch.bfloat16
-            and fused_conformer_shape_ok(n, dh, dim))
+    conv = p["conv"]
+    return conformer_kernels(x.device.type, x.dtype, x.numel() // max(n * dim, 1), n, dim, heads,
+                             dh, p["ff1"]["lin1"]["weight"].shape[0],
+                             conv["pw2"]["weight"].shape[1], conv["dw"]["weight"].shape[-1])
 
 
 def _ff_fused(p, x):
@@ -165,21 +192,20 @@ def _ff_fused(p, x):
 
 
 def conformer_block_apply(p, x, heads):
-    """(b, n, d) -> (b, n, d)."""
-    if use_fused_conformer(x, p, heads):
+    """(b, n, d) -> (b, n, d); each sub-module through its kernel where
+    :func:`use_fused_conformer` takes it, else its plain chain."""
+    fused = use_fused_conformer(x, p, heads)
+    x = _ff_fused(p["ff1"], x) if "K2" in fused else _ff_apply(p["ff1"], x) + x
+    if "K4" in fused:
         a = p["attn"]
-        x = _ff_fused(p["ff1"], x)
         wqkv = torch.cat([a["to_q"]["weight"], a["to_kv"]["weight"]], dim=0)
         x = fused_conformer_attention(x, a["norm"]["weight"], a["norm"]["bias"], wqkv,
                                       a["rel_pos_emb"], a["to_out"]["weight"],
                                       a["to_out"]["bias"], heads)
-        x = fused_conformer_conv(x, p["conv"])
-        x = _ff_fused(p["ff2"], x)
-        return layer_norm(x, p["post_norm"])
-    x = _ff_apply(p["ff1"], x) + x
-    x = _attn_apply(p["attn"], x, heads) + x
-    x = _conv_apply(p["conv"], x) + x
-    x = _ff_apply(p["ff2"], x) + x
+    else:
+        x = _attn_apply(p["attn"], x, heads) + x
+    x = fused_conformer_conv(x, p["conv"]) if "K5" in fused else _conv_apply(p["conv"], x) + x
+    x = _ff_fused(p["ff2"], x) if "K2" in fused else _ff_apply(p["ff2"], x) + x
     return layer_norm(x, p["post_norm"])
 
 

@@ -58,7 +58,7 @@ SIGNATURES = {
         "sesa_apollo_down": [_P] * 5 + [_I] * 4 + [_P],
     },
     "rope_attention": {
-        "sesa_rope_attn": [_P] * 4 + [_I] * 6 + [_F, _P],
+        "sesa_rope_attn": [_P] * 4 + [_I] * 12 + [_F, _P],
     },
     "vmem_attention": {
         "sesa_vmem_attn": [_P] * 4 + [_I] + [_L] * 16 + [_I] * 4 + [_F, _P],

@@ -18,6 +18,7 @@ with its bf16 rounding points.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -435,6 +436,7 @@ def fused_conformer_attention_plain(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo, he
 _K4_ROUTES = {"tiles": 0, "mma": 1}
 _K4_MMA_MAX_N = 64
 _K4_TILE_DIM_HEADS = (32, 64)
+_K4_DIM_HEADS = (32, 64, 128)
 
 
 def _shaw_buffers(dh: int) -> dict:
@@ -502,6 +504,15 @@ def k4_plan(b: int, n: int, d: int, heads: int, dh: int, sms: int) -> dict:
     return plan
 
 
+def conformer_attention_shape_ok(b: int, n: int, d: int, heads: int, dh: int) -> bool:
+    """The shapes kernel K4 takes: dim_head 32, 64 or 128, d and heads·dim_head
+    multiples of 64, and b sequences of n tokens one launch covers.
+    :func:`fused_conformer_attention` raises on a CUDA tensor exactly where
+    this is false."""
+    return (dh in _K4_DIM_HEADS and d % 64 == 0 and (heads * dh) % 64 == 0
+            and 1 <= b <= 65535 and b * heads * -(-n // 64) <= 2 ** 31 - 1)
+
+
 def shaw_table(rel_pos_emb: torch.Tensor, n: int) -> torch.Tensor:
     """K4's expanded Shaw table for sequences of ``n``, built where
     ``rel_pos_emb`` (2P + 1, dh) lies: (2·n_pad, dh) with n_pad = n rounded
@@ -519,9 +530,10 @@ def fused_conformer_attention(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo, heads, s
     """x (b, n, d) -> x + conformer-attention(layer_norm(x)): kernel K4.
 
     CPU tensors run :func:`fused_conformer_attention_plain`. CUDA tensors
-    must be bf16, contiguous, with d and h·dh multiples of 64 and dh in
-    {32, 64, 128}; anything else raises. P comes from the table's rows.
-    :func:`k4_plan` plans the launches. Each call adds one to
+    must be bf16, contiguous and of a shape
+    :func:`conformer_attention_shape_ok` takes; anything else raises. P
+    comes from the table's rows. :func:`k4_plan` plans the launches. Each
+    call adds one to
     ``fused_conformer_attention.launches``.
     """
     if x.device.type == "cpu":
@@ -530,12 +542,10 @@ def fused_conformer_attention(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo, heads, s
     b, n, d = x.shape
     hd = wqkv.shape[0] // 3
     dh = hd // heads
-    if dh not in (32, 64, 128) or d % 64 or hd % 64 or wqkv.shape[0] != 3 * hd:
-        raise ValueError(f"fused_conformer_attention: unsupported d={d}, heads={heads}, "
-                         f"dim_head={dh} (the kernel takes dim_head 32, 64 or 128 and d, "
-                         "heads * dim_head multiples of 64)")
-    if b > 65535 or b * heads * -(-n // 64) > 2 ** 31 - 1:
-        raise ValueError(f"fused_conformer_attention: {b} sequences of {n} exceed one launch")
+    if not conformer_attention_shape_ok(b, n, d, heads, dh) or wqkv.shape[0] != 3 * hd:
+        raise ValueError(f"fused_conformer_attention: unsupported {b} sequences of {n}, d={d}, "
+                         f"heads={heads}, dim_head={dh} (the kernel takes dim_head 32, 64 or "
+                         "128, d and heads * dim_head multiples of 64, at most 65535 sequences)")
     rows = rel_pos_emb.shape[0]
     if rows % 2 == 0:
         raise ValueError(f"fused_conformer_attention: the Shaw table has {rows} rows, "
@@ -610,6 +620,87 @@ def fused_rope_attention_plain(qkv, heads, scale, rope=None):
 
 
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block can use on Hopper
+# K7 (csrc/rope_attention.cu): TMA boxes of 64 columns (128 bytes, the
+# 128-byte swizzle's span) and at most 256 rows, a ring of at most 4 stages
+_K7_BOX_COLS, _K7_BOX_ROWS, _K7_MAX_STAGES = 64, 256, 4
+
+
+def _k7_warps(dh: int):
+    """The rope and attention warps of ``rope_attn_kernel<dh>`` (``RaCfg``),
+    one producer warp beside them: 4 and 11 at dim_head ≤ 32, 3 and 8 up to
+    64, 2 and 5 beyond."""
+    return (4 if dh <= 32 else 3 if dh <= 64 else 2), (11 if dh <= 32 else 8 if dh <= 64 else 5)
+
+
+def k7_plan(b: int, n: int, heads: int, dh: int, rot: int, sms: int = 132):
+    """The host side of kernel K7 for ``b`` sequences of ``n`` tokens, ``heads``
+    × ``dh``, a rotary width ``rot`` (0: no rope), on a card of ``sms`` SMs;
+    None for a shape the kernel cannot take.
+
+    - ``group`` heads per item: their q, k and v columns are ``boxes`` whole
+      64-column TMA boxes (the fewest heads that fill whole boxes, widened to
+      128 columns where that takes several heads; the widest such group
+      with two stages, else the widest with one);
+      ``groups`` = ⌈heads / group⌉, the last one partial;
+    - ``nbox`` boxes of ``box_rows`` rows (a multiple of 8, at most 256)
+      along the sequence, ``rows`` in all, at least n rounded up to 16;
+    - ``stages`` ring stages of q, k and v slabs, ``stage_bytes`` each, as
+      many as fit up to 4 beside ``table``, the bytes of the cos and sin
+      tables staged in shared memory (rows padded to an odd number of 16-byte
+      chunks; 0: read from device memory, where staging them would leave no
+      stage);
+    - ``items`` = b · groups, the persistent ``grid`` (one block per SM,
+      never more blocks than items; block i takes items i, i + grid, ...),
+      ``rope_warps`` and ``attn_warps`` beside one producer warp
+      (``threads``);
+    - ``buffers``, the dynamic shared memory by buffer, and their sum
+      ``smem`` (``csrc/rope_attention.cu`` ``ra_smem_bytes``).
+
+    None where dim_head is not a multiple of 16 in [16, 128], the rotary
+    width is odd or wider than dim_head, or one stage does not fit in a
+    block's shared memory (n beyond about 600 at 64 columns a group).
+    ``csrc/rope_attention.cu`` refuses a plan that does not match its
+    layout."""
+    if b < 1 or n < 1 or heads < 1 or dh % 16 or not 16 <= dh <= 128 or rot < 0 or rot % 2 \
+            or rot > dh:
+        return None
+    n16 = -(-n // 16) * 16
+    nbox = -(-n16 // _K7_BOX_ROWS)
+    box_rows = -(-(-(-n16 // nbox)) // 8) * 8  # ⌈⌈n16 / nbox⌉ / 8⌉ · 8
+    rows = nbox * box_rows
+    g0 = _K7_BOX_COLS // math.gcd(dh, _K7_BOX_COLS)  # fewest heads of whole boxes
+    widest = max(1, 2 * _K7_BOX_COLS // (g0 * dh)) if heads > g0 else 1
+
+    # the cos and sin tables staged in rows of an odd number of 16-byte
+    # chunks, so that 8 consecutive rows of a chunk lie in 8 bank groups
+    staged = 2 * n * (-(-rot * 2 // 32) * 32 + 16) if rot else 0
+
+    def stages_of(group, table):  # ring stages that fit: q, k, v slabs and 3 mbarriers each
+        stage_bytes = 3 * (group * dh // _K7_BOX_COLS) * rows * 128
+        return min(_K7_MAX_STAGES, (_SMEM_LIMIT - 1024 - table) // (stage_bytes + 24))
+
+    # the tables in shared memory where they fit, then the widest group with
+    # two stages, else the widest with one
+    fits = [(stages_of(g, table), g, table) for table in ((staged, 0) if staged else (0,))
+            for least in (2, 1) for g in range(widest * g0, 0, -g0)
+            if stages_of(g, table) >= least]
+    if not fits:
+        return None
+    stages, group, table = fits[0]
+    boxes = group * dh // _K7_BOX_COLS
+    stage_bytes = 3 * boxes * rows * 128
+    groups = -(-heads // group)
+    items = b * groups
+    if items > 2 ** 31 - 1:
+        return None
+    slab = stages * boxes * rows * 128
+    buffers = dict(q=slab, k=slab, v=slab, barriers=24 * stages, table=table, slack=1024)
+    rope_warps, attn_warps = _k7_warps(dh)
+    return dict(group=group, groups=groups, boxes=boxes, nbox=nbox, box_rows=box_rows, rows=rows,
+                stages=stages, stage_bytes=stage_bytes, table=table, items=items,
+                grid=min(items, sms), rope_warps=rope_warps, attn_warps=attn_warps,
+                threads=32 * (1 + rope_warps + attn_warps), buffers=buffers,
+                smem=sum(buffers.values()))
 
 
 def fused_rope_attention(qkv, heads, scale, rope=None):
@@ -618,46 +709,35 @@ def fused_rope_attention(qkv, heads, scale, rope=None):
     ``rope`` is the interleaved-convention (cos, sin) table pair of shape
     (n, w) with w ≤ dh (partial rotary rotates only the leading w dims);
     ``None`` skips it. CPU tensors run :func:`fused_rope_attention_plain`.
-    CUDA tensors must be bf16 and contiguous with dh in {16, 32, 64, 128}, an
-    even w, and a sequence whose q, k and v of one head fit in shared memory
-    (n up to about 530 at dh 64); anything else raises. Each call adds one to
-    ``fused_rope_attention.launches``.
+    CUDA tensors must be bf16 and contiguous, of a shape :func:`k7_plan`
+    takes (dim_head a multiple of 16 up to 128, an even w); anything else
+    raises. Each call adds one to ``fused_rope_attention.launches``.
     """
     if qkv.device.type == "cpu":
         return fused_rope_attention_plain(qkv, heads, scale, rope)
     b, n, packed = qkv.shape
     dh = packed // (3 * heads)
-    if dh not in (16, 32, 64, 128) or packed != 3 * heads * dh or b < 1 or n < 1:
-        raise ValueError(f"fused_rope_attention: unsupported packed width {packed} for "
-                         f"{heads} heads (the kernel takes dim_head 16, 32, 64 or 128)")
+    w = 0 if rope is None else rope[0].shape[-1]
+    if packed != 3 * heads * dh or k7_plan(b, n, heads, dh, w) is None:
+        raise ValueError(f"fused_rope_attention: unsupported {b} sequences of {n}, packed width "
+                         f"{packed} for {heads} heads, rotary width {w} (the kernel takes "
+                         "dim_head a multiple of 16 up to 128, an even rotary width up to "
+                         "dim_head, and sequences whose q, k and v fit in shared memory)")
     _build.check_tensor("fused_rope_attention", "qkv", qkv, (b, n, packed), torch.bfloat16)
-
-    # heads per block: 256 bytes of each packed row where the heads allow it,
-    # fewer when the three (n, group * dh) slabs would not fit in shared memory
-    def smem(group):
-        return 3 * (-(-n // 16) * 16) * (group * dh + 8) * 2
-
-    group = min(heads, max(1, 128 // dh))
-    while group > 1 and smem(group) > _SMEM_LIMIT:
-        group -= 1
-    if smem(group) > _SMEM_LIMIT:
-        raise ValueError(f"fused_rope_attention: a sequence of {n} at dim_head {dh} does not "
-                         "fit in shared memory")
     cos_p = sin_p = None
-    w = 0
     if rope is not None:
-        cos, sin = rope
-        w = cos.shape[-1]
-        if w % 2 or w > dh:
-            raise ValueError(f"fused_rope_attention: rotary width {w} must be even and <= {dh}")
-        for name, t in (("cos", cos), ("sin", sin)):
+        for name, t in zip(("cos", "sin"), rope):
             _build.check_tensor("fused_rope_attention", name, t, (n, w), torch.bfloat16)
-        cos_p, sin_p = cos.data_ptr(), sin.data_ptr()
+        cos_p, sin_p = rope[0].data_ptr(), rope[1].data_ptr()
+    plan = k7_plan(b, n, heads, dh, w,
+                   torch.cuda.get_device_properties(qkv.device).multi_processor_count)
 
     lib = _build.load("rope_attention")
     out = torch.empty((b, n, heads * dh), dtype=qkv.dtype, device=qkv.device)
     _build.check(lib.sesa_rope_attn(qkv.data_ptr(), cos_p, sin_p, out.data_ptr(), b, n, heads,
-                                    dh, group, w, float(scale),
+                                    dh, plan["group"], w, plan["nbox"], plan["box_rows"],
+                                    plan["stages"], plan["table"], plan["grid"], plan["smem"],
+                                    float(scale),
                                     torch.cuda.current_stream(qkv.device).cuda_stream),
                  "sesa_rope_attn")
     fused_rope_attention.launches += 1

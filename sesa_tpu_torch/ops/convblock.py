@@ -104,12 +104,19 @@ def k5_plan(b: int, n: int, d: int, e: int, sms: int) -> dict:
     return plan
 
 
+def conformer_conv_shape_ok(b: int, d: int, e: int, k: int) -> bool:
+    """The shapes kernel K5 takes: d and e multiples of 64, 1 to 32 taps
+    (held in registers), at most 65535 sequences. :func:`fused_conformer_conv`
+    raises on a CUDA tensor exactly where this is false."""
+    return d % 64 == 0 and e % 64 == 0 and 1 <= k <= _DW_KMAX and 1 <= b <= 65535
+
+
 def fused_conformer_conv(x, p):
     """x (b, n, d) -> x + conv_module(x) for the conformer conv params ``p``:
     kernel K5.
 
     CPU tensors run :func:`fused_conformer_conv_plain`. CUDA tensors must be
-    bf16 with d and e multiples of 64 and at most 32 taps; anything else
+    bf16 and of a shape :func:`conformer_conv_shape_ok` takes; anything else
     raises. :func:`k5_plan` plans the launches. Each call adds one to
     ``fused_conformer_conv.launches``.
     """
@@ -118,11 +125,10 @@ def fused_conformer_conv(x, p):
     b, n, d = x.shape
     w1, b1, taps, scale, shift, w2, b2 = conv_weights(p, x.dtype)
     e, k = w2.shape[1], taps.shape[0]
-    if d % 64 or e % 64 or k > _DW_KMAX or w1.shape != (2 * e, d):
-        raise ValueError(f"fused_conformer_conv: unsupported d={d}, e={e}, kernel={k} (the "
-                         "kernel takes d and e multiples of 64 and at most 32 taps)")
-    if b > 65535:
-        raise ValueError(f"fused_conformer_conv: {b} sequences of {n} exceed one launch")
+    if not conformer_conv_shape_ok(b, d, e, k) or w1.shape != (2 * e, d):
+        raise ValueError(f"fused_conformer_conv: unsupported {b} sequences, d={d}, e={e}, "
+                         f"kernel={k} (the kernel takes d and e multiples of 64, at most 32 taps "
+                         "and 65535 sequences)")
     # interleave the a and g rows of W1 (a0, g0, a1, g1, ...): each thread of
     # the GEMM epilogue then holds one (a, g) pair
     w1i = w1.reshape(2, e, d).transpose(0, 1).reshape(2 * e, d).contiguous()
@@ -196,14 +202,23 @@ def k6_gemm_grids(tokens: int, d: int, hidden: int, sms: int):
     return ff_gemm_schedule(tokens, hidden, sms)[1], ff_gemm_schedule(tokens, d, sms)[1]
 
 
+def apollo_conv_shape_ok(tokens: int, d: int, hidden: int, k: int) -> bool:
+    """The shapes kernel K6 takes: d ≤ 512 (the up product keeps W₁'s slice
+    resident) and hidden multiples of 64, an odd kernel of at most 31 taps,
+    and a token count one launch covers. :func:`fused_apollo_conv` raises on
+    a CUDA tensor exactly where this is false."""
+    return (d % 64 == 0 and d <= 512 and hidden % 64 == 0 and k % 2 == 1 and k <= 31
+            and -(-tokens // 128) <= 65535)
+
+
 def fused_apollo_conv(x, p):
     """x (b, n, d) -> x + ConvActNorm(x) for an Apollo seq_net block ``p``
     (dw_w (d, 1, k), dw_b, norm, pw1_w (4d, d), pw1_b, pw2_w (d, 4d), pw2_b,
     torch layouts): kernel K6.
 
     CPU tensors run :func:`fused_apollo_conv_plain`. CUDA tensors must be
-    bf16 with d and the hidden width multiples of 64 and an odd kernel of at
-    most 31 taps; anything else raises. Each call adds one to
+    bf16 and of a shape :func:`apollo_conv_shape_ok` takes; anything else
+    raises. Each call adds one to
     ``fused_apollo_conv.launches``.
     """
     if x.device.type == "cpu":
@@ -211,13 +226,12 @@ def fused_apollo_conv(x, p):
     b, n, d = x.shape
     w1, w2 = p["pw1_w"], p["pw2_w"]
     hidden, k = w1.shape[0], p["dw_w"].shape[-1]
-    if d % 64 or hidden % 64 or k % 2 == 0 or k > 31 or d > 512:
-        raise ValueError(f"fused_apollo_conv: unsupported d={d}, hidden={hidden}, kernel={k} "
-                         "(the kernel takes d <= 512 and hidden multiples of 64 and an odd "
-                         "kernel of at most 31 taps)")
     tokens = b * n
-    if -(-tokens // 128) > 65535:
-        raise ValueError(f"fused_apollo_conv: {b} sequences of {n} exceed one launch")
+    if not apollo_conv_shape_ok(tokens, d, hidden, k):
+        raise ValueError(f"fused_apollo_conv: unsupported {tokens} tokens, d={d}, "
+                         f"hidden={hidden}, kernel={k} (the kernel takes d <= 512 and hidden "
+                         "multiples of 64, an odd kernel of at most 31 taps and at most "
+                         f"{65535 * 128} tokens)")
     taps = p["dw_w"][:, 0, :].T.contiguous()  # (k, d)
     for name, t, shape in (("x", x, (b, n, d)), ("dw_w", taps, (k, d)), ("dw_b", p["dw_b"], (d,)),
                            ("norm", p["norm"], (d,)), ("pw1_w", w1, (hidden, d)),

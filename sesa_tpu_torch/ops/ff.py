@@ -84,13 +84,20 @@ def ff_gemm_schedule(tokens: int, n: int, sms: int):
     return tiles, min(tiles, max(1, sms // n_tiles) * n_tiles)
 
 
+def ff_shape_ok(tokens: int, dim: int, hidden: int) -> bool:
+    """The shapes kernel K2 takes: dim and hidden multiples of 64 and a token
+    count one launch covers. :func:`fused_ff_residual` raises on a CUDA
+    tensor exactly where this is false."""
+    return dim % 64 == 0 and hidden % 64 == 0 and -(-tokens // _TILE) <= 65535
+
+
 def use_fused_ff(x: torch.Tensor, w1: torch.Tensor) -> bool:
     """The gate of kernel K2 for the roformer stacks, on device, dtype and
-    shape only: a CUDA bf16 x (..., dim) with dim and hidden multiples of 64
-    and a token count one launch covers."""
-    dim, hidden = x.shape[-1], w1.shape[0]
-    return (x.device.type == "cuda" and x.dtype == torch.bfloat16 and dim % 64 == 0
-            and hidden % 64 == 0 and -(-(x.numel() // dim) // 128) <= 65535)
+    shape only: a CUDA bf16 x (..., dim) of a shape :func:`ff_shape_ok`
+    takes."""
+    dim = x.shape[-1]
+    return (x.device.type == "cuda" and x.dtype == torch.bfloat16
+            and ff_shape_ok(x.numel() // dim, dim, w1.shape[0]))
 
 
 def fused_ff_residual(x, gamma, w1, b1, w2, b2, *, beta=None, norm="rms", act="gelu",
@@ -112,11 +119,10 @@ def fused_ff_residual(x, gamma, w1, b1, w2, b2, *, beta=None, norm="rms", act="g
                                        act=act, out_scale=out_scale)
     tokens, dim = x.shape
     hidden = w1.shape[0]
-    if dim % 64 or hidden % 64:
-        raise ValueError(f"fused_ff_residual: dim {dim} and hidden {hidden} must be "
-                         "multiples of 64")
-    if -(-tokens // 128) > 65535:
-        raise ValueError(f"fused_ff_residual: {tokens} tokens exceed one launch")
+    if not ff_shape_ok(tokens, dim, hidden):
+        raise ValueError(f"fused_ff_residual: unsupported {tokens} tokens of dim {dim}, hidden "
+                         f"{hidden} (the kernel takes dim and hidden multiples of 64 and at "
+                         f"most {65535 * _TILE} tokens)")
     if norm == "ln" and beta is None:
         beta = torch.zeros_like(gamma)
     checks = [("x", x, (tokens, dim)), ("gamma", gamma, (dim,)), ("w1", w1, (hidden, dim)),

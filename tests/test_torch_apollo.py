@@ -3,7 +3,11 @@ sesa_tpu on the CPU: the plain versions against the Pallas kernels in
 interpret mode and against the unfused JAX functions, the model in f32
 against the JAX model with the same weights (through ``params_from_jax``)."""
 
+import itertools
 import json
+import math
+import os
+import re
 
 import numpy as np
 import pytest
@@ -27,7 +31,9 @@ from sesa_tpu_torch.configs import AttrDict
 from sesa_tpu_torch.convert import convert_checkpoint
 from sesa_tpu_torch.convert.from_jax import params_from_jax
 from sesa_tpu_torch.models import apollo, get_model
-from sesa_tpu_torch.ops.attention import fused_rope_attention, fused_rope_attention_plain
+from sesa_tpu_torch.ops import attention as attn_ops
+from sesa_tpu_torch.ops.attention import (fused_rope_attention, fused_rope_attention_plain,
+                                          k7_plan)
 from sesa_tpu_torch.ops.convblock import (fused_apollo_conv, fused_apollo_conv_plain,
                                           k6_gemm_grids)
 from sesa_tpu_torch.ops.ff import ff_gemm_schedule
@@ -153,10 +159,11 @@ def _rope_both(b, n, heads, dh, rot, seed, tdt=torch.float32, jdt=jnp.float32):
 
 # the cases of the JAX package's own K7 tests: no rope, full and partial
 # rotary, an odd length, a sequence beyond 128, and a batch of 13 short
-# sequences that no grouping divides
+# sequences that no grouping divides; and dim_head 48 and 96 (Apollo at
+# feature_dim 384 and 768)
 @pytest.mark.parametrize("b,n,heads,dh,rot", [
     (3, 50, 2, 16, None), (3, 40, 2, 16, 16), (3, 33, 3, 32, 8), (3, 130, 1, 64, 64),
-    (13, 12, 2, 8, None)])
+    (13, 12, 2, 8, None), (3, 33, 2, 48, 16), (2, 40, 2, 96, 96)])
 def test_k7_plain_matches_pallas_f32(b, n, heads, dh, rot):
     """f32, at the JAX test's tolerance for this kernel (atol 2e-5)."""
     got, ref = _rope_both(b, n, heads, dh, rot, n)
@@ -366,3 +373,188 @@ def test_k6_gemm_grids_cover_every_tile_once(tokens, d):
                 assert len(set(mine % n_tiles)) <= 1
                 seen[mine] += 1
             assert (seen == 1).all()
+
+
+# --------------------------------------------------------------------------
+# K7's plan and the index arithmetic of csrc/rope_attention.cu, replayed
+# --------------------------------------------------------------------------
+
+SMEM_BLOCK_MAX = 232_448  # dynamic shared memory one block may use on the H100
+# (b, n, heads, dim_head, rotary width): Apollo's shape, one token, a group
+# left partial, several boxes along n, and every dim_head the kernel takes
+K7_PLAN_CASES = [(7604, 80, 8, 32, 32), (13, 1, 3, 32, 32), (13, 12, 3, 16, 0),
+                 (13, 80, 8, 48, 48), (13, 257, 3, 64, 64), (5, 530, 2, 32, 32),
+                 (13, 80, 8, 96, 96), (13, 80, 3, 96, 32), (13, 80, 4, 80, 80),
+                 (13, 80, 8, 112, 112), (13, 50, 2, 128, 128)]
+
+
+def _k7_swz(row, col, rows):
+    """rope_attention.cu ra_swz: the byte offset in a slab of the 16-byte chunk
+    holding (row, col), col a multiple of 8."""
+    return ((col >> 6) * rows + row) * 128 + ((((col >> 3) ^ row) & 7) << 4)
+
+
+def _tma_swizzled(row, col, rows):
+    """Where TMA's 128-byte swizzle puts element (row, col) of a slab whose
+    64-column boxes of ``rows`` rows lie one after another from a 1024-byte
+    boundary: bits 4-6 of the byte offset XOR bits 7-9."""
+    off = ((col >> 6) * rows + row) * 128 + (col & 63) * 2
+    return off ^ (((off >> 7) & 7) << 4)
+
+
+@pytest.mark.parametrize("b,n,heads,dh,rot", K7_PLAN_CASES)
+def test_k7_plan_visits_every_item_and_task_once(b, n, heads, dh, rot):
+    """The persistent grid hands every (sequence, head group) item to one
+    block (i, i + grid, ...), and the attention warps' rotation, carried from
+    item to item, hands every (head, 16-query tile) task of the item to one
+    warp: each (sequence, head, query tile) once."""
+    plan = k7_plan(b, n, heads, dh, rot, 132)
+    group, groups, nc = plan["group"], plan["groups"], plan["attn_warps"]
+    assert plan["items"] == b * groups and plan["grid"] == min(plan["items"], 132)
+    assert groups == -(-heads // group)
+    assert plan["threads"] == 32 * (1 + plan["rope_warps"] + nc) <= 1024
+    qtiles = -(-n // 16)
+    seen = np.zeros((b, heads, qtiles), np.int64)
+    for block in range(min(plan["grid"], 3) if b > 100 else plan["grid"]):
+        rot_ = 0
+        for item in range(block, plan["items"], plan["grid"]):
+            seq, grp = divmod(item, groups)
+            tasks = min(group, heads - grp * group) * qtiles
+            for cw in range(nc):
+                for task in range((cw - rot_ + nc) % nc, tasks, nc):
+                    seen[seq, grp * group + task // qtiles, task % qtiles] += 1
+            rot_ = (rot_ + tasks) % nc
+    if b > 100:  # the first three blocks' items
+        mine = np.concatenate([np.arange(k, plan["items"], plan["grid"]) for k in range(3)])
+        covered = np.zeros((b, groups), bool)
+        covered[mine // groups, mine % groups] = True
+        heads_of = np.repeat(covered, group, axis=1)[:, :heads]
+        assert (seen[heads_of] == 1).all() and (seen[~heads_of] == 0).all()
+    else:
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("b,n,heads,dh,rot", K7_PLAN_CASES)
+def test_k7_plan_boxes_cover_each_head(b, n, heads, dh, rot):
+    """An item's boxes (64 columns of q, k and v each from the group's first
+    column, less those wholly past the last head; nbox boxes of box_rows
+    along n) hold every column of its heads' q, k and v and every row of the
+    sequence; its stores write exactly the group's output columns (those
+    past h·dh are clipped) and rows (past n clipped)."""
+    plan = k7_plan(b, n, heads, dh, rot, 132)
+    group, boxes, hd, width = plan["group"], plan["boxes"], heads * dh, plan["group"] * dh
+    assert width == 64 * boxes
+    n16, box_rows, nbox = -(-n // 16) * 16, plan["box_rows"], plan["nbox"]
+    assert box_rows % 8 == 0 and box_rows <= 256 and plan["rows"] == nbox * box_rows
+    assert (nbox - 1) * box_rows < n16 <= plan["rows"]
+    for grp in range(plan["groups"]):
+        nb = min(boxes, -(-(hd - grp * width) // 64))
+        for c in range(3):
+            loaded = {c * hd + grp * width + bx * 64 + j for bx in range(nb) for j in range(64)}
+            for h in range(grp * group, min(heads, (grp + 1) * group)):
+                assert set(range(c * hd + h * dh, c * hd + (h + 1) * dh)) <= loaded
+        stored = {grp * width + bx * 64 + j for bx in range(nb) for j in range(64)}
+        assert {col for col in stored if col < hd} == set(range(grp * width,
+                                                                min(hd, (grp + 1) * width)))
+
+
+@pytest.mark.parametrize("dh,heads,n", [(32, 8, 80), (48, 8, 80), (96, 3, 80), (128, 2, 50),
+                                        (16, 3, 257), (80, 4, 33), (112, 8, 12)])
+def test_k7_swizzled_addresses_are_a_bijection(dh, heads, n):
+    """The kernel's addresses against TMA's 128-byte swizzle on one stage's
+    slab: every q ldmatrix row address of a (head, 16-query tile) task is the
+    chunk TMA wrote for that (row, column), the task's rows x head columns
+    once each, each 8-lane phase in 8 distinct 16-byte bank groups; the key
+    and value offsets fixed per lane hold for every 16-row step; and the
+    output words the task writes over its q rows are a bijection onto the
+    tile, each where the TMA store reads that (row, column)."""
+    plan = k7_plan(7, n, heads, dh, dh, 132)
+    rows, width = plan["rows"], plan["group"] * dh
+    lanes = np.arange(32)
+    a_row, a_col = (lanes & 7) + ((lanes >> 3) & 1) * 8, (lanes >> 4) * 8
+    b_row, b_col = (lanes & 7) + (lanes >> 4) * 8, ((lanes >> 3) & 1) * 8
+    g, t = lanes >> 2, lanes & 3
+    for hc in range(0, width, dh):
+        for q0 in range(0, -(-n // 16) * 16, 16):
+            chunks = []
+            for kk in range(dh // 16):
+                addr = [_k7_swz(q0 + a_row[i], hc + kk * 16 + a_col[i], rows) for i in lanes]
+                assert addr == [_tma_swizzled(q0 + a_row[i], hc + kk * 16 + a_col[i], rows)
+                                for i in lanes]
+                for ph in range(4):
+                    assert len({a % 128 for a in addr[8 * ph:8 * ph + 8]}) == 8
+                chunks += addr
+            want = {_tma_swizzled(r, c, rows) for r in range(q0, q0 + 16)
+                    for c in range(hc, hc + dh, 8)}
+            assert len(chunks) == len(set(chunks)) and set(chunks) == want
+            words = [_k7_swz(q0 + g[i] + 8 * r, hc + 8 * j, rows) + 4 * t[i]
+                     for i in lanes for r in range(2) for j in range(dh // 8)]
+            assert sorted(words) == sorted(_tma_swizzled(q0 + g[i] + 8 * r,
+                                                         hc + 8 * j + 2 * t[i], rows)
+                                           for i in lanes for r in range(2)
+                                           for j in range(dh // 8))
+            assert len(set(words)) == 16 * dh // 2
+        for kr in range(0, rows - 15, 16):
+            for kk in range(dh // 16):
+                for i in lanes:
+                    koff = _k7_swz(b_row[i], hc + kk * 16 + b_col[i], rows)
+                    voff = _k7_swz(a_row[i], hc + kk * 16 + a_col[i], rows)
+                    assert koff + kr * 128 == _k7_swz(kr + b_row[i], hc + kk * 16 + b_col[i], rows)
+                    assert voff + kr * 128 == _k7_swz(kr + a_row[i], hc + kk * 16 + a_col[i], rows)
+
+
+@pytest.mark.parametrize("n", [1, 12, 80, 257, 530])
+def test_k7_plan_fits_shared_memory(n):
+    """At every dim_head the kernel takes, 1, 3 and 8 heads, with and without
+    rope: a plan exactly where one stage of the fewest heads that fill whole
+    boxes fits; its shared memory the sum of its buffers and the C side's
+    ra_smem_bytes, within a block's limit; the cos and sin tables staged
+    (rows of an odd number of 16-byte chunks) wherever one stage fits beside
+    them, else read from device memory; as many stages as fit, up to 4. Apollo's shape: 4 heads
+    a group, three stages beside the tables."""
+    for dh, heads, rot in itertools.product(range(16, 129, 16), (1, 3, 8), (0, 16)):
+        plan = k7_plan(13, n, heads, dh, rot, 132)
+        n16 = -(-n // 16) * 16
+        nbox = -(-n16 // 256)  # boxes of at most 256 rows, a multiple of 8 each
+        rows = nbox * -(-n16 // (8 * nbox)) * 8
+        g0 = 64 // math.gcd(dh, 64)
+        fewest = 3 * (g0 * dh // 64) * rows * 128 + 24 + 1024
+        assert (plan is None) == (fewest > SMEM_BLOCK_MAX)
+        if plan is None:
+            continue
+        staged = 2 * n * (-(-rot * 2 // 32) * 32 + 16) if rot else 0
+        assert plan["rows"] == rows
+        assert plan["table"] == (staged if fewest + staged <= SMEM_BLOCK_MAX else 0)
+        assert plan["smem"] == sum(plan["buffers"].values()) <= SMEM_BLOCK_MAX
+        assert plan["smem"] == plan["stages"] * (plan["stage_bytes"] + 24) + plan["table"] + 1024
+        assert plan["stages"] == min(4, (SMEM_BLOCK_MAX - 1024 - plan["table"])
+                                     // (plan["stage_bytes"] + 24))
+    apollo_plan = k7_plan(7604, 80, 8, 32, 32, 132)
+    assert {k: apollo_plan[k] for k in ("group", "boxes", "stages", "table", "items", "grid",
+                                        "smem")} == \
+        dict(group=4, boxes=2, stages=3, table=12_800, items=15208, grid=132, smem=198_216)
+
+
+def test_k7_plan_refuses_exactly_what_the_kernel_cannot_take():
+    """None for dim_head off the multiples of 16 in [16, 128], an odd rotary
+    width or one wider than dim_head, and no sequences or tokens; a plan
+    otherwise at Apollo's n. The plan's constants are the kernel's
+    (csrc/rope_attention.cu): 64-column boxes, the rope and attention warps by
+    dim_head, the shared-memory formula, the instantiated dim_heads."""
+    for dh in range(8, 145, 8):
+        for rot in (0, 2, 7, 16, dh, dh + 2):
+            ok = dh % 16 == 0 and 16 <= dh <= 128 and rot % 2 == 0 and rot <= dh
+            assert (k7_plan(3, 80, 2, dh, rot) is not None) == ok, (dh, rot)
+    assert k7_plan(0, 80, 2, 32, 32) is None and k7_plan(3, 0, 2, 32, 32) is None
+    src = open(os.path.join(os.path.dirname(apollo.__file__), "..", "csrc",
+                            "rope_attention.cu")).read()
+    assert "RA_BOX_COLS = 64;" in src and "RA_SMEM_MAX = 232448;" in src
+    assert "ROPE = DH <= 32 ? 4 : DH <= 64 ? 3 : 2;" in src
+    assert "ATTN = DH <= 32 ? 11 : DH <= 64 ? 8 : 5;" in src
+    assert [attn_ops._k7_warps(dh) for dh in (16, 32, 48, 64, 80, 128)] == \
+        [(4, 11), (4, 11), (3, 8), (3, 8), (2, 5), (2, 5)]
+    assert "stages * (3LL * boxes * rows * 128 + 24) + table + 1024" in src
+    assert "(((rot_w * 2 + 31) & ~31) + 16) / 2" in src
+    assert "2LL * n * ra_table_pitch(rot_w) * 2" in src
+    assert [int(v) for v in re.findall(r"case (\d+): launch = &launch_rope_attn<\1>", src)] == \
+        list(range(16, 129, 16))
