@@ -18,7 +18,9 @@ and prints no result line):
    f32), holds each against its plain PyTorch version on the same inputs,
    times the kernel, the plain version and a library composite (cuBLAS,
    SDPA under its fastest backend of flash, cuDNN and efficient, cuDNN, the
-   einsum scan), and computes each kernel's bound from its shapes; K1's, K2's,
+   einsum scan), and computes each kernel's bound from its shapes. K1 and K2
+   have rows at scnet_tran's shapes too (d 128 and 256, 8 heads x 64, both
+   legs: heads x dim_head above d, both routes of K1's core); K1's, K2's,
    K4's, K5's and K6's rows also give device time by kernel (K1: norm,
    projection, vr pass, core, out; K4: norm, projection, table, core, out;
    K5: norm, up, dw, down; K6: dw, up, down), K2's the composite's too. K1 is also
@@ -74,9 +76,26 @@ and prints no result line):
    dtype.
 10. profile: device time by kernel over one warm model call of the flagship,
    the mel-band conformer, apollo, the value-residual and four-stream
-   roformers and bs_mamba2
-   (torch.profiler), with the idle share read from the traced call itself;
+   roformers, bs_mamba2, scnet and scnet_tran
+   (torch.profiler), with the idle share read from the traced call itself
+   and the device time of cuDNN's LSTM and cuFFT's transforms by op;
    a launch of the retired cp.async GEMM (``gemm_nt_kernel``) fails it.
+11. scnet and bench.py's own chain: the song through ``cli.main
+   --model_type scnet`` at bench.py's ``_scnet_setup`` shape (dims 4, 32,
+   64, 128, nfft 4096, hop 1024, 6 dual-path layers, 4 stems) in bf16, with
+   no kernel launch, one model call in bf16 against f32 on the card (max
+   |err| < 0.12 x max |f32|), cuDNN's BiLSTM at SCNet's shapes in bf16 and
+   in f32 with TF32 off and on; then the chain of 6 with SCNet's vocals in
+   the flagship's place, checked as there.
+12. the rest of the slice, each through ``cli.main`` in bf16 unless said:
+   scnet_tran at the same widths (K1 and K2 on both legs of its 6 layers,
+   the dual path's shapes checked, model parity as in 7); scnet_masked, one
+   model call in bf16 against f32 (0.15); ConformerMSS at the JAX defaults
+   (2049 bins, embed 512, depth 8) and scnet_unofficial at its defaults,
+   both f32 only: no kernel launch, no prepared bf16 weights, and one chunk
+   on the card against the CPU (max |err| <= 1e-3 x max |CPU|);
+   bs_roformer_custom at the flagship widths with the FNO stage (16 modes;
+   K1 in mode 1 on every leg, K2 at depth 0), with model parity.
 
 Prints the ``kernels`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
@@ -133,6 +152,23 @@ CHUNK, OVERLAP, BATCH, SR, SONG_S = 352800, 2, 6, 44100, 60
 FRAMES, BANDS, MEL_BANDS = CHUNK // 512 + 1, 62, 60  # 690 frames; 62 / 60 bands
 TOKENS = BATCH * FRAMES * BANDS  # 256,680 tokens per flagship model call
 MEL_TOKENS = BATCH * FRAMES * MEL_BANDS  # 248,400 tokens per mel model call
+# bench.py _scnet_setup (the other keys at SCNet's defaults: bands 0.175 /
+# 0.392 / 0.433 at strides 1 / 4 / 16, 4 stems); scnet_tran adds its
+# defaults, 8 heads x 64, rope 64, depth 1
+SCNET_MODEL = dict(dims=[4, 32, 64, 128], nfft=4096, hop_size=1024, win_size=4096,
+                   normalized=True, num_dplayer=6, expand=1)
+SCNET_STEMS = ["drums", "bass", "other", "vocals"]
+# the dual path's shapes at CHUNK: 2049 bins compressed to 57 by the three
+# SD blocks; 346 frames (the chunk padded to an odd 345 hops), 174 after the
+# frame rFFT of the even layers, whose output is twice as wide (d 256)
+SCNET_BANDS, SCNET_FRAMES, SCNET_RFFT_FRAMES = 57, 346, 174
+SCNET_DIM = SCNET_MODEL["dims"][-1]
+# ConformerMSS at the JAX package's defaults (sesa_tpu/models/conformer.py:24-27)
+MSS_MODEL = dict(in_channels=2, sources=2, freq_bins=2049, embed_dim=512, depth=8,
+                 dim_head=64, heads=8, ff_mult=4, conv_expansion_factor=2, conv_kernel_size=31)
+MSS_STFT = dict(n_fft=4096, hop_length=1024)
+# bs_roformer_custom: the flagship widths with the FNO stage
+CUSTOM_MODEL = dict(FLAGSHIP_MODEL, use_fno=True, fno_modes=16)
 
 # kernels against their plain versions, both bf16 on the card: the two
 # round at the same points, but the kernels sum in another order and the
@@ -149,6 +185,13 @@ MODEL_SNR_FLOOR_DB = 20.0
 # the STFT bins away from DC and Nyquist and the frames away from the ends
 # (f32 both; they differ by the FFT libraries' rounding)
 CHAIN_FIX_SNR_FLOOR_DB = 40.0
+# a model in bf16 against the same model in f32, both on the card: max |err|
+# below this share of max |f32| (the JAX package's own bounds for the SCNet
+# family, tests/test_compute_dtype.py:65-75 and 110-130)
+SCNET_BF16_REL, SCNET_MASKED_BF16_REL = 0.12, 0.15
+# the f32-only models, one chunk on the card against the same chunk through
+# the port on the CPU: max |err| <= this share of max |CPU|
+CARD_VS_CPU_REL = 1e-3
 
 
 def log(msg):
@@ -614,6 +657,38 @@ def _k1_args(gen, b, n, d, heads, dh, rot, device):
     return args, rope
 
 
+def _k1_row(args, rope, label, key):
+    """K1 on ``args`` (from :func:`_k1_args`) against its plain version:
+    its kernel row, timed beside the plain version and the library
+    composite, with the device time by sub-kernel."""
+    import torch
+
+    from sesa_tpu_torch.ops.attention import fused_attention_block, fused_attention_block_plain
+
+    x, heads = args[0], args[6]
+    b, n, d = x.shape
+    hd = args[2].shape[0] // 3
+    dh = hd // heads
+    out = fused_attention_block(*args, rope=rope)
+    torch.cuda.synchronize()
+    err = compare(f"K1 {label} (b={b}, n={n})", out,
+                  fused_attention_block_plain(*args, rope=rope), x)
+    del out
+    tokens = b * n
+    flops = 2 * tokens * d * (3 * hd + heads + hd) + 4 * b * heads * n * n * dh
+    nbytes = 2 * (2 * tokens * d + (3 * hd + heads + hd) * d + heads + d + 2 * n * dh)
+    row = dict(name=f"fused_attention_block ({label}, b={b}, n={n})", route="cuda",
+               source="sesa_tpu_torch/csrc/attention.cu",
+               replaces="sesa_tpu/ops/attention.py:461", max_abs_err=err,
+               ms=time_ms(lambda: fused_attention_block(*args, rope=rope)),
+               plain_ms=time_ms(lambda: fused_attention_block_plain(*args, rope=rope), reps=2,
+                                warmup=1),
+               library_ms=time_ms(lambda: k1_library(*args, rope)),
+               **_bound(flops, nbytes), kernel=key)
+    log_breakdown(row, f"K1 {label}", lambda: fused_attention_block(*args, rope=rope))
+    return row
+
+
 # K4's small shapes (b, n, d, heads, dim_head, P): the mma route (n <= 64, or
 # dim_head 128) and the tiles route (n > 64 at dim_head 32 or 64), P below and
 # above n, one key tile and several
@@ -753,21 +828,38 @@ def phase_kernels(only=None):
             compare(label, out, ref, x if resid else zero)
         torch.cuda.synchronize()
 
+        # K1 at scnet_tran's shapes, both legs of its two widths: d 128 (even
+        # dual-path layers, 346 frames) and d 256 (odd layers, 174 frames after
+        # the frame rFFT), 8 heads x 64 (heads x dim_head 512 > d), full rope.
+        # The freq legs (57 bands) take the core's n <= 64 route, the time
+        # legs the other
+        for d, t in ((SCNET_DIM, SCNET_FRAMES), (2 * SCNET_DIM, SCNET_RFFT_FRAMES)):
+            for leg, b, n in (("time", BATCH * SCNET_BANDS, t), ("freq", BATCH * t, SCNET_BANDS)):
+                args, rope = _k1_args(gen, b, n, d, 8, 64, 64, dev)
+                rows.append(_k1_row(args, rope, f"scnet_tran d={d} {leg} leg", "K1scnet"))
+                del args, rope
+        torch.cuda.empty_cache()
+
     if want("K2"):
-        # K2, both forms: roformer at the flagship shape, conformer at the mel one
-        for form, tokens, d in (("rms", TOKENS, FLAGSHIP_MODEL["dim"]),
-                                ("ln", MEL_TOKENS, MELCONF_MODEL["dim"])):
+        # K2, both forms: roformer at the flagship shape, conformer at the mel
+        # one; the roformer form again at scnet_tran's two widths (every leg
+        # of one width has the same tokens: batch x bands x frames)
+        for form, tokens, d, key in (
+                ("rms", TOKENS, FLAGSHIP_MODEL["dim"], "K2"),
+                ("ln", MEL_TOKENS, MELCONF_MODEL["dim"], "K2ln"),
+                ("rms", BATCH * SCNET_BANDS * SCNET_FRAMES, SCNET_DIM, "K2scnet"),
+                ("rms", BATCH * SCNET_BANDS * SCNET_RFFT_FRAMES, 2 * SCNET_DIM, "K2scnet")):
             hidden = 4 * d
             x = torch.randn((tokens, d), generator=gen).to(dev, torch.bfloat16)
             w1, b1 = _weights(gen, (hidden, d), d, dev), _weights(gen, (hidden,), d, dev)
             w2, b2 = _weights(gen, (d, hidden), hidden, dev), _weights(gen, (d,), hidden, dev)
             args = (x, _near_one(gen, d, dev), w1, b1, w2, b2)
             if form == "rms":
-                kw, lib, label, key = {}, lambda: k2_library(*args), "rms/GELU", "K2"
+                kw, lib, label = {}, lambda: k2_library(*args), "rms/GELU"
             else:
                 beta = _weights(gen, d, 100, dev)
                 kw = dict(beta=beta, norm="ln", act="swish", out_scale=0.5)
-                lib, label, key = lambda: k2ln_library(*args, beta), "ln/SiLU/0.5", "K2ln"
+                lib, label = lambda: k2ln_library(*args, beta), "ln/SiLU/0.5"
             out = fused_ff_residual(*args, **kw)
             torch.cuda.synchronize()
             err = compare(f"K2 {label} (tokens={tokens}, d={d}, hidden={hidden})", out,
@@ -1036,14 +1128,16 @@ def _model_calls(chunk=CHUNK, batch=BATCH):
 
 
 def drive_cli(work, model_type, model_cfg, song, expected, chunk=CHUNK, batch=BATCH,
-              stem="vocals", instruments=None, k1_modes=None, compute_dtype="bf16"):
+              stem="vocals", instruments=None, k1_modes=None, compute_dtype="bf16",
+              sections=None):
     """Separate ``song`` through cli.main; check the stem written, the rescues
     and the launch counts (counters set to 0 just before, read just after);
     time a second, warm separation on the session. ``stem="vocals"`` writes a
     vocals/other config; another name leaves the training section out (the
     model then gives one stem, "restored"). ``instruments`` names the stems
     of a model that gives several. ``k1_modes`` is K1's expected count by
-    mode; K8's launches must all be of ``compute_dtype``."""
+    mode; K8's launches must all be of ``compute_dtype``. ``sections`` adds
+    config sections (ConformerMSS reads ``stft``)."""
     import numpy as np
     import torch
 
@@ -1054,7 +1148,8 @@ def drive_cli(work, model_type, model_cfg, song, expected, chunk=CHUNK, batch=BA
     write_audio(os.path.join(work, "in", "song.wav"), song, SR)
     cfg = {"audio": {"chunk_size": chunk, "num_channels": 2, "sample_rate": SR},
            "model": model_cfg,
-           "inference": {"num_overlap": OVERLAP, "batch_size": batch, "normalize": False}}
+           "inference": {"num_overlap": OVERLAP, "batch_size": batch, "normalize": False},
+           **(sections or {})}
     if instruments:
         cfg["training"] = {"instruments": list(instruments)}
     elif stem == "vocals":
@@ -1216,10 +1311,18 @@ def phase_melband(song):
     return res
 
 
+# op rows whose device time the profile reports by group: cuDNN's LSTM (its
+# weight compaction included) and cuFFT's transforms (STFT, iSTFT, the frame
+# rFFTs)
+PROFILE_OPS = {"aten::_cudnn_rnn": "lstm", "aten::_fft_r2c": "fft", "aten::_fft_c2r": "fft",
+               "aten::_fft_c2c": "fft"}
+
+
 def phase_profile(model_type, session, song, label=None):
     """Device time by kernel over one warm model call (torch.profiler). The
-    idle share is read from that one traced call: 1 - (kernel time) / (first
-    kernel's start to last kernel's end), all on the device's clock. The
+    idle share is read from that one traced call: 1 - (time some kernel runs)
+    / (first kernel's start to last kernel's end), all on the device's clock;
+    busy time sums the kernels, so it exceeds the span where they overlap. The
     profiler slows the host, so it is an upper estimate. The host wall of the
     same call without the profiler is printed beside it."""
     import torch
@@ -1258,6 +1361,16 @@ def phase_profile(model_type, session, song, label=None):
     stale = [r[2] for r in rows if "gemm_nt_kernel" in r[2]]
     if stale:
         raise RuntimeError(f"profile {model_type}: retired kernel launched: {stale}")
+    # device time of the ops that have no kernel of their own in the port:
+    # an op row's device time total covers every kernel it launched
+    op_ms = {}
+    for e in prof.key_averages():
+        group = PROFILE_OPS.get(e.key)
+        if group is not None and e.device_type == DeviceType.CPU:
+            dev_us = getattr(e, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "cuda_time_total", 0)
+            op_ms[group] = op_ms.get(group, 0.0) + dev_us / 1e3
     busy, wall = sum(r[0] for r in rows), min(walls[1:])
     sesa = sum(r[0] for r in rows if r[2].startswith(("sesa::", "void sesa::")))
     spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
@@ -1265,25 +1378,36 @@ def phase_profile(model_type, session, song, label=None):
     if not spans:
         raise RuntimeError(f"profile {model_type}: the trace holds no device kernel")
     span = (max(end for _, end in spans) - min(start for start, _ in spans)) / 1e3
-    in_span = sum(end - start for start, end in spans) / 1e3
-    idle = 1 - in_span / span
+    # the time some kernel runs: the union of the kernels' intervals (cuDNN's
+    # bidirectional LSTM runs its two directions on two streams at once)
+    covered, run_start, run_end = 0, None, None
+    for start, end in sorted(spans):
+        if run_end is None or start > run_end:
+            covered += 0 if run_end is None else run_end - run_start
+            run_start, run_end = start, end
+        else:
+            run_end = max(run_end, end)
+    idle = 1 - (covered + run_end - run_start) / 1e3 / span
     log(f"[profile {model_type}] one model call ({batch} chunks): device busy {busy:.1f} ms "
         f"({sesa:.1f} ms in the port's kernels) of a traced span of {span:.1f} ms, idle share "
         f"{idle:.3f}; host wall without the profiler {wall:.1f} ms")
+    if op_ms:
+        log("  device time by op: " + ", ".join(f"{k} {v:.2f} ms" for k, v in op_ms.items()))
     for ms, count, key in rows[:20]:
         log(f"  {ms:9.2f} ms  {count:5d}x  {key[:90]}")
-    return dict(wall_ms=wall, device_busy_ms=busy, sesa_kernels_ms=sesa,
+    return dict(wall_ms=wall, device_busy_ms=busy, sesa_kernels_ms=sesa, op_device_ms=op_ms,
                 traced_span_ms=span, idle_share=idle,
                 top=[dict(ms=ms, count=c, kernel=k[:120]) for ms, c, k in rows[:30]])
 
 
-def phase_chain(sessions, song, expected):
+def phase_chain(sessions, song, expected, first="bs_roformer", label="chain"):
     """The device-resident chain of bench.py's bench_ensemble_pipeline on the
-    loaded sessions: two vocals separations whose stems stay on the card ->
-    avg_wave ensemble + phase fix against the mix -> Apollo restoration, one
-    host copy at the end. The first run is checked (launch counts, rescues,
-    shape, finiteness, and the device ensemble + phase fix against the host
-    functions on the same stems); a second, warm run is timed."""
+    loaded sessions: two vocals separations (``first``'s and the mel-band
+    conformer's) whose stems stay on the card -> avg_wave ensemble + phase
+    fix against the mix -> Apollo restoration, one host copy at the end.
+    ``sessions`` holds those three. The first run is checked (launch counts,
+    rescues, shape, finiteness, and the device ensemble + phase fix against
+    the host functions on the same stems); a second, warm run is timed."""
     import numpy as np
     import torch
 
@@ -1292,7 +1416,7 @@ def phase_chain(sessions, song, expected):
 
     def run():
         mix = torch.from_numpy(song).cuda()
-        v1 = sessions["bs_roformer"].separate(mix, transport="device")["vocals"]
+        v1 = sessions[first].separate(mix, transport="device")["vocals"]
         v2 = sessions["mel_band_conformer"].separate(mix, transport="device")["vocals"]
         fixed = ensemble_phase_fix_device(mix, [v1, v2], SR, "avg_wave")
         restored = sessions["apollo"].separate(fixed, transport="device")["restored"]
@@ -1307,12 +1431,12 @@ def phase_chain(sessions, song, expected):
     peak = torch.cuda.max_memory_allocated()
     rescues = {mt: s.rescues for mt, s in sessions.items()}
     if out.shape != song.shape or not np.isfinite(out).all():
-        raise RuntimeError(f"chain: bad output: shape {out.shape}, "
+        raise RuntimeError(f"{label}: bad output: shape {out.shape}, "
                            f"finite {np.isfinite(out).all()}")
     if any(rescues.values()):
-        raise RuntimeError(f"chain: bf16 -> f32 rescues {rescues}")
+        raise RuntimeError(f"{label}: bf16 -> f32 rescues {rescues}")
     if launches != expected:
-        raise RuntimeError(f"chain: launches {launches}, expected {expected}")
+        raise RuntimeError(f"{label}: launches {launches}, expected {expected}")
 
     # the device function against the host pair on the same stems. The blend
     # works on wrapped angles, so a bin whose target angle is +-pi moves by
@@ -1339,10 +1463,10 @@ def phase_chain(sessions, song, expected):
     snr = float(10 * math.log10(float(hb.abs().pow(2).sum())
                                 / float((db - hb).abs().pow(2).sum())))
     close = float(((dev - host).abs() <= 1e-4).float().mean())
-    log(f"  chain: device ensemble + phase fix vs host: {snr:.1f} dB over bins 8..1016, "
+    log(f"  {label}: device ensemble + phase fix vs host: {snr:.1f} dB over bins 8..1016, "
         f"{snr_full:.1f} dB full band, {close:.4f} of samples within 1e-4")
     if not snr >= CHAIN_FIX_SNR_FLOOR_DB:
-        raise RuntimeError(f"chain: device ensemble + phase fix is {snr:.1f} dB from the host "
+        raise RuntimeError(f"{label}: device ensemble + phase fix is {snr:.1f} dB from the host "
                            f"functions, below {CHAIN_FIX_SNR_FLOOR_DB} dB")
     del v1, v2, fixed
 
@@ -1351,10 +1475,11 @@ def phase_chain(sessions, song, expected):
     run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    res = dict(launches=launches, rescues=rescues, chain_warm_s=wall, rtf_chain=SONG_S / wall,
+    res = dict(models=[first, "mel_band_conformer", "apollo"], launches=launches,
+               rescues=rescues, chain_warm_s=wall, rtf_chain=SONG_S / wall,
                peak_cuda_mem_gib=peak / 2 ** 30, phase_fix_device_vs_host_snr_db=snr,
                phase_fix_full_band_snr_db=snr_full, phase_fix_share_within_1e_4=close)
-    log(f"[chain] {json.dumps(res)}")
+    log(f"[{label}] {json.dumps(res)}")
     return res
 
 
@@ -1470,6 +1595,210 @@ def phase_new_paths(song, calls):
     return out
 
 
+def bf16_vs_f32(label, model, params, config, chunks, bound):
+    """One model call in bf16 (on the weights ``prepare`` casts once, as the
+    session does) against the same call in f32, both on the card: finite,
+    and max |err| below ``bound`` x max |f32|."""
+    import torch
+
+    with torch.inference_mode():
+        prepared = model.prepare(params, config, torch.bfloat16)
+        bf16 = model.apply(prepared, config, chunks, compute_dtype=torch.bfloat16)
+        f32 = model.apply(params, config, chunks)
+    err, scale = float((bf16 - f32).abs().max()), float(f32.abs().max())
+    res = dict(model_type=label, max_abs_err=err, f32_max=scale, rel=err / scale, bound=bound,
+               snr_bf16_vs_f32_db=snr_db(bf16, f32), finite=bool(torch.isfinite(bf16).all()))
+    log(f"[bf16 vs f32] {json.dumps(res)}")
+    if not res["finite"] or not err < bound * scale:
+        raise RuntimeError(f"{label}: bf16 is {err:.4g} from f32 (max {scale:.4g}), bound "
+                           f"{bound} x max")
+    return res
+
+
+def card_vs_cpu(label, model, params, config, song):
+    """One chunk through an f32-only model on the card and through the port
+    on the CPU: max |err| <= CARD_VS_CPU_REL x max |CPU|."""
+    import torch
+
+    from sesa_tpu_torch.tree import tree_map
+
+    chunk = _chunks(song)[:1]
+    with torch.inference_mode():
+        card = model.apply(params, config, chunk).cpu()
+        cpu = model.apply(tree_map(lambda p: p.cpu(), params), config, chunk.cpu())
+    err, scale = float((card - cpu).abs().max()), float(cpu.abs().max())
+    res = dict(model_type=label, max_abs_err=err, cpu_max=scale, rel=err / scale,
+               bound=CARD_VS_CPU_REL, finite=bool(torch.isfinite(card).all()))
+    log(f"[card vs cpu] {json.dumps(res)}")
+    if not res["finite"] or not err <= CARD_VS_CPU_REL * scale:
+        raise RuntimeError(f"{label}: the card is {err:.4g} from the CPU (max {scale:.4g})")
+    return res
+
+
+def lstm_forms():
+    """cuDNN's BiLSTM at SCNet's four shapes (batch, steps, width = hidden):
+    bf16, and f32 with TF32 off and on (``cudnn.allow_tf32``), each timed
+    and held against f32 without TF32. models/scnet.py runs f32 on inputs
+    cast from bf16, under whatever the flag is; the flag is restored."""
+    import torch
+
+    from sesa_tpu_torch.models.layers import bilstm
+
+    gen = torch.Generator().manual_seed(7)
+    saved = torch.backends.cudnn.allow_tf32
+    rows = []
+    try:
+        for leg, n, t, d in (("freq", BATCH * SCNET_FRAMES, SCNET_BANDS, SCNET_DIM),
+                             ("time", BATCH * SCNET_BANDS, SCNET_FRAMES, SCNET_DIM),
+                             ("freq", BATCH * SCNET_RFFT_FRAMES, SCNET_BANDS, 2 * SCNET_DIM),
+                             ("time", BATCH * SCNET_BANDS, SCNET_RFFT_FRAMES, 2 * SCNET_DIM)):
+            p = {dr: {k: ((torch.rand(s, generator=gen) * 2 - 1) / d ** 0.5).cuda()
+                      for k, s in (("weight_ih", (4 * d, d)), ("weight_hh", (4 * d, d)),
+                                   ("bias_ih", (4 * d,)), ("bias_hh", (4 * d,)))}
+                 for dr in ("fwd", "bwd")}
+            x = torch.randn((n, t, d), generator=gen).cuda()
+            pb = {dr: {k: w.bfloat16() for k, w in v.items()} for dr, v in p.items()}
+            xb = x.bfloat16()
+            row = dict(leg=leg, batch=n, steps=t, width=d)
+            torch.backends.cudnn.allow_tf32 = False
+            ref = bilstm(x, p)
+            for form, tf32, fn in (("bf16", False, lambda: bilstm(xb, pb)),
+                                   ("f32", False, lambda: bilstm(x, p)),
+                                   ("f32_tf32", True, lambda: bilstm(x, p))):
+                torch.backends.cudnn.allow_tf32 = tf32
+                row[f"{form}_ms"] = time_ms(fn)
+                row[f"{form}_max_abs_err"] = float((fn().float() - ref).abs().max())
+            row["ref_max"] = float(ref.abs().max())
+            rows.append(row)
+            log(f"  bilstm {leg} ({n} x {t} x {d}): " + ", ".join(
+                f"{f} {row[f + '_ms']:.3f} ms (err {row[f + '_max_abs_err']:.2g})"
+                for f in ("bf16", "f32", "f32_tf32")))
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    return rows
+
+
+def phase_scnet(song):
+    """bench.py's SCNet through cli.main in bf16 (no kernel: its BiLSTMs are
+    cuDNN's), one model call in bf16 against f32 on the card, and the profile
+    of one model call. Returns the session for the second chain."""
+    import torch
+
+    from sesa_tpu_torch.models import scnet
+
+    with tempfile.TemporaryDirectory() as work:
+        res, session = drive_cli(work, "scnet", SCNET_MODEL, song, expect(),
+                                 instruments=SCNET_STEMS)
+    if list(session._prepared) != [torch.bfloat16]:
+        raise RuntimeError(f"scnet: the session prepared {list(session._prepared)}")
+    res["bf16_vs_f32"] = bf16_vs_f32("scnet", scnet, session.params, session.config,
+                                     _chunks(song), SCNET_BF16_REL)
+    res["profile"] = phase_profile("scnet", session, song)
+    res["lstm_forms"] = lstm_forms()
+    return res, session
+
+
+def _f32_only(model_type, model_cfg, song, sections=None, instruments=None):
+    """An f32-only model (its apply takes no compute_dtype) through cli.main
+    with the CLI's default bf16 session: it must run f32 (no prepared bf16
+    weights), launch no kernel and need no rescue; then one chunk on the card
+    against the CPU."""
+    import inspect
+
+    from sesa_tpu_torch.models import get_model
+
+    model = get_model(model_type)
+    if "compute_dtype" in inspect.signature(model.apply).parameters:
+        raise RuntimeError(f"{model_type}: apply takes a compute_dtype")
+    with tempfile.TemporaryDirectory() as work:
+        res, session = drive_cli(work, model_type, model_cfg, song, expect(),
+                                 instruments=instruments, sections=sections)
+    if session._prepared:
+        raise RuntimeError(f"{model_type}: a bf16 session prepared {list(session._prepared)}")
+    res["card_vs_cpu"] = card_vs_cpu(model_type, model, session.params, session.config, song)
+    return res
+
+
+def phase_scnet_family(song, calls):
+    """scnet_tran through cli.main (K1 and K2 on both legs of its 6 dual-path
+    layers), with its sequence lengths, model parity and profile;
+    scnet_masked bf16 against f32; ConformerMSS and scnet_unofficial (f32
+    only) through cli.main in a bf16 session, each against the CPU; and
+    bs_roformer_custom with the FNO stage through cli.main, with model
+    parity. Each session is dropped before the next model loads."""
+    import torch
+
+    from sesa_tpu_torch.configs import AttrDict
+    from sesa_tpu_torch.models import scnet, scnet_masked, scnet_tran
+    from sesa_tpu_torch.tree import tree_map
+
+    out = {}
+    layers = 2 * SCNET_MODEL["num_dplayer"]  # a freq and a time transformer per layer
+    with tempfile.TemporaryDirectory() as work:
+        res, session = drive_cli(work, "scnet_tran", SCNET_MODEL, song,
+                                 expect(K1=layers * calls, K2=layers * calls),
+                                 instruments=SCNET_STEMS, k1_modes=[layers * calls, 0, 0])
+    # the (channels, bands, frames) each dual-path layer sees
+    seen, spied = [], scnet._apply_dual_path_tran
+
+    def spy(p, x, *args):
+        seen.append(tuple(x.shape[1:]))
+        return spied(p, x, *args)
+
+    scnet._apply_dual_path_tran = spy
+    try:
+        with torch.inference_mode():
+            scnet_tran.apply(session._prepared[torch.bfloat16], session.config,
+                             _chunks(song), compute_dtype=torch.bfloat16)
+    finally:
+        scnet._apply_dual_path_tran = spied
+    want = [(SCNET_DIM, SCNET_BANDS, SCNET_FRAMES),
+            (2 * SCNET_DIM, SCNET_BANDS, SCNET_RFFT_FRAMES)] * (SCNET_MODEL["num_dplayer"] // 2)
+    log(f"  scnet_tran dual-path (channels, bands, frames) by layer: {seen}")
+    if seen != want:
+        raise RuntimeError(f"scnet_tran: dual-path shapes {seen}, expected {want}")
+    res["dual_path_shapes"] = seen
+    res["parity"] = model_parity("scnet_tran", session.params, session.config, song,
+                                 with_f32=False)
+    if res["parity"]["launches"] != expect(K1=layers, K2=layers):
+        raise RuntimeError(f"scnet_tran parity: launches {res['parity']['launches']} in one "
+                           f"model call, expected {layers} each of K1 and K2")
+    res["profile"] = phase_profile("scnet_tran", session, song)
+    out["scnet_tran"] = res
+    del session
+    torch.cuda.empty_cache()
+
+    config = AttrDict({"model": SCNET_MODEL})
+    params = tree_map(lambda p: p.cuda(), scnet_masked.init(torch.Generator().manual_seed(6),
+                                                            config))
+    out["scnet_masked"] = bf16_vs_f32("scnet_masked", scnet_masked, params, config,
+                                      _chunks(song), SCNET_MASKED_BF16_REL)
+    del params
+    torch.cuda.empty_cache()
+
+    out["conformer"] = _f32_only("conformer", MSS_MODEL, song, sections={"stft": MSS_STFT},
+                                 instruments=["vocals", "other"])
+    out["scnet_unofficial"] = _f32_only("scnet_unofficial", {}, song, instruments=SCNET_STEMS)
+    torch.cuda.empty_cache()
+
+    # the experimental forward threads V from the first depth layer: K1 runs in
+    # mode 1 on every leg (with the residual at depth 0, without it after), K2
+    # only at depth 0 (later layers run ff_apply without the residual)
+    depth = CUSTOM_MODEL["depth"]
+    with tempfile.TemporaryDirectory() as work:
+        res, session = drive_cli(work, "bs_roformer_custom", CUSTOM_MODEL, song,
+                                 expect(K1=2 * depth * calls, K2=2 * calls),
+                                 k1_modes=[0, 2 * depth * calls, 0])
+    res["parity"] = model_parity("bs_roformer_custom", session.params, session.config, song,
+                                 with_f32=False)
+    if res["parity"]["launches"] != expect(K1=2 * depth, K2=2):
+        raise RuntimeError(f"bs_roformer_custom parity: launches {res['parity']['launches']}")
+    out["bs_roformer_custom"] = res
+    del session
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -1539,9 +1868,21 @@ def main(argv=None) -> int:
     out["melband"] = phase_melband(song)
     out["gates"] = phase_gates(song)
     out["profile"] = {mt: phase_profile(mt, s, song) for mt, s in sessions.items()}
+    # bench.py's own chain pair: SCNet's vocals (stem 3) and the mel-band
+    # conformer's -> ensemble + phase fix -> Apollo
+    out["scnet"], scnet_session = phase_scnet(song)
+    out["chain_scnet"] = phase_chain(
+        {"scnet": scnet_session, "mel_band_conformer": sessions["mel_band_conformer"],
+         "apollo": sessions["apollo"]}, song,
+        expect(K2=2 * blocks * calls, K4=blocks * calls, K5=blocks * calls, **apollo_counts),
+        first="scnet", label="chain_scnet")
+    log(f"  rtf_chain: {out['chain']['rtf_chain']:.2f} (bs_roformer + mel-band conformer), "
+        f"{out['chain_scnet']['rtf_chain']:.2f} (scnet + mel-band conformer)")
+    del scnet_session
     sessions.clear()
     torch.cuda.empty_cache()
     out["new_paths"] = phase_new_paths(song, calls)
+    out["scnet_family"] = phase_scnet_family(song, calls)
     out["seconds"] = time.perf_counter() - t0
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -1561,7 +1902,9 @@ def main(argv=None) -> int:
                 "K5": out["melconf"]["launches"]["K5"], "K6": out["apollo"]["launches"]["K6"],
                 "K7": out["apollo"]["launches"]["K7"],
                 "K8": runs["bs_mamba2"]["k8_launches_by_dtype"]["bf16"],
-                "K8f32": runs["bs_mamba2_f32"]["k8_launches_by_dtype"]["f32"]}
+                "K8f32": runs["bs_mamba2_f32"]["k8_launches_by_dtype"]["f32"],
+                "K1scnet": out["scnet_family"]["scnet_tran"]["launches"]["K1"],
+                "K2scnet": out["scnet_family"]["scnet_tran"]["launches"]["K2"]}
     kernels = [dict(name=r["name"], route=r["route"], source=r["source"],
                     replaces=r["replaces"], launches=launches[r["kernel"]],
                     max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],

@@ -45,8 +45,10 @@ def params_from_jax(params_np, model, config=None):
 
     ``model`` is a ``RoformerSpec`` (bs_roformer; mel_band_roformer when its
     ``mel_mlp_convention`` is set) or a model type string, with ``config``,
-    such as ``"mel_band_conformer"``, ``"apollo"``, ``"bs_mamba2"`` or
-    ``"bs_roformer_experimental"``. Raises ``ValueError``
+    such as ``"mel_band_conformer"``, ``"apollo"``, ``"bs_mamba2"``,
+    ``"bs_roformer_experimental"``, ``"bs_roformer_custom"``,
+    ``"conformer"``, ``"scnet"``, ``"scnet_tran"``, ``"scnet_masked"`` or
+    ``"scnet_unofficial"``. Raises ``ValueError``
     when the tree's keys or shapes differ from those of the port's own init.
     """
     expected = _shapes(_expected(model, config))

@@ -17,7 +17,9 @@ The experimental variants are spec fields: ``value_residual`` (config key
 first depth layer's, ``num_residual_streams > 1`` wraps attention and
 feed-forward in hyper-connections, ``experimental_forward`` selects the
 experimental Transformer.forward alone (``bs_roformer_experimental.py``).
-Not ported yet (ROADMAP queue 1): ``use_fno`` raises ``NotImplementedError``.
+``use_fno`` adds an FNO1d stage after each depth layer's freq transformer
+(``fno_modes`` lowest frames' DFT modes, full channel mixing, a pointwise
+bypass, GELU and the residual).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from sesa_tpu_torch.models import hyper_connections as HC
 from sesa_tpu_torch.models import roformer_core as core
 from sesa_tpu_torch.models.layers import rms_norm
 from sesa_tpu_torch.ops import bands as B
+from sesa_tpu_torch.ops.fft import irdft_tables, rdft_tables
 from sesa_tpu_torch.ops.prec import net_dtype
 from sesa_tpu_torch.ops.rope import default_freqs, rope_tables
 from sesa_tpu_torch.ops.stft import hann_window, istft_ri, stft_ri
@@ -131,11 +134,45 @@ def spec_from_config(model_cfg) -> RoformerSpec:
     return RoformerSpec(band_feats=feats, **cfg)
 
 
-def _check_supported(spec: RoformerSpec) -> None:
-    if spec.use_fno:
-        raise NotImplementedError(
-            "bs_roformer use_fno is not ported to sesa_tpu_torch yet (ROADMAP.md, "
-            "queue 1: the FNO variant)")
+def _fno_init(generator: torch.Generator, dim: int, modes: int):
+    s = 1.0 / dim
+    return {
+        "w_re": s * torch.randn((modes, dim, dim), generator=generator),
+        "w_im": s * torch.randn((modes, dim, dim), generator=generator),
+        "bypass_w": s * torch.randn((dim, dim), generator=generator),
+        "bypass_b": torch.zeros(dim),
+    }
+
+
+def _fno_apply(p, x: torch.Tensor) -> torch.Tensor:
+    """FNO1d stage along the frame axis: x (B, Tf, NB, D) -> the same shape
+    (sesa_tpu/models/bs_roformer.py:173-202).
+
+    A spectral convolution over the lowest ``modes`` rDFT modes of the
+    frames with full channel mixing, plus a pointwise bypass, GELU and the
+    residual. The truncated DFT is a product with the first ``modes``
+    columns (rows) of the DFT tables, rounded to x's dtype as the JAX stage
+    rounds them: in bf16 every product takes bf16 operands.
+    """
+    t = x.shape[1]
+    modes = p["w_re"].shape[0]
+    c, s = rdft_tables(t)
+    ci, si = irdft_tables(t)
+
+    def table(a):
+        return torch.as_tensor(a, device=x.device).to(x.dtype)
+
+    cm, sm, cim, sim = table(c[:, :modes]), table(s[:, :modes]), table(ci[:modes]), table(si[:modes])
+    xr = torch.einsum("btnd,tk->bknd", x, cm)
+    xi = torch.einsum("btnd,tk->bknd", x, sm)
+    yr = (torch.einsum("bknd,kde->bkne", xr, p["w_re"])
+          - torch.einsum("bknd,kde->bkne", xi, p["w_im"]))
+    yi = (torch.einsum("bknd,kde->bkne", xr, p["w_im"])
+          + torch.einsum("bknd,kde->bkne", xi, p["w_re"]))
+    spectral = (torch.einsum("bknd,kt->btnd", yr, cim)
+                + torch.einsum("bknd,kt->btnd", yi, sim))
+    bypass = x @ p["bypass_w"] + p["bypass_b"]
+    return x + torch.nn.functional.gelu(spectral + bypass)
 
 
 # --------------------------------------------------------------------------
@@ -146,7 +183,6 @@ def init_from_spec(generator: torch.Generator, spec: RoformerSpec,
                    transformer_norm_output: bool = False, final_norm: bool = True):
     """Random parameters drawn on the CPU from ``generator`` (torch-style
     fan-in uniform; the numbers differ from the JAX package's init)."""
-    _check_supported(spec)
     plan = spec.band_plan()
     layers = []
     for layer_index in range(spec.depth):
@@ -163,6 +199,8 @@ def init_from_spec(generator: torch.Generator, spec: RoformerSpec,
                 generator, spec.dim, depth, spec.heads, spec.dim_head,
                 norm_output=transformer_norm_output, value_residual=vr,
                 num_residual_streams=spec.num_residual_streams)
+        if spec.use_fno:
+            layer["fno"] = _fno_init(generator, spec.dim, spec.fno_modes)
         layers.append(layer)
     params = {
         "band_split": B.band_split_init(generator, plan, spec.dim),
@@ -194,7 +232,6 @@ def apply_from_spec(params, spec: RoformerSpec, x: torch.Tensor, compute_dtype=N
     mask estimators in bf16 (kernels K1 and K2 on CUDA) while the STFT, mask
     multiply and iSTFT stay f32.
     """
-    _check_supported(spec)
     dtype = net_dtype(compute_dtype)
     plan = spec.band_plan()
     b, ch, t = x.shape
@@ -250,6 +287,8 @@ def apply_from_spec(params, spec: RoformerSpec, x: torch.Tensor, compute_dtype=N
         z = stack(layer, "time", z, rope_time)
         z = z.permute(0, 2, 1, 3).contiguous()  # (B, Tf, NB, D): sequence = bands
         xb = stack(layer, "freq", z, rope_freq)
+        if "fno" in layer:
+            xb = _fno_apply(layer["fno"], xb)
         if spec.skip_connection:
             store.append(xb)
 
@@ -307,7 +346,6 @@ def convert_from_spec(state_dict, spec: RoformerSpec,
                       transformer_norm_output: bool = False, final_norm: bool = True):
     """Community checkpoint keys -> the port's parameter tree. Every key is
     consumed; leftovers raise."""
-    _check_supported(spec)
     plan = spec.band_plan()
     sd, used, take = _make_take(state_dict)
 
@@ -338,6 +376,12 @@ def convert_from_spec(state_dict, spec: RoformerSpec,
             take, f"layers.{d}.{j + 1}", spec.freq_transformer_depth,
             norm_output=transformer_norm_output, value_residual=vr,
             num_residual_streams=spec.num_residual_streams)
+        if spec.use_fno:
+            fno = f"layers.{d}.{j + 2}"
+            layer["fno"] = {"w_re": take(f"{fno}.weight_real"),
+                            "w_im": take(f"{fno}.weight_imag"),
+                            "bypass_w": take(f"{fno}.bypass.weight").T,
+                            "bypass_b": take(f"{fno}.bypass.bias")}
         layers.append(layer)
 
     mask_estimators = []

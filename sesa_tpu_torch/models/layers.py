@@ -55,6 +55,61 @@ def conv1d(x, weight, bias=None, stride=1, padding=0, groups=1) -> torch.Tensor:
                                       groups=groups)
 
 
+def conv2d(x, weight, bias=None, stride=(1, 1), padding=(0, 0), groups=1) -> torch.Tensor:
+    """torch nn.Conv2d on NCHW input with OIHW weight."""
+    return torch.nn.functional.conv2d(x, weight, bias, stride=tuple(stride),
+                                      padding=tuple(padding), groups=groups)
+
+
+def conv_transpose2d(x, weight, bias=None, stride=(1, 1), padding=(0, 0)) -> torch.Tensor:
+    """torch nn.ConvTranspose2d on NCHW with IOHW weight, no output padding:
+    each spatial size comes out (n - 1)·stride + kernel - 2·padding."""
+    return torch.nn.functional.conv_transpose2d(x, weight, bias, stride=tuple(stride),
+                                                padding=tuple(padding))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """torch nn.GELU default (the exact erf form)."""
+    return torch.nn.functional.gelu(x)
+
+
+def glu(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """torch nn.GLU: split in half along ``dim``, first · sigmoid(second)."""
+    a, b = x.chunk(2, dim=dim)
+    return a * torch.sigmoid(b)
+
+
+_LSTM_KEYS = ("weight_ih", "weight_hh", "bias_ih", "bias_hh")
+
+
+def _lstm(x, weights, bidirectional):
+    """torch.lstm (cuDNN on the card) over batch-first x (B, T, D) from zero
+    state; ``weights`` in nn.LSTM's flat order."""
+    h = weights[1].shape[1]
+    dirs = 2 if bidirectional else 1
+    zero = x.new_zeros((dirs, x.shape[0], h))
+    return torch.lstm(x, (zero, zero), weights, True, 1, 0.0, False, bidirectional, True)[0]
+
+
+def lstm(x: torch.Tensor, params, reverse: bool = False) -> torch.Tensor:
+    """Single-layer unidirectional LSTM over (B, T, D) -> (B, T, H), torch
+    weight layout and gate order (input, forget, cell, output): weight_ih
+    (4H, D), weight_hh (4H, H), bias_ih and bias_hh (4H,). ``reverse`` runs
+    it from the last step to the first."""
+    weights = [params[k] for k in _LSTM_KEYS]
+    if not reverse:
+        return _lstm(x, weights, False)
+    return _lstm(x.flip(1), weights, False).flip(1)
+
+
+def bilstm(x: torch.Tensor, params) -> torch.Tensor:
+    """Bidirectional LSTM: ``params`` has ``fwd`` and ``bwd`` sub-dicts; the
+    two directions' outputs are concatenated on H. One call of torch.lstm
+    runs both."""
+    weights = [params[d][k] for d in ("fwd", "bwd") for k in _LSTM_KEYS]
+    return _lstm(x, weights, True)
+
+
 def group_norm(x: torch.Tensor, params, num_groups: int, eps: float = 1e-5) -> torch.Tensor:
     """torch nn.GroupNorm on (B, C, *spatial) for any spatial rank. The
     statistics are f32 whatever the dtype of x; the normalised value is

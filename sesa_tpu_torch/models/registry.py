@@ -8,11 +8,17 @@ import importlib
 MODEL_TYPES = {
     "bs_roformer": "sesa_tpu_torch.models.bs_roformer",
     "bs_roformer_experimental": "sesa_tpu_torch.models.bs_roformer_experimental",
+    "bs_roformer_custom": "sesa_tpu_torch.models.bs_roformer_custom",
     "mel_band_roformer": "sesa_tpu_torch.models.mel_band_roformer",
     "mel_band_roformer_experimental": "sesa_tpu_torch.models.mel_band_roformer_experimental",
     "mel_band_conformer": "sesa_tpu_torch.models.mel_band_conformer",
     "apollo": "sesa_tpu_torch.models.apollo",
     "bs_mamba2": "sesa_tpu_torch.models.bs_mamba2",
+    "conformer": "sesa_tpu_torch.models.conformer",
+    "scnet": "sesa_tpu_torch.models.scnet",
+    "scnet_tran": "sesa_tpu_torch.models.scnet_tran",
+    "scnet_masked": "sesa_tpu_torch.models.scnet_masked",
+    "scnet_unofficial": "sesa_tpu_torch.models.scnet_unofficial",
 }
 
 

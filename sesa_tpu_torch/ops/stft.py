@@ -4,7 +4,8 @@ The JAX package builds its transform from DFT matrices because the TPU has
 no FFT and no complex dtype. Here the transform is ``torch.stft`` /
 ``torch.istft`` (cuFFT on the card) on complex64, while the public contract
 stays the JAX one: spectra are real tensors ``(..., F, frames, 2)`` with a
-trailing (real, imag) axis, and ``istft_ri`` takes ``length=``.
+trailing (real, imag) axis, and ``istft_ri`` takes ``length=``. The inverse
+ignores the imaginary parts of the DC and Nyquist bins, as the JAX one does.
 """
 
 from __future__ import annotations
@@ -52,7 +53,16 @@ def istft_ri(spec: torch.Tensor, n_fft: int, hop_length: int,
     f, frames = spec.shape[-3:-1]
     if f != n_fft // 2 + 1:
         raise ValueError(f"expected {n_fft // 2 + 1} freq bins, got {f}")
-    c = torch.view_as_complex(spec.reshape((-1, f, frames, 2)).float().contiguous())
+    # the imaginary parts of the DC and Nyquist bins have no real signal: the
+    # JAX transform's sine rows are zero there and pocketfft ignores them,
+    # but cuFFT's C2R at n_fft 4096 does not (a masked spectrum has them
+    # nonzero), so they are zeroed here
+    ri = spec.reshape((-1, f, frames, 2)).to(torch.float32, memory_format=torch.contiguous_format,
+                                             copy=True)
+    ri[:, 0, :, 1] = 0
+    if n_fft % 2 == 0:
+        ri[:, -1, :, 1] = 0
+    c = torch.view_as_complex(ri)
     sig = torch.istft(c, n_fft, hop_length, win_length=win_length,
                       window=window, center=center, normalized=normalized,
                       onesided=True, length=length)

@@ -5,6 +5,7 @@ its config, its weights on the device and a DemixSpec in one object whose
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
@@ -90,17 +91,24 @@ class InferenceSession:
         return int(sr)
 
     def _model_apply(self, compute_dtype):
+        """The per-chunk-batch function demix calls. A model whose ``apply``
+        takes no ``compute_dtype`` (ConformerMSS, scnet_unofficial) is called
+        without one, on the f32 weights, whatever the session's dtype
+        (sesa_tpu session.py:138-153). This is a signature check, not
+        try/except: an error raised inside a model must surface."""
         model = get_model(self.model_type)
         config, stems = self.config, self.spec.num_stems
         prepare = getattr(model, "prepare", None)
+        accepts_dtype = "compute_dtype" in inspect.signature(model.apply).parameters
+        kw = {"compute_dtype": compute_dtype} if accepts_dtype else {}
 
         def apply_fn(params, chunks):
-            if prepare is not None and params is self.params:
+            if accepts_dtype and prepare is not None and params is self.params:
                 if compute_dtype not in self._prepared:
                     self._prepared[compute_dtype] = prepare(params, config, compute_dtype)
                 params = self._prepared[compute_dtype]
             with torch.inference_mode():
-                out = model.apply(params, config, chunks, compute_dtype=compute_dtype)
+                out = model.apply(params, config, chunks, **kw)
             if out.ndim == 3:  # single-stem models may squeeze
                 out = out[:, None]
             if out.shape[1] != stems:

@@ -100,13 +100,22 @@ def test_convert_raises_on_missing_key():
 @pytest.mark.parametrize("flag", [{"use_fno": True}, {"use_value_residual_learning": True},
                                   {"num_residual_streams": 2}])
 def test_unported_variants_raise(flag):
-    """``use_fno`` is the one variant left to port and raises; the value
-    residual and the residual streams build and run."""
+    """Every variant is ported now. ``use_fno`` matches sesa_tpu's
+    bs_roformer in f32 on the same weights; the value residual and the
+    residual streams build and run."""
     cfg = AttrDict({"model": bs_model_cfg(**flag)})
     gen = torch.Generator().manual_seed(0)
     if "use_fno" in flag:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            bs_roformer.init(gen, cfg)
+        mcfg = bs_model_cfg(**flag)
+        jparams = jax_bs.init(jax.random.PRNGKey(4), ConfigDict({"model": mcfg}))
+        x = np.random.default_rng(5).standard_normal((1, 2, 1280)).astype(np.float32) * 0.1
+        ref = jax.jit(lambda p, a: jax_bs.apply(p, ConfigDict({"model": mcfg}), a))(
+            jparams, jnp.asarray(x))
+        params = params_from_jax(jax.tree.map(np.asarray, jparams),
+                                 bs_roformer.spec_from_config(mcfg))
+        assert all("fno" in layer for layer in params["layers"])
+        got = bs_roformer.apply(params, cfg, torch.from_numpy(x))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=1e-3)
         return
     params = bs_roformer.init(gen, cfg)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 2, 1280))

@@ -30,7 +30,9 @@ def test_every_module_imports_with_jax_blocked():
         "models.mel_band_conformer", "models.apollo", "postprocess", "postprocess.ensemble",
         "postprocess.phase_fixer", "apollo_processing", "audio_io", "ops.ssd",
         "models.hyper_connections", "models.bs_roformer_experimental",
-        "models.mel_band_roformer_experimental", "models.bs_mamba2")} <= names
+        "models.mel_band_roformer_experimental", "models.bs_mamba2", "ops.fft",
+        "models.conformer", "models.bs_roformer_custom", "models.scnet", "models.scnet_tran",
+        "models.scnet_masked", "models.scnet_unofficial")} <= names
 
 
 def test_sources_name_no_jax_package():
