@@ -96,6 +96,24 @@ and prints no result line):
    on the card against the CPU (max |err| <= 1e-3 x max |CPU|);
    bs_roformer_custom at the flagship widths with the FNO stage (16 modes;
    K1 in mode 1 on every leg, K2 at depth 0), with model parity.
+13. mel_band_roformer_experimental: one model call at ``_melband_setup``'s
+   widths with value residual learning, with the kernels and with their
+   plain versions (K1 in mode 1 at depth 0 and mode 2 after, K2 at depth 0),
+   parity as in 7.
+14. MDX23C and the Demucs family, none of which launches a kernel, each
+   through ``cli.main`` in bf16 with 0 rescues: mdx23c at bench.py's
+   InstVocHQ shape (n_fft 8192, dim_f 4096, 4 subbands, 5 scales of 128
+   channels growing by 128; chunks of 261,120, batch 8), one model call in
+   bf16 against f32 (0.08) and its profile;
+   experimental_mdx23c_stht at the same widths (f32 only: one chunk on the
+   card against the CPU at 1e-3); htdemucs at the htdemucs_ft shape (48
+   channels, depth 4, 5 cross-transformer layers at 512, demucs mode,
+   segment 11 s, batch 8) with its attention's token counts, bf16 against
+   f32 (0.08) and its profile; hdemucs and legacy demucs at their defaults
+   (segment 11 s), one chunk in f32 on the card against the CPU (1e-3).
+   The profiles add the device time of the convolutions, the norms and
+   htdemucs's attention (record_function scopes around them during the
+   traced call) and peak CUDA memory.
 
 Prints the ``kernels`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
@@ -169,6 +187,30 @@ MSS_MODEL = dict(in_channels=2, sources=2, freq_bins=2049, embed_dim=512, depth=
 MSS_STFT = dict(n_fft=4096, hop_length=1024)
 # bs_roformer_custom: the flagship widths with the FNO stage
 CUSTOM_MODEL = dict(FLAGSHIP_MODEL, use_fno=True, fno_modes=16)
+# bench.py bench_mdx23c, the InstVocHQ shape: n_fft 8192, dim_f 4096, 4
+# subbands, 5 scales of 128 channels growing by 128, 2 blocks a scale
+MDX_CHUNK, MDX_BATCH = 261120, 8
+MDX_AUDIO = dict(n_fft=8192, hop_length=1024, dim_f=4096, num_channels=2,
+                 chunk_size=MDX_CHUNK, sample_rate=44100)
+MDX_MODEL = dict(num_subbands=4, num_scales=5, scale=[2, 2], num_blocks_per_scale=2,
+                 num_channels=128, growth=128, bottleneck_factor=4, norm="InstanceNorm",
+                 act="gelu")
+MDX_STEMS = ["vocals", "other"]
+# bench.py bench_htdemucs, the htdemucs_ft shape: 48 channels, depth 4, nfft
+# 4096, 5 cross-transformer layers at bottom_channels 512, 8 heads; demucs
+# mode, chunks of segment x samplerate; hdemucs and legacy demucs at the JAX
+# package's defaults (sesa_tpu/models/htdemucs.py:48-62, demucs_legacy.py:41-46)
+DEMUCS_SEGMENT, DEMUCS_BATCH = 11, 8
+DEMUCS_CHUNK = DEMUCS_SEGMENT * 44100
+DEMUCS_STEMS = ["drums", "bass", "other", "vocals"]
+HT_SECTION = dict(channels=48, growth=2, nfft=4096, depth=4, kernel_size=8, stride=4,
+                  norm_starts=4, norm_groups=4, dconv_depth=2, dconv_comp=8, t_layers=5,
+                  t_heads=8, t_hidden_scale=4.0, bottom_channels=512, freq_emb=0.2, emb_scale=10)
+# the token counts of htdemucs's transformer at DEMUCS_CHUNK: 8 frequency rows
+# (2048 / 4^4) x 474 frames, and the time branch's 485,100 / 4^4 samples
+HT_FREQ_TOKENS, HT_TIME_TOKENS = 8 * 474, 1895
+# mel_band_roformer_experimental at bench.py's _melband_setup widths
+MELBAND_VR_MODEL = dict(MELBAND_MODEL, use_value_residual_learning=True)
 
 # kernels against their plain versions, both bf16 on the card: the two
 # round at the same points, but the kernels sum in another order and the
@@ -192,6 +234,9 @@ SCNET_BF16_REL, SCNET_MASKED_BF16_REL = 0.12, 0.15
 # the f32-only models, one chunk on the card against the same chunk through
 # the port on the CPU: max |err| <= this share of max |CPU|
 CARD_VS_CPU_REL = 1e-3
+# mdx23c and htdemucs in bf16 against f32 on the card: the JAX package's
+# bound (tests/test_compute_dtype.py:23-62)
+MDX_BF16_REL = HT_BF16_REL = 0.08
 
 
 def log(msg):
@@ -1121,9 +1166,10 @@ def _song(seconds):
     return (np.stack([voice + band, 0.8 * voice + band]) + noise).astype(np.float32)
 
 
-def _model_calls(chunk=CHUNK, batch=BATCH):
-    """Model calls for one SONG_S song: chunks of the padded song / batch."""
-    length = SONG_S * SR + 2 * (chunk - chunk // OVERLAP)
+def _model_calls(chunk=CHUNK, batch=BATCH, demucs_mode=False):
+    """Model calls for one SONG_S song: chunks of the padded song / batch
+    (demucs mode pads no border)."""
+    length = SONG_S * SR + (0 if demucs_mode else 2 * (chunk - chunk // OVERLAP))
     return -(-(-(-length // (chunk // OVERLAP))) // batch)
 
 
@@ -1151,7 +1197,7 @@ def drive_cli(work, model_type, model_cfg, song, expected, chunk=CHUNK, batch=BA
            "inference": {"num_overlap": OVERLAP, "batch_size": batch, "normalize": False},
            **(sections or {})}
     if instruments:
-        cfg["training"] = {"instruments": list(instruments)}
+        cfg["training"] = dict(cfg.get("training", {}), instruments=list(instruments))
     elif stem == "vocals":
         cfg["training"] = {"instruments": ["vocals", "other"], "target_instrument": "vocals"}
     cfg_path = os.path.join(work, "config.json")
@@ -1196,7 +1242,8 @@ def drive_cli(work, model_type, model_cfg, song, expected, chunk=CHUNK, batch=BA
     session.separate(song)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t1
-    res = dict(model_type=model_type, song_s=SONG_S, model_calls=_model_calls(chunk, batch),
+    res = dict(model_type=model_type, song_s=SONG_S,
+               model_calls=_model_calls(chunk, batch, session.spec.demucs_mode),
                launches=launches, k1_launches_by_mode=by_mode,
                k8_launches_by_dtype=k8_by_dtype, compute_dtype=compute_dtype, cli_wall_s=wall,
                rtf_cli=SONG_S / wall,
@@ -1216,7 +1263,9 @@ def _chunks(song, chunk=CHUNK, batch=BATCH):
 
 def _chunking(model_type):
     """(chunk, batch) of the model's driven configuration."""
-    return (APOLLO_CHUNK, APOLLO_BATCH) if model_type == "apollo" else (CHUNK, BATCH)
+    return {"apollo": (APOLLO_CHUNK, APOLLO_BATCH), "mdx23c": (MDX_CHUNK, MDX_BATCH),
+            "experimental_mdx23c_stht": (MDX_CHUNK, MDX_BATCH),
+            "htdemucs": (DEMUCS_CHUNK, DEMUCS_BATCH)}.get(model_type, (CHUNK, BATCH))
 
 
 def _plain_swaps(model_type):
@@ -1316,6 +1365,30 @@ def phase_melband(song):
 # rFFTs)
 PROFILE_OPS = {"aten::_cudnn_rnn": "lstm", "aten::_fft_r2c": "fft", "aten::_fft_c2r": "fft",
                "aten::_fft_c2c": "fft"}
+# functions that are many ops or kernels each: during the traced call each
+# runs inside a record_function scope of its group, whose time on the
+# device's timeline the profile reports (cuDNN's convolutions with their
+# layout conversions, the norms' f32 statistics, htdemucs's attention)
+PROFILE_SCOPES = {"conv": (("torch.nn.functional", "conv1d"), ("torch.nn.functional", "conv2d"),
+                           ("torch.nn.functional", "conv_transpose1d"),
+                           ("torch.nn.functional", "conv_transpose2d")),
+                  "norm": (("sesa_tpu_torch.models.layers", "instance_norm2d"),
+                           ("sesa_tpu_torch.models.layers", "batch_norm2d"),
+                           ("sesa_tpu_torch.models.layers", "group_norm"),
+                           ("sesa_tpu_torch.models.layers", "layer_norm")),
+                  "attention": (("sesa_tpu_torch.models.htdemucs", "_mha"),)}
+
+
+def _scoped(group, fn):
+    import functools
+
+    import torch
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with torch.profiler.record_function(f"scope::{group}"):
+            return fn(*args, **kwargs)
+    return run
 
 
 def phase_profile(model_type, session, song, label=None):
@@ -1337,25 +1410,45 @@ def phase_profile(model_type, session, song, label=None):
     chunks = _chunks(song, chunk, batch)
     # the weights as the session's separate hands them to the model
     params = session._prepared.get(torch.bfloat16, session.params)
+    import importlib
+
+    scoped = [(importlib.import_module(m), name, group)
+              for group, fns in PROFILE_SCOPES.items() for m, name in fns]
     with torch.inference_mode():
         walls = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         for _ in range(3):  # the first call warms up; the wall is the best of the next two
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             model.apply(params, session.config, chunks, compute_dtype=torch.bfloat16)
             torch.cuda.synchronize()
             walls.append(1e3 * (time.perf_counter() - t0))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            model.apply(params, session.config, chunks, compute_dtype=torch.bfloat16)
-            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        saved = [getattr(m, name) for m, name, _ in scoped]
+        for m, name, group in scoped:
+            setattr(m, name, _scoped(group, getattr(m, name)))
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                model.apply(params, session.config, chunks, compute_dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+        finally:
+            for (m, name, _), fn in zip(scoped, saved):
+                setattr(m, name, fn)
     # kernel events only: an aten op's device time is its kernels' time again
-    rows = []
+    # a scope leaves a range on the device's timeline as well (a user
+    # annotation of device type CUDA): its device time is the scopes' time
+    # there, and it is no kernel, so it stays out of the kernel rows and spans
+    rows, scope_ms = [], {}
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0)
         if e.device_type == DeviceType.CUDA and dev_us > 0:
-            rows.append((dev_us / 1e3, e.count, e.key))
+            if e.key.startswith("scope::"):
+                scope_ms[e.key[len("scope::"):]] = dev_us / 1e3
+            else:
+                rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     # the retired cp.async GEMM must not run on any path
     stale = [r[2] for r in rows if "gemm_nt_kernel" in r[2]]
@@ -1363,7 +1456,7 @@ def phase_profile(model_type, session, song, label=None):
         raise RuntimeError(f"profile {model_type}: retired kernel launched: {stale}")
     # device time of the ops that have no kernel of their own in the port:
     # an op row's device time total covers every kernel it launched
-    op_ms = {}
+    op_ms = dict(scope_ms)
     for e in prof.key_averages():
         group = PROFILE_OPS.get(e.key)
         if group is not None and e.device_type == DeviceType.CPU:
@@ -1374,7 +1467,8 @@ def phase_profile(model_type, session, song, label=None):
     busy, wall = sum(r[0] for r in rows), min(walls[1:])
     sesa = sum(r[0] for r in rows if r[2].startswith(("sesa::", "void sesa::")))
     spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start]
+             if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start
+             and not e.name.startswith("scope::")]
     if not spans:
         raise RuntimeError(f"profile {model_type}: the trace holds no device kernel")
     span = (max(end for _, end in spans) - min(start for start, _ in spans)) / 1e3
@@ -1390,13 +1484,14 @@ def phase_profile(model_type, session, song, label=None):
     idle = 1 - (covered + run_end - run_start) / 1e3 / span
     log(f"[profile {model_type}] one model call ({batch} chunks): device busy {busy:.1f} ms "
         f"({sesa:.1f} ms in the port's kernels) of a traced span of {span:.1f} ms, idle share "
-        f"{idle:.3f}; host wall without the profiler {wall:.1f} ms")
+        f"{idle:.3f}; host wall without the profiler {wall:.1f} ms; peak CUDA memory "
+        f"{peak / 2 ** 30:.2f} GiB")
     if op_ms:
         log("  device time by op: " + ", ".join(f"{k} {v:.2f} ms" for k, v in op_ms.items()))
     for ms, count, key in rows[:20]:
         log(f"  {ms:9.2f} ms  {count:5d}x  {key[:90]}")
     return dict(wall_ms=wall, device_busy_ms=busy, sesa_kernels_ms=sesa, op_device_ms=op_ms,
-                traced_span_ms=span, idle_share=idle,
+                traced_span_ms=span, idle_share=idle, peak_cuda_mem_gib=peak / 2 ** 30,
                 top=[dict(ms=ms, count=c, kernel=k[:120]) for ms, c, k in rows[:30]])
 
 
@@ -1615,14 +1710,14 @@ def bf16_vs_f32(label, model, params, config, chunks, bound):
     return res
 
 
-def card_vs_cpu(label, model, params, config, song):
-    """One chunk through an f32-only model on the card and through the port
-    on the CPU: max |err| <= CARD_VS_CPU_REL x max |CPU|."""
+def card_vs_cpu(label, model, params, config, song, chunk_size=CHUNK):
+    """One chunk of ``chunk_size`` through a model in f32 on the card and
+    through the port on the CPU: max |err| <= CARD_VS_CPU_REL x max |CPU|."""
     import torch
 
     from sesa_tpu_torch.tree import tree_map
 
-    chunk = _chunks(song)[:1]
+    chunk = _chunks(song, chunk_size, 1)
     with torch.inference_mode():
         card = model.apply(params, config, chunk).cpu()
         cpu = model.apply(tree_map(lambda p: p.cpu(), params), config, chunk.cpu())
@@ -1698,7 +1793,8 @@ def phase_scnet(song):
     return res, session
 
 
-def _f32_only(model_type, model_cfg, song, sections=None, instruments=None):
+def _f32_only(model_type, model_cfg, song, sections=None, instruments=None, chunk=CHUNK,
+              batch=BATCH):
     """An f32-only model (its apply takes no compute_dtype) through cli.main
     with the CLI's default bf16 session: it must run f32 (no prepared bf16
     weights), launch no kernel and need no rescue; then one chunk on the card
@@ -1712,10 +1808,12 @@ def _f32_only(model_type, model_cfg, song, sections=None, instruments=None):
         raise RuntimeError(f"{model_type}: apply takes a compute_dtype")
     with tempfile.TemporaryDirectory() as work:
         res, session = drive_cli(work, model_type, model_cfg, song, expect(),
-                                 instruments=instruments, sections=sections)
+                                 instruments=instruments, sections=sections, chunk=chunk,
+                                 batch=batch)
     if session._prepared:
         raise RuntimeError(f"{model_type}: a bf16 session prepared {list(session._prepared)}")
-    res["card_vs_cpu"] = card_vs_cpu(model_type, model, session.params, session.config, song)
+    res["card_vs_cpu"] = card_vs_cpu(model_type, model, session.params, session.config, song,
+                                     chunk)
     return res
 
 
@@ -1796,6 +1894,116 @@ def phase_scnet_family(song, calls):
     out["bs_roformer_custom"] = res
     del session
     torch.cuda.empty_cache()
+    return out
+
+
+def phase_melband_experimental(song):
+    """mel_band_roformer_experimental at _melband_setup's widths with value
+    residual learning: one model call with the kernels and with their plain
+    versions. The experimental forward threads V from depth 0: K1 in mode 1
+    (with the residual) on both legs of depth 0 and in mode 2 after it, K2
+    at depth 0 only (later layers run ff_apply without the residual)."""
+    import torch
+
+    from sesa_tpu_torch.configs import AttrDict
+    from sesa_tpu_torch.models import mel_band_roformer_experimental
+    from sesa_tpu_torch.tree import tree_map
+
+    config = AttrDict({"model": MELBAND_VR_MODEL})
+    params = mel_band_roformer_experimental.init(torch.Generator().manual_seed(8), config)
+    params = tree_map(lambda p: p.cuda(), params)
+    res = model_parity("mel_band_roformer_experimental", params, config, song, with_f32=False)
+    by_mode = list(counters()["K1"].launches_by_mode)
+    depth = MELBAND_VR_MODEL["depth"]
+    expected, modes = expect(K1=2 * depth, K2=2), [0, 2, 2 * (depth - 1)]
+    if res["launches"] != expected or by_mode != modes:
+        raise RuntimeError(f"mel_band_roformer_experimental: launches {res['launches']} by mode "
+                           f"{by_mode}, expected {expected} by mode {modes}")
+    res["k1_launches_by_mode"] = by_mode
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_mdx_demucs(song):
+    """MDX23C and the Demucs family through cli.main on the song, none of
+    which launches a kernel: mdx23c at bench.py's InstVocHQ shape (bf16
+    against f32, profile), experimental_mdx23c_stht at the same widths (f32
+    only; one chunk on the card against the CPU), htdemucs at the
+    htdemucs_ft shape in demucs mode (bf16 against f32, the transformer's
+    token counts, profile), hdemucs and legacy demucs at their defaults (one
+    chunk in f32 against the CPU). Each session is dropped before the next
+    model loads."""
+    import torch
+
+    from sesa_tpu_torch.models import htdemucs, mdx23c
+
+    from sesa_tpu_torch import cli
+
+    if cli.build_parser().get_default("model_type") != "mdx23c":
+        raise RuntimeError("the CLI's default model type is no longer mdx23c")
+    out = {}
+    mdx_sections = {"audio": MDX_AUDIO}
+    with tempfile.TemporaryDirectory() as work:
+        res, session = drive_cli(work, "mdx23c", MDX_MODEL, song, expect(),
+                                 instruments=MDX_STEMS, sections=mdx_sections,
+                                 chunk=MDX_CHUNK, batch=MDX_BATCH)
+    res["bf16_vs_f32"] = bf16_vs_f32("mdx23c", mdx23c, session.params, session.config,
+                                     _chunks(song, MDX_CHUNK, MDX_BATCH), MDX_BF16_REL)
+    res["profile"] = phase_profile("mdx23c", session, song)
+    out["mdx23c"] = res
+    del session
+    torch.cuda.empty_cache()
+
+    out["experimental_mdx23c_stht"] = _f32_only(
+        "experimental_mdx23c_stht", MDX_MODEL, song, sections=mdx_sections,
+        instruments=MDX_STEMS, chunk=MDX_CHUNK, batch=MDX_BATCH)
+    torch.cuda.empty_cache()
+
+    training = {"channels": 2, "samplerate": SR, "segment": DEMUCS_SEGMENT}
+    with tempfile.TemporaryDirectory() as work:
+        res, session = drive_cli(work, "htdemucs", "htdemucs", song, expect(),
+                                 instruments=DEMUCS_STEMS, batch=DEMUCS_BATCH,
+                                 sections={"htdemucs": HT_SECTION, "training": training})
+    if not session.spec.demucs_mode or session.spec.chunk_size != DEMUCS_CHUNK:
+        raise RuntimeError(f"htdemucs: the session's demix spec is {session.spec}")
+    # the transformer's sequences: (frequency tokens, time tokens) of each layer
+    seen, spied = [], htdemucs._mha
+
+    def spy(p, q, k, v, heads):
+        seen.append((q.shape[1], k.shape[1]))
+        return spied(p, q, k, v, heads)
+
+    htdemucs._mha = spy
+    try:
+        with torch.inference_mode():
+            htdemucs.apply(session._prepared[torch.bfloat16], session.config,
+                           _chunks(song, DEMUCS_CHUNK, 1), compute_dtype=torch.bfloat16)
+    finally:
+        htdemucs._mha = spied
+    f, t = HT_FREQ_TOKENS, HT_TIME_TOKENS
+    want = [(f, f), (t, t), (f, t), (t, f)] * 2 + [(f, f), (t, t)]
+    log(f"  htdemucs attention (query, key) tokens by call: {seen}")
+    if seen != want:
+        raise RuntimeError(f"htdemucs: attention over {seen}, expected {want}")
+    res["attention_tokens"] = seen
+    res["bf16_vs_f32"] = bf16_vs_f32("htdemucs", htdemucs, session.params, session.config,
+                                     _chunks(song, DEMUCS_CHUNK, DEMUCS_BATCH), HT_BF16_REL)
+    res["profile"] = phase_profile("htdemucs", session, song)
+    out["htdemucs"] = res
+    del session
+    torch.cuda.empty_cache()
+
+    for variant in ("hdemucs", "demucs"):
+        with tempfile.TemporaryDirectory() as work:
+            res, session = drive_cli(work, "htdemucs", variant, song, expect(),
+                                     instruments=DEMUCS_STEMS, batch=DEMUCS_BATCH,
+                                     sections={"training": training})
+        res["card_vs_cpu"] = card_vs_cpu(variant, htdemucs, session.params, session.config, song,
+                                         DEMUCS_CHUNK)
+        out[variant] = res
+        del session
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1883,6 +2091,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     out["new_paths"] = phase_new_paths(song, calls)
     out["scnet_family"] = phase_scnet_family(song, calls)
+    out["melband_experimental"] = phase_melband_experimental(song)
+    out["mdx_demucs"] = phase_mdx_demucs(song)
     out["seconds"] = time.perf_counter() - t0
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

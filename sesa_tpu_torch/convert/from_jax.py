@@ -47,8 +47,10 @@ def params_from_jax(params_np, model, config=None):
     ``mel_mlp_convention`` is set) or a model type string, with ``config``,
     such as ``"mel_band_conformer"``, ``"apollo"``, ``"bs_mamba2"``,
     ``"bs_roformer_experimental"``, ``"bs_roformer_custom"``,
-    ``"conformer"``, ``"scnet"``, ``"scnet_tran"``, ``"scnet_masked"`` or
-    ``"scnet_unofficial"``. Raises ``ValueError``
+    ``"conformer"``, ``"scnet"``, ``"scnet_tran"``, ``"scnet_masked"``,
+    ``"scnet_unofficial"``, ``"mdx23c"``, ``"experimental_mdx23c_stht"`` or
+    ``"htdemucs"`` (its config's ``model`` naming ``htdemucs``, ``hdemucs``
+    or the legacy ``demucs``). Raises ``ValueError``
     when the tree's keys or shapes differ from those of the port's own init.
     """
     expected = _shapes(_expected(model, config))

@@ -11,6 +11,7 @@ from __future__ import annotations
 import os
 from typing import Dict
 
+import numpy as np
 import torch
 
 
@@ -27,14 +28,26 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     if head.startswith((b"<!doctype", b"<html")):
         raise ValueError(f"checkpoint is an HTML page, not model weights; the URL "
                          f"probably needs the /blob/ -> /resolve/ fix: {path}")
-    obj = torch.load(path, map_location="cpu", weights_only=True)
+    sd = unwrap_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+    if not isinstance(sd, dict):
+        raise ValueError(f"unsupported checkpoint structure in {path}: {type(sd)}")
+    return sd
+
+
+def unwrap_state_dict(obj):
+    """The state dict inside a ``state`` (the demucs package's htdemucs
+    files), ``state_dict`` or ``model`` container, DataParallel ``module.``
+    prefixes stripped, numpy arrays as tensors, other entries dropped, bf16
+    as f32."""
     for key in ("state", "state_dict", "model"):
         if isinstance(obj, dict) and isinstance(obj.get(key), dict):
             obj = obj[key]
     if not isinstance(obj, dict):
-        raise ValueError(f"unsupported checkpoint structure in {path}: {type(obj)}")
+        return obj
     out = {}
     for k, v in obj.items():
+        if isinstance(v, np.ndarray):
+            v = torch.from_numpy(v)
         if not isinstance(v, torch.Tensor):
             continue  # schedulers, counters, ...
         if k.startswith("module."):
@@ -45,7 +58,8 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 
 def convert_checkpoint(model_type: str, state_dict, config):
-    """Dispatch to the model's converter."""
+    """Dispatch to the model's converter; ``state_dict`` may still be in its
+    container (an htdemucs file's ``{"state": ...}``)."""
     from sesa_tpu_torch.models import get_model
 
-    return get_model(model_type).convert_torch(state_dict, config)
+    return get_model(model_type).convert_torch(unwrap_state_dict(state_dict), config)

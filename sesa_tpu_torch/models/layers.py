@@ -68,9 +68,23 @@ def conv_transpose2d(x, weight, bias=None, stride=(1, 1), padding=(0, 0)) -> tor
                                                 padding=tuple(padding))
 
 
+def conv_transpose2d_block(x, weight) -> torch.Tensor:
+    """torch nn.ConvTranspose2d with kernel_size == stride and no bias (IOHW
+    weight): every input pixel expands to its own kernel-sized block."""
+    return conv_transpose2d(x, weight, stride=weight.shape[2:])
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """torch nn.GELU default (the exact erf form)."""
     return torch.nn.functional.gelu(x)
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
+
+
+def elu(x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
+    return torch.where(x > 0, x, alpha * (torch.exp(x) - 1.0))
 
 
 def glu(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -120,3 +134,50 @@ def group_norm(x: torch.Tensor, params, num_groups: int, eps: float = 1e-5) -> t
     y = ((xg - mean) * torch.rsqrt(var + eps)).to(x.dtype).reshape(x.shape)
     shape = (1, c) + (1,) * (x.ndim - 2)
     return y * params["weight"].reshape(shape) + params["bias"].reshape(shape)
+
+
+def instance_norm2d(x: torch.Tensor, params, eps: float = 1e-5) -> torch.Tensor:
+    """torch nn.InstanceNorm2d(affine=True) on NCHW, per sample and channel.
+    The statistics are f32 whatever the dtype of x; the normalised value is
+    rounded to x's dtype before the affine (sesa_tpu layers.instance_norm2d;
+    ``F.instance_norm`` rounds elsewhere in bf16)."""
+    xf = x.float()
+    var, mean = torch.var_mean(xf, dim=(2, 3), keepdim=True, unbiased=False)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    return y * params["weight"][None, :, None, None] + params["bias"][None, :, None, None]
+
+
+def batch_norm2d(x: torch.Tensor, params, eps: float = 1e-5) -> torch.Tensor:
+    """torch nn.BatchNorm2d in eval mode (running statistics). The folded
+    scale and shift are computed in f32, then rounded to x's dtype."""
+    scale = params["weight"].float() * torch.rsqrt(params["running_var"].float() + eps)
+    shift = params["bias"].float() - params["running_mean"].float() * scale
+    scale, shift = scale.to(x.dtype), shift.to(x.dtype)
+    return x * scale[None, :, None, None] + shift[None, :, None, None]
+
+
+def make_norm2d(norm_type: str):
+    """(apply_fn(x, params), has_params) for the reference's norm strings
+    (``BatchNorm``, ``InstanceNorm``, ``GroupNorm<g>``; anything else is the
+    identity)."""
+    if norm_type == "BatchNorm":
+        return batch_norm2d, True
+    if norm_type == "InstanceNorm":
+        return instance_norm2d, True
+    if norm_type and "GroupNorm" in norm_type:
+        g = int(norm_type.replace("GroupNorm", ""))
+        return (lambda x, p: group_norm(x, p, g)), True
+    return (lambda x, p: x), False
+
+
+def make_act(act_type: str):
+    """The activation of the reference's act strings: ``gelu``, ``relu``,
+    ``elu`` or ``elu<alpha>``."""
+    if act_type == "gelu":
+        return gelu
+    if act_type == "relu":
+        return relu
+    if act_type[:3] == "elu":
+        alpha = float(act_type.replace("elu", "")) if act_type != "elu" else 1.0
+        return lambda x: elu(x, alpha)
+    raise ValueError(f"unknown activation: {act_type}")

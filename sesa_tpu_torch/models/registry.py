@@ -19,6 +19,10 @@ MODEL_TYPES = {
     "scnet_tran": "sesa_tpu_torch.models.scnet_tran",
     "scnet_masked": "sesa_tpu_torch.models.scnet_masked",
     "scnet_unofficial": "sesa_tpu_torch.models.scnet_unofficial",
+    "mdx23c": "sesa_tpu_torch.models.mdx23c",
+    "experimental_mdx23c_stht": "sesa_tpu_torch.models.mdx23c_stht",
+    # model: htdemucs, hdemucs or demucs (the legacy net) in the config
+    "htdemucs": "sesa_tpu_torch.models.htdemucs",
 }
 
 

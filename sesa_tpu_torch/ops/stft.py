@@ -16,7 +16,7 @@ import torch
 
 from sesa_tpu_torch.ops.windows import hann_window
 
-__all__ = ["hann_window", "stft_ri", "istft_ri"]
+__all__ = ["hann_window", "stft_ri", "istft_ri", "frame_signal", "overlap_add"]
 
 
 def _window(window, win_length, n_fft, like):
@@ -25,6 +25,31 @@ def _window(window, win_length, n_fft, like):
     if window is None:
         window = torch.ones(win_length, dtype=torch.float32, device=like.device)
     return window.to(device=like.device, dtype=torch.float32), win_length
+
+
+def frame_signal(x: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
+    """Sliding frames: ``(..., T)`` -> ``(..., n_frames, frame_length)`` with
+    ``n_frames = 1 + (T - frame_length) // hop`` (a view of ``x``)."""
+    return x.unfold(-1, frame_length, hop)
+
+
+def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
+    """Overlap-add ``(B, n_frames, frame_len)`` -> ``(B, frame_len + hop *
+    (n_frames - 1))``. When ``hop`` divides the frame length this is k
+    slice-adds over a ``(B, n_frames + k - 1, hop)`` accumulator, in the
+    order the JAX function adds; other hops use ``index_add_``."""
+    b, n_frames, frame_len = frames.shape
+    if frame_len % hop == 0:
+        k = frame_len // hop
+        fr = frames.reshape(b, n_frames, k, hop)
+        acc = frames.new_zeros((b, n_frames + k - 1, hop))
+        for s in range(k):
+            acc[:, s:s + n_frames] += fr[:, :, s]
+        return acc.reshape(b, (n_frames + k - 1) * hop)
+    idx = (torch.arange(n_frames, device=frames.device)[:, None] * hop
+           + torch.arange(frame_len, device=frames.device)).reshape(-1)
+    sig = frames.new_zeros((b, frame_len + hop * (n_frames - 1)))
+    return sig.index_add_(1, idx, frames.reshape(b, n_frames * frame_len))
 
 
 def stft_ri(x: torch.Tensor, n_fft: int, hop_length: int,

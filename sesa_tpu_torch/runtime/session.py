@@ -70,21 +70,37 @@ class InferenceSession:
 
         audio_cfg = config.get("audio", {}) or {}
         inference_cfg = config.get("inference", {}) or {}
+        training_cfg = config.get("training", {}) or {}
+        # htdemucs chunks by its training segment and averages plainly
+        # (sesa_tpu session.py:87-98)
+        demucs_mode = model_type == "htdemucs"
+        if demucs_mode:
+            chunk = int(training_cfg["samplerate"] * training_cfg["segment"])
+            stems = len(training_cfg["instruments"])
+        else:
+            chunk = int(chunk_size or audio_cfg.get("chunk_size") or 352800)
+            stems = len(prefer_target_instrument(config))
         spec = DemixSpec(
-            chunk_size=int(chunk_size or audio_cfg.get("chunk_size") or 352800),
+            chunk_size=chunk,
             num_overlap=int(num_overlap or inference_cfg.get("num_overlap", 2)),
             batch_size=int(batch_size or inference_cfg.get("batch_size", 4)),
-            num_stems=len(prefer_target_instrument(config)),
+            num_stems=stems,
             num_channels=int(num_channels or audio_cfg.get("num_channels", 2)),
+            demucs_mode=demucs_mode,
         )
         return cls(model_type, config, params, spec, dev, compute_dtype)
 
     @property
     def instruments(self) -> List[str]:
+        if self.spec.demucs_mode:
+            return list(self.config.training.instruments)
         return prefer_target_instrument(self.config)
 
     @property
     def sample_rate(self) -> int:
+        """``audio.sample_rate``, else ``model.sr`` (Apollo). An htdemucs
+        config names its variant in ``model`` as a string, so without an
+        ``audio`` section this raises, as the JAX session does."""
         sr = (self.config.get("audio", {}) or {}).get("sample_rate")
         if sr is None:
             sr = (self.config.get("model", {}) or {}).get("sr", 44100)

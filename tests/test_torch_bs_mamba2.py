@@ -17,6 +17,18 @@ from sesa_tpu_torch.convert.from_jax import params_from_jax
 from sesa_tpu_torch.models import bs_mamba2, get_model, layers
 from sesa_tpu_torch.tree import tree_map
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch: with the tier-1 run's six workers on
+    eight cores, torch's thread pools spin against each other (a session
+    test of 0.5 s alone took 40 s beside five busy processes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # f32 on both sides; the sums run in different orders
 ATOL = 5e-4
 

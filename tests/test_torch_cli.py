@@ -19,6 +19,18 @@ from sesa_tpu_torch.audio_io import read_audio, write_audio
 from sesa_tpu_torch.cli import main
 from tests.test_roformer import bs_model_cfg, export_state_dict
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch: with the tier-1 run's six workers on
+    eight cores, torch's thread pools spin against each other (a session
+    test of 0.5 s alone took 40 s beside five busy processes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # f32 end to end (BASELINE.md:88), plus the FLOAT WAV round trip (exact)
 ATOL = 5e-4
 

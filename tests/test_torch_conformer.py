@@ -30,6 +30,18 @@ from sesa_tpu_torch.ops.ff import fused_ff_residual, fused_ff_residual_plain
 from sesa_tpu_torch.tree import tree_map
 from tests.oracles.layout_keygen import mel_band_conformer_state_dict
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch: with the tier-1 run's six workers on
+    eight cores, torch's thread pools spin against each other (a session
+    test of 0.5 s alone took 40 s beside five busy processes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 HI = jax.lax.Precision.HIGHEST
 # end-to-end f32 tolerance of the JAX package against its torch oracles
 # (BASELINE.md:88)

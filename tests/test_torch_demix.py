@@ -20,6 +20,18 @@ from sesa_tpu_torch.models import bs_roformer
 from sesa_tpu_torch.runtime.session import InferenceSession
 from tests.test_roformer import bs_model_cfg, export_state_dict
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch: with the tier-1 run's six workers on
+    eight cores, torch's thread pools spin against each other (a session
+    test of 0.5 s alone took 40 s beside five busy processes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # both runtime packages re-export a function named demix over the module name
 jax_demix = importlib.import_module("sesa_tpu.runtime.demix")
 port_demix = importlib.import_module("sesa_tpu_torch.runtime.demix")

@@ -34,6 +34,18 @@ from sesa_tpu_torch.ops.ff import use_fused_ff
 from sesa_tpu_torch.tree import tree_map
 from tests.test_roformer import bs_model_cfg, export_state_dict, mel_model_cfg
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch: with the tier-1 run's six workers on
+    eight cores, torch's thread pools spin against each other (a session
+    test of 0.5 s alone took 40 s beside five busy processes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL_MODEL = 5e-4  # whole models, f32 on both sides
 
 

@@ -32,7 +32,8 @@ def test_every_module_imports_with_jax_blocked():
         "models.hyper_connections", "models.bs_roformer_experimental",
         "models.mel_band_roformer_experimental", "models.bs_mamba2", "ops.fft",
         "models.conformer", "models.bs_roformer_custom", "models.scnet", "models.scnet_tran",
-        "models.scnet_masked", "models.scnet_unofficial")} <= names
+        "models.scnet_masked", "models.scnet_unofficial", "models.mdx23c",
+        "models.mdx23c_stht", "models.htdemucs", "models.demucs_legacy", "ops.wiener")} <= names
 
 
 def test_sources_name_no_jax_package():
