@@ -77,9 +77,10 @@ and prints no result line):
 10. profile: device time by kernel over one warm model call of the flagship,
    the mel-band conformer, apollo, the value-residual and four-stream
    roformers, bs_mamba2, scnet and scnet_tran
-   (torch.profiler), with the idle share read from the traced call itself
-   and the device time of cuDNN's LSTM and cuFFT's transforms by op;
-   a launch of the retired cp.async GEMM (``gemm_nt_kernel``) fails it.
+   (torch.profiler), with the idle share read from the traced call itself,
+   the kernel launches, the device time of cuFFT's transforms by op and of
+   cuDNN's LSTM by scope; a launch of the retired cp.async GEMM
+   (``gemm_nt_kernel``) fails it.
 11. scnet and bench.py's own chain: the song through ``cli.main
    --model_type scnet`` at bench.py's ``_scnet_setup`` shape (dims 4, 32,
    64, 128, nfft 4096, hop 1024, 6 dual-path layers, 4 stems) in bf16, with
@@ -114,6 +115,20 @@ and prints no result line):
    The profiles add the device time of the convolutions, the norms and
    htdemucs's attention (record_function scopes around them during the
    traced call) and peak CUDA memory.
+15. the band-split RNNs and the segmentation U-Nets, none of which
+   launches a kernel and all f32 only (a bf16 session runs them in f32 with
+   no prepared bf16 weights), each through ``cli.main`` with 0 rescues and
+   one chunk on the card against the CPU (1e-3): ``bandit`` and
+   ``bandit_v2`` at the mus64 widths of the registry's CINEMATIC configs (3
+   stems, 64 bands, 12 seq-band modules, emb 128, rnn 256; the CPU leg on a
+   quarter chunk) and VitLarge23 (``segm_models`` with
+   ``tu-maxvit_large_tf_512``, n_fft 8192, hop 512, dim_f 4096, 8 subbands,
+   128 channels; chunks of 261,632, batch 4), with the profile of one model
+   call of bandit_v2 and VitLarge23 (cuDNN's LSTM, the bandits' per-band
+   loops, the convolutions, the norms and MaxViT's partition attention by
+   scope, kernel launches per call); then ``torchseg`` with resnet50 and
+   ``segm_models`` with efficientnet-b3 at VitLarge23's shell widths, one
+   chunk each on the card against the CPU.
 
 Prints the ``kernels`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
@@ -211,6 +226,32 @@ HT_SECTION = dict(channels=48, growth=2, nfft=4096, depth=4, kernel_size=8, stri
 HT_FREQ_TOKENS, HT_TIME_TOKENS = 8 * 474, 1895
 # mel_band_roformer_experimental at bench.py's _melband_setup widths
 MELBAND_VR_MODEL = dict(MELBAND_MODEL, use_value_residual_learning=True)
+# BandIt v1 and v2 at the JAX package's defaults, the mus64 layout of the
+# registry's CINEMATIC configs (sesa_tpu/models/bandit.py:25-33,
+# bandit_v2.py:74-79): mono channels folded into the batch, 64 musical bands,
+# 12 seq-band modules (24 BiLSTMs), emb 128, rnn 256, mlp 512
+BANDIT_MODEL = dict(stems=["speech", "music", "effects"], n_bands=64, n_sqm_modules=12,
+                    emb_dim=128, rnn_dim=256, mlp_dim=512, n_fft=2048, win_length=2048,
+                    hop_length=512, fs=44100)
+BANDIT_STEMS = BANDIT_MODEL["stems"]
+# the bandits' card-vs-CPU check runs a quarter chunk (173 frames) at the same
+# widths: a whole chunk's 24 BiLSTMs take tens of seconds on the CPU
+BANDIT_CPU_CHUNK = CHUNK // 4
+# VOCALS-VitLarge23: config_vocals_segm_models.yaml of ZFTurbo's
+# Music-Source-Separation-Training (the file the registry entry names):
+# n_fft 8192, hop 512, dim_f 4096, chunks of 512 frames; 8 subbands, 128
+# channels, timm's MaxViT-Large at 512 (dims 128 / 256 / 512 / 1024, depths 2
+# / 6 / 14 / 2, partition 16) and smp's Unet decoder; target vocals
+SEGM_CHUNK, SEGM_BATCH = 261632, 4
+SEGM_AUDIO = dict(n_fft=8192, hop_length=512, dim_f=4096, num_channels=2,
+                  chunk_size=SEGM_CHUNK, sample_rate=44100)
+SEGM_MODEL = dict(num_subbands=8, num_channels=128, act="gelu",
+                  encoder_name="tu-maxvit_large_tf_512", decoder_type="unet")
+SEGM_DECODER = dict(decoder_channels=[256, 128, 64, 32, 16])
+# the other two native encoder zoos at VitLarge23's shell widths, one chunk
+# each on the card against the CPU: (label, model type, encoder)
+SEGM_ENCODERS = (("torchseg_resnet50", "torchseg", "resnet50"),
+                 ("segm_models_efficientnet_b3", "segm_models", "efficientnet-b3"))
 
 # kernels against their plain versions, both bf16 on the card: the two
 # round at the same points, but the kernels sum in another order and the
@@ -1265,7 +1306,8 @@ def _chunking(model_type):
     """(chunk, batch) of the model's driven configuration."""
     return {"apollo": (APOLLO_CHUNK, APOLLO_BATCH), "mdx23c": (MDX_CHUNK, MDX_BATCH),
             "experimental_mdx23c_stht": (MDX_CHUNK, MDX_BATCH),
-            "htdemucs": (DEMUCS_CHUNK, DEMUCS_BATCH)}.get(model_type, (CHUNK, BATCH))
+            "htdemucs": (DEMUCS_CHUNK, DEMUCS_BATCH),
+            "segm_models": (SEGM_CHUNK, SEGM_BATCH)}.get(model_type, (CHUNK, BATCH))
 
 
 def _plain_swaps(model_type):
@@ -1360,23 +1402,29 @@ def phase_melband(song):
     return res
 
 
-# op rows whose device time the profile reports by group: cuDNN's LSTM (its
-# weight compaction included) and cuFFT's transforms (STFT, iSTFT, the frame
-# rFFTs)
-PROFILE_OPS = {"aten::_cudnn_rnn": "lstm", "aten::_fft_r2c": "fft", "aten::_fft_c2r": "fft",
-               "aten::_fft_c2c": "fft"}
+# op rows whose device time the profile reports by group: cuFFT's transforms
+# (STFT, iSTFT, the frame rFFTs)
+PROFILE_OPS = {"aten::_fft_r2c": "fft", "aten::_fft_c2r": "fft", "aten::_fft_c2c": "fft"}
 # functions that are many ops or kernels each: during the traced call each
 # runs inside a record_function scope of its group, whose time on the
-# device's timeline the profile reports (cuDNN's convolutions with their
-# layout conversions, the norms' f32 statistics, htdemucs's attention)
-PROFILE_SCOPES = {"conv": (("torch.nn.functional", "conv1d"), ("torch.nn.functional", "conv2d"),
+# device's timeline the profile reports (cuDNN's LSTM with its weight
+# compaction, cuDNN's convolutions with their layout conversions, the norms'
+# f32 statistics, htdemucs's and MaxViT's attention, the bandits' per-band
+# loops of band split and mask heads). An op row's device time total is no
+# measure for these: it counted cuDNN's convolutions twice, and gave
+# bandit_v2's LSTM 75.7 s in a model call of 1.07 s busy
+PROFILE_SCOPES = {"lstm": (("sesa_tpu_torch.models.layers", "_lstm"),),
+                  "bands": (("sesa_tpu_torch.models.bandit_v2", "band_split"),
+                            ("sesa_tpu_torch.models.bandit_v2", "mask_head")),
+                  "conv": (("torch.nn.functional", "conv1d"), ("torch.nn.functional", "conv2d"),
                            ("torch.nn.functional", "conv_transpose1d"),
                            ("torch.nn.functional", "conv_transpose2d")),
                   "norm": (("sesa_tpu_torch.models.layers", "instance_norm2d"),
                            ("sesa_tpu_torch.models.layers", "batch_norm2d"),
                            ("sesa_tpu_torch.models.layers", "group_norm"),
                            ("sesa_tpu_torch.models.layers", "layer_norm")),
-                  "attention": (("sesa_tpu_torch.models.htdemucs", "_mha"),)}
+                  "attention": (("sesa_tpu_torch.models.htdemucs", "_mha"),
+                                ("sesa_tpu_torch.models.maxvit_unet", "_partition_attn"))}
 
 
 def _scoped(group, fn):
@@ -1391,13 +1439,28 @@ def _scoped(group, fn):
     return run
 
 
+def _union_us(intervals):
+    """Length of the union of (start, end) intervals."""
+    total, run_start, run_end = 0, None, None
+    for start, end in sorted(intervals):
+        if run_end is None or start > run_end:
+            total += 0 if run_end is None else run_end - run_start
+            run_start, run_end = start, end
+        else:
+            run_end = max(run_end, end)
+    return total + (0 if run_end is None else run_end - run_start)
+
+
 def phase_profile(model_type, session, song, label=None):
     """Device time by kernel over one warm model call (torch.profiler). The
     idle share is read from that one traced call: 1 - (time some kernel runs)
     / (first kernel's start to last kernel's end), all on the device's clock;
     busy time sums the kernels, so it exceeds the span where they overlap. The
     profiler slows the host, so it is an upper estimate. The host wall of the
-    same call without the profiler is printed beside it."""
+    same call without the profiler is printed beside it. A model whose apply
+    takes no compute_dtype runs as the session runs it, in f32."""
+    import inspect
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1408,8 +1471,10 @@ def phase_profile(model_type, session, song, label=None):
     chunk, batch = _chunking(model_type)
     model_type = label or model_type
     chunks = _chunks(song, chunk, batch)
-    # the weights as the session's separate hands them to the model
+    # the weights and dtype as the session's separate hands them to the model
     params = session._prepared.get(torch.bfloat16, session.params)
+    kw = ({"compute_dtype": torch.bfloat16}
+          if "compute_dtype" in inspect.signature(model.apply).parameters else {})
     import importlib
 
     scoped = [(importlib.import_module(m), name, group)
@@ -1421,7 +1486,7 @@ def phase_profile(model_type, session, song, label=None):
         for _ in range(3):  # the first call warms up; the wall is the best of the next two
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            model.apply(params, session.config, chunks, compute_dtype=torch.bfloat16)
+            model.apply(params, session.config, chunks, **kw)
             torch.cuda.synchronize()
             walls.append(1e3 * (time.perf_counter() - t0))
         peak = torch.cuda.max_memory_allocated()
@@ -1430,7 +1495,7 @@ def phase_profile(model_type, session, song, label=None):
             setattr(m, name, _scoped(group, getattr(m, name)))
         try:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                model.apply(params, session.config, chunks, compute_dtype=torch.bfloat16)
+                model.apply(params, session.config, chunks, **kw)
                 torch.cuda.synchronize()
         finally:
             for (m, name, _), fn in zip(scoped, saved):
@@ -1439,24 +1504,27 @@ def phase_profile(model_type, session, song, label=None):
     # a scope leaves a range on the device's timeline as well (a user
     # annotation of device type CUDA): its device time is the scopes' time
     # there, and it is no kernel, so it stays out of the kernel rows and spans
-    rows, scope_ms = [], {}
+    rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0)
-        if e.device_type == DeviceType.CUDA and dev_us > 0:
-            if e.key.startswith("scope::"):
-                scope_ms[e.key[len("scope::"):]] = dev_us / 1e3
-            else:
-                rows.append((dev_us / 1e3, e.count, e.key))
+        if e.device_type == DeviceType.CUDA and dev_us > 0 and not e.key.startswith("scope::"):
+            rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     # the retired cp.async GEMM must not run on any path
     stale = [r[2] for r in rows if "gemm_nt_kernel" in r[2]]
     if stale:
         raise RuntimeError(f"profile {model_type}: retired kernel launched: {stale}")
-    # device time of the ops that have no kernel of their own in the port:
+    # a scope group's time: the union of its ranges on the device's timeline
+    # (cuDNN's bidirectional LSTM leaves a range on each of its two streams)
+    scopes = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.name.startswith("scope::"):
+            scopes.setdefault(e.name[len("scope::"):], []).append(
+                (e.time_range.start, e.time_range.end))
+    op_ms = {group: _union_us(ranges) / 1e3 for group, ranges in scopes.items()}
     # an op row's device time total covers every kernel it launched
-    op_ms = dict(scope_ms)
     for e in prof.key_averages():
         group = PROFILE_OPS.get(e.key)
         if group is not None and e.device_type == DeviceType.CPU:
@@ -1465,6 +1533,7 @@ def phase_profile(model_type, session, song, label=None):
                 dev_us = getattr(e, "cuda_time_total", 0)
             op_ms[group] = op_ms.get(group, 0.0) + dev_us / 1e3
     busy, wall = sum(r[0] for r in rows), min(walls[1:])
+    launches = sum(r[1] for r in rows)
     sesa = sum(r[0] for r in rows if r[2].startswith(("sesa::", "void sesa::")))
     spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
              if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start
@@ -1474,24 +1543,19 @@ def phase_profile(model_type, session, song, label=None):
     span = (max(end for _, end in spans) - min(start for start, _ in spans)) / 1e3
     # the time some kernel runs: the union of the kernels' intervals (cuDNN's
     # bidirectional LSTM runs its two directions on two streams at once)
-    covered, run_start, run_end = 0, None, None
-    for start, end in sorted(spans):
-        if run_end is None or start > run_end:
-            covered += 0 if run_end is None else run_end - run_start
-            run_start, run_end = start, end
-        else:
-            run_end = max(run_end, end)
-    idle = 1 - (covered + run_end - run_start) / 1e3 / span
+    covered = _union_us(spans) / 1e3
+    idle = 1 - covered / span
     log(f"[profile {model_type}] one model call ({batch} chunks): device busy {busy:.1f} ms "
         f"({sesa:.1f} ms in the port's kernels) of a traced span of {span:.1f} ms, idle share "
-        f"{idle:.3f}; host wall without the profiler {wall:.1f} ms; peak CUDA memory "
-        f"{peak / 2 ** 30:.2f} GiB")
+        f"{idle:.3f}; {launches} kernel launches; host wall without the profiler {wall:.1f} ms; "
+        f"peak CUDA memory {peak / 2 ** 30:.2f} GiB")
     if op_ms:
         log("  device time by op: " + ", ".join(f"{k} {v:.2f} ms" for k, v in op_ms.items()))
     for ms, count, key in rows[:20]:
         log(f"  {ms:9.2f} ms  {count:5d}x  {key[:90]}")
-    return dict(wall_ms=wall, device_busy_ms=busy, sesa_kernels_ms=sesa, op_device_ms=op_ms,
-                traced_span_ms=span, idle_share=idle, peak_cuda_mem_gib=peak / 2 ** 30,
+    return dict(wall_ms=wall, device_busy_ms=busy, device_covered_ms=covered, sesa_kernels_ms=sesa,
+                op_device_ms=op_ms, traced_span_ms=span, idle_share=idle, kernel_launches=launches,
+                peak_cuda_mem_gib=peak / 2 ** 30,
                 top=[dict(ms=ms, count=c, kernel=k[:120]) for ms, c, k in rows[:30]])
 
 
@@ -1794,11 +1858,12 @@ def phase_scnet(song):
 
 
 def _f32_only(model_type, model_cfg, song, sections=None, instruments=None, chunk=CHUNK,
-              batch=BATCH):
+              batch=BATCH, cpu_chunk=None, profile=False):
     """An f32-only model (its apply takes no compute_dtype) through cli.main
     with the CLI's default bf16 session: it must run f32 (no prepared bf16
-    weights), launch no kernel and need no rescue; then one chunk on the card
-    against the CPU."""
+    weights), launch no kernel and need no rescue; then one chunk (of
+    ``cpu_chunk`` samples if given) on the card against the CPU, and with
+    ``profile`` the profile of one model call."""
     import inspect
 
     from sesa_tpu_torch.models import get_model
@@ -1813,7 +1878,9 @@ def _f32_only(model_type, model_cfg, song, sections=None, instruments=None, chun
     if session._prepared:
         raise RuntimeError(f"{model_type}: a bf16 session prepared {list(session._prepared)}")
     res["card_vs_cpu"] = card_vs_cpu(model_type, model, session.params, session.config, song,
-                                     chunk)
+                                     cpu_chunk or chunk)
+    if profile:
+        res["profile"] = phase_profile(model_type, session, song)
     return res
 
 
@@ -2007,6 +2074,61 @@ def phase_mdx_demucs(song):
     return out
 
 
+def phase_bandit_segm(song):
+    """The band-split RNNs and the segmentation U-Nets, none of which
+    launches a kernel and all f32 only, each through cli.main in a bf16
+    session with 0 rescues and one chunk on the card against the CPU: bandit
+    and bandit_v2 at the mus64 widths (a quarter chunk against the CPU) and
+    VitLarge23 (segm_models, MaxViT-Large); with the profile of one model
+    call of bandit_v2 and VitLarge23 (cuDNN's LSTM, the per-band loops, conv,
+    norm and attention time, the LSTM's share of device busy, launches per
+    call). Then the resnet50 (torchseg) and efficientnet-b3 (segm_models)
+    U-Nets at VitLarge23's shell widths, one chunk each on the card against
+    the CPU. Each model is dropped before the next loads."""
+    import torch
+
+    from sesa_tpu_torch.configs import AttrDict
+    from sesa_tpu_torch.models import get_model
+    from sesa_tpu_torch.tree import tree_map
+
+    out = {}
+    for model_type in ("bandit", "bandit_v2"):
+        out[model_type] = _f32_only(model_type, BANDIT_MODEL, song, instruments=BANDIT_STEMS,
+                                    cpu_chunk=BANDIT_CPU_CHUNK,
+                                    profile=model_type == "bandit_v2")
+        torch.cuda.empty_cache()
+    out["segm_models"] = _f32_only(
+        "segm_models", SEGM_MODEL, song, chunk=SEGM_CHUNK, batch=SEGM_BATCH, profile=True,
+        sections={"audio": SEGM_AUDIO, "decoder_unet": SEGM_DECODER})
+    torch.cuda.empty_cache()
+    for label in ("bandit", "bandit_v2", "segm_models"):
+        res = out[label]
+        line = (f"  {label}: rtf_cli {res['rtf_cli']:.2f}, rtf_warm {res['rtf_warm']:.2f}, "
+                f"peak CUDA memory {res['peak_cuda_mem_gib']:.2f} GiB, card vs CPU "
+                f"{res['card_vs_cpu']['rel']:.3g} of max")
+        if "profile" in res:
+            # the LSTM's time on the device's timeline over the time some kernel runs
+            prof = res["profile"]
+            prof["lstm_share"] = prof["op_device_ms"].get("lstm", 0.0) / prof["device_covered_ms"]
+            line += (f"; a model call: {prof['kernel_launches']} launches, device busy "
+                     f"{prof['device_busy_ms']:.1f} ms (kernels' sum; covered "
+                     f"{prof['device_covered_ms']:.1f} ms), LSTM share {prof['lstm_share']:.3f}, "
+                     f"idle share {prof['idle_share']:.3f}")
+        log(line)
+
+    for label, model_type, encoder in SEGM_ENCODERS:
+        config = AttrDict({"audio": SEGM_AUDIO, "model": dict(SEGM_MODEL, encoder_name=encoder),
+                           "decoder_unet": SEGM_DECODER,
+                           "training": {"instruments": ["vocals", "other"],
+                                        "target_instrument": "vocals"}})
+        model = get_model(model_type)
+        params = tree_map(lambda p: p.cuda(), model.init(torch.Generator().manual_seed(9), config))
+        out[label] = card_vs_cpu(label, model, params, config, song, SEGM_CHUNK)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -2093,6 +2215,7 @@ def main(argv=None) -> int:
     out["scnet_family"] = phase_scnet_family(song, calls)
     out["melband_experimental"] = phase_melband_experimental(song)
     out["mdx_demucs"] = phase_mdx_demucs(song)
+    out["bandit_segm"] = phase_bandit_segm(song)
     out["seconds"] = time.perf_counter() - t0
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -20,11 +20,14 @@ import time
 
 import torch
 
+from sesa_tpu_torch.models.registry import MODEL_TYPES
+
 
 def build_parser() -> argparse.ArgumentParser:
     # flags mirror reference inference.py:159-181
     p = argparse.ArgumentParser(description="Audio source separation on the GPU")
-    p.add_argument("--model_type", type=str, default="mdx23c")
+    p.add_argument("--model_type", type=str, default="mdx23c",
+                   help="the ported model types: " + ", ".join(sorted(MODEL_TYPES)))
     p.add_argument("--config_path", type=str, required=True)
     p.add_argument("--start_check_point", type=str, default="")
     p.add_argument("--input_folder", type=str, default=None)

@@ -48,9 +48,12 @@ def params_from_jax(params_np, model, config=None):
     such as ``"mel_band_conformer"``, ``"apollo"``, ``"bs_mamba2"``,
     ``"bs_roformer_experimental"``, ``"bs_roformer_custom"``,
     ``"conformer"``, ``"scnet"``, ``"scnet_tran"``, ``"scnet_masked"``,
-    ``"scnet_unofficial"``, ``"mdx23c"``, ``"experimental_mdx23c_stht"`` or
+    ``"scnet_unofficial"``, ``"mdx23c"``, ``"experimental_mdx23c_stht"``,
     ``"htdemucs"`` (its config's ``model`` naming ``htdemucs``, ``hdemucs``
-    or the legacy ``demucs``). Raises ``ValueError``
+    or the legacy ``demucs``), ``"bandit"``, ``"bandit_v2"``,
+    ``"segm_models"`` or ``"torchseg"`` (the MaxViT, ResNet or EfficientNet
+    U-Net its config's ``model.encoder_name`` names, else the fallback conv
+    U-Net). Raises ``ValueError``
     when the tree's keys or shapes differ from those of the port's own init.
     """
     expected = _shapes(_expected(model, config))

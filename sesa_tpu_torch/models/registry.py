@@ -23,6 +23,11 @@ MODEL_TYPES = {
     "experimental_mdx23c_stht": "sesa_tpu_torch.models.mdx23c_stht",
     # model: htdemucs, hdemucs or demucs (the legacy net) in the config
     "htdemucs": "sesa_tpu_torch.models.htdemucs",
+    "bandit": "sesa_tpu_torch.models.bandit",
+    "bandit_v2": "sesa_tpu_torch.models.bandit_v2",
+    # the encoder zoo follows config.model.encoder_name
+    "segm_models": "sesa_tpu_torch.models.segm_models",
+    "torchseg": "sesa_tpu_torch.models.segm_models",
 }
 
 

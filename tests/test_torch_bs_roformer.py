@@ -131,10 +131,11 @@ def test_registry_knows_only_ported_models():
     assert get_model("bs_roformer") is bs_roformer
     assert get_model("mel_band_roformer") is mel_band_roformer
     assert get_model("mel_band_conformer") is mel_band_conformer
-    for key in ("mdx23c", "experimental_mdx23c_stht", "htdemucs"):
+    for key in ("mdx23c", "experimental_mdx23c_stht", "htdemucs", "bandit", "bandit_v2",
+                "segm_models", "torchseg"):
         assert get_model(key).__name__.startswith("sesa_tpu_torch.models.")
     with pytest.raises(ValueError, match="ROADMAP"):
-        get_model("bandit")
+        get_model("swin_upernet")
 
 
 def test_seeded_init_is_deterministic():

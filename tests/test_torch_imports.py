@@ -33,7 +33,9 @@ def test_every_module_imports_with_jax_blocked():
         "models.mel_band_roformer_experimental", "models.bs_mamba2", "ops.fft",
         "models.conformer", "models.bs_roformer_custom", "models.scnet", "models.scnet_tran",
         "models.scnet_masked", "models.scnet_unofficial", "models.mdx23c",
-        "models.mdx23c_stht", "models.htdemucs", "models.demucs_legacy", "ops.wiener")} <= names
+        "models.mdx23c_stht", "models.htdemucs", "models.demucs_legacy", "ops.wiener",
+        "models.bandit", "models.bandit_v2", "models.resnet_unet", "models.efficientnet_unet",
+        "models.maxvit_unet", "models.segm_models")} <= names
 
 
 def test_sources_name_no_jax_package():
