@@ -129,6 +129,18 @@ and prints no result line):
    scope, kernel launches per call); then ``torchseg`` with resnet50 and
    ``segm_models`` with efficientnet-b3 at VitLarge23's shell widths, one
    chunk each on the card against the CPU.
+16. swin_upernet and SQUIM, neither of which launches a kernel:
+   ``swin_upernet`` at upernet-swin-large's widths (embed 192, depths 2 / 2
+   / 18 / 2, heads 6 / 12 / 24 / 48, window 12, UperNet hidden 512) inside
+   VitLarge23's STFT shell through ``cli.main`` in bf16 with 0 rescues, one
+   model call in bf16 against f32 (0.08) and one chunk in f32 on the card
+   against the CPU (1e-3), the profile of one model call (window attention,
+   MLP, patch merging, LayerNorms, resizes and the UperNet head's conv
+   modules by scope); ``utils.demix`` of a seeded ``ModelBundle`` against an f32
+   session on the same weights (equal stems); SQUIM at
+   ``squim_objective_base`` on 4 x 10 s of 16 kHz mono through
+   ``metrics.squim_objective_scores``, card against CPU per score (1e-3),
+   and its time per call.
 
 Prints the ``kernels`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
@@ -252,6 +264,17 @@ SEGM_DECODER = dict(decoder_channels=[256, 128, 64, 32, 16])
 # each on the card against the CPU: (label, model type, encoder)
 SEGM_ENCODERS = (("torchseg_resnet50", "torchseg", "resnet50"),
                  ("segm_models_efficientnet_b3", "segm_models", "efficientnet-b3"))
+# swin_upernet at the JAX package's Swin defaults, openmmlab/upernet-swin-large
+# (embed 192, depths 2/2/18/2, heads 6/12/24/48, window 12, UperNet hidden
+# 512, pool scales 1/2/3/6; sesa_tpu/models/swin_upernet.py:44-51), inside
+# VitLarge23's STFT shell: ZFTurbo's config_vocals_swin_upernet.yaml, the
+# shell users load, is not in the repository. 128 channels x 512 x 512, stage
+# maps 128^2 to 16^2 (window-padded to 132, 72, 36, 24); chunks of 261,632,
+# batch 4, bf16
+SWIN_MODEL = dict(num_subbands=8, num_channels=128, act="gelu")
+# SQUIM at torchaudio's squim_objective_base (the JAX defaults): 4 x 10 s of
+# 16 kHz mono
+SQUIM_SR, SQUIM_BATCH, SQUIM_S = 16000, 4, 10
 
 # kernels against their plain versions, both bf16 on the card: the two
 # round at the same points, but the kernels sum in another order and the
@@ -275,9 +298,9 @@ SCNET_BF16_REL, SCNET_MASKED_BF16_REL = 0.12, 0.15
 # the f32-only models, one chunk on the card against the same chunk through
 # the port on the CPU: max |err| <= this share of max |CPU|
 CARD_VS_CPU_REL = 1e-3
-# mdx23c and htdemucs in bf16 against f32 on the card: the JAX package's
-# bound (tests/test_compute_dtype.py:23-62)
-MDX_BF16_REL = HT_BF16_REL = 0.08
+# mdx23c, htdemucs and swin_upernet in bf16 against f32 on the card: the JAX
+# package's default bound (tests/test_compute_dtype.py:23-62)
+MDX_BF16_REL = HT_BF16_REL = SWIN_BF16_REL = 0.08
 
 
 def log(msg):
@@ -1307,7 +1330,8 @@ def _chunking(model_type):
     return {"apollo": (APOLLO_CHUNK, APOLLO_BATCH), "mdx23c": (MDX_CHUNK, MDX_BATCH),
             "experimental_mdx23c_stht": (MDX_CHUNK, MDX_BATCH),
             "htdemucs": (DEMUCS_CHUNK, DEMUCS_BATCH),
-            "segm_models": (SEGM_CHUNK, SEGM_BATCH)}.get(model_type, (CHUNK, BATCH))
+            "segm_models": (SEGM_CHUNK, SEGM_BATCH),
+            "swin_upernet": (SEGM_CHUNK, SEGM_BATCH)}.get(model_type, (CHUNK, BATCH))
 
 
 def _plain_swaps(model_type):
@@ -1425,6 +1449,19 @@ PROFILE_SCOPES = {"lstm": (("sesa_tpu_torch.models.layers", "_lstm"),),
                            ("sesa_tpu_torch.models.layers", "layer_norm")),
                   "attention": (("sesa_tpu_torch.models.htdemucs", "_mha"),
                                 ("sesa_tpu_torch.models.maxvit_unet", "_partition_attn"))}
+# swin_upernet's own groups. On the device's timeline a kernel counts in its
+# innermost scope only (under the conv and norm groups above, the head's
+# conv modules read 0.16 ms a call on an H100: their ReLUs alone), so here
+# the head's conv modules are one group with their convolutions and
+# BatchNorms inside; the MLP and patch-merging groups hold their products
+# and GELU, and their LayerNorms count under layer_norm
+SWIN_PROFILE_SCOPES = {
+    "window_attention": (("sesa_tpu_torch.models.swin_upernet", "_window_attention"),),
+    "mlp": (("sesa_tpu_torch.models.swin_upernet", "_mlp"),),
+    "patch_merge": (("sesa_tpu_torch.models.swin_upernet", "_patch_merge"),),
+    "layer_norm": (("sesa_tpu_torch.models.swin_upernet", "_layer_norm"),),
+    "head_conv_modules": (("sesa_tpu_torch.models.swin_upernet", "_conv_module"),),
+    "resize": (("sesa_tpu_torch.models.swin_upernet", "_resize"),)}
 
 
 def _scoped(group, fn):
@@ -1451,14 +1488,15 @@ def _union_us(intervals):
     return total + (0 if run_end is None else run_end - run_start)
 
 
-def phase_profile(model_type, session, song, label=None):
+def phase_profile(model_type, session, song, label=None, scopes=None):
     """Device time by kernel over one warm model call (torch.profiler). The
     idle share is read from that one traced call: 1 - (time some kernel runs)
     / (first kernel's start to last kernel's end), all on the device's clock;
     busy time sums the kernels, so it exceeds the span where they overlap. The
     profiler slows the host, so it is an upper estimate. The host wall of the
     same call without the profiler is printed beside it. A model whose apply
-    takes no compute_dtype runs as the session runs it, in f32."""
+    takes no compute_dtype runs as the session runs it, in f32. ``scopes``
+    replaces PROFILE_SCOPES."""
     import inspect
 
     import torch
@@ -1478,7 +1516,7 @@ def phase_profile(model_type, session, song, label=None):
     import importlib
 
     scoped = [(importlib.import_module(m), name, group)
-              for group, fns in PROFILE_SCOPES.items() for m, name in fns]
+              for group, fns in (scopes or PROFILE_SCOPES).items() for m, name in fns]
     with torch.inference_mode():
         walls = []
         torch.cuda.synchronize()
@@ -2129,6 +2167,140 @@ def phase_bandit_segm(song):
     return out
 
 
+def _squim_phase():
+    """SQUIM at squim_objective_base on 4 x 10 s of 16 kHz mono made from a
+    seed: ``metrics.squim_objective_scores`` on the card against the CPU,
+    each score within CARD_VS_CPU_REL x max |CPU|, and its time per call."""
+    import numpy as np
+    import torch
+
+    from sesa_tpu_torch import metrics
+    from sesa_tpu_torch.models import squim
+    from sesa_tpu_torch.tree import tree_map
+
+    rng = np.random.default_rng(11)
+    t = np.arange(SQUIM_S * SQUIM_SR) / SQUIM_SR
+    f0 = rng.uniform(120, 260, (SQUIM_BATCH, 1))
+    speech = np.sin(2 * np.pi * f0 * t) * (0.5 + 0.5 * np.sin(2 * np.pi * 3 * t))
+    wave = (0.3 * speech + 0.03 * rng.standard_normal(speech.shape)).astype(np.float32)
+    cpu_params = squim.init(torch.Generator().manual_seed(12))
+    params = tree_map(lambda p: p.cuda(), cpu_params)
+    card = metrics.squim_objective_scores(wave, params)
+    cpu = metrics.squim_objective_scores(wave, cpu_params)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.squim_objective_scores(wave, params)  # ends in a copy to the host
+        walls.append(1e3 * (time.perf_counter() - t0))
+    res = dict(batch=SQUIM_BATCH, seconds=SQUIM_S, sample_rate=SQUIM_SR, ms_per_call=min(walls),
+               ms_per_call_all=walls, scores_card={k: v.tolist() for k, v in card.items()},
+               rel={k: float(np.abs(card[k] - cpu[k]).max() / np.abs(cpu[k]).max()) for k in cpu},
+               bound=CARD_VS_CPU_REL)
+    log(f"[squim] {json.dumps(res)}")
+    for k, rel in res["rel"].items():
+        if not (card[k].shape == (SQUIM_BATCH,) and np.isfinite(card[k]).all()
+                and rel <= CARD_VS_CPU_REL):
+            raise RuntimeError(f"squim {k}: card {card[k]} against CPU {cpu[k]}")
+    return res
+
+
+def swin_counts(params, config):
+    """swin_upernet's parameter count and the FLOP of one chunk's image path
+    (backbone and UperNet head; products and convolutions, window padding
+    included), counted by torch.utils.flop_counter on meta tensors."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from sesa_tpu_torch.models import swin_upernet
+    from sesa_tpu_torch.tree import tree_map
+
+    n_params = [0]
+
+    def meta(p):
+        n_params[0] += p.numel()
+        return p.to("meta")
+
+    params = tree_map(meta, params)
+    kw = swin_upernet._swin_kwargs(config)
+    frames = config.audio.chunk_size // config.audio.hop_length + 1
+    img = torch.empty((1, config.model.num_channels, frames,
+                       config.audio.dim_f // config.model.num_subbands), device="meta")
+    with FlopCounterMode(display=False) as count:
+        feats = swin_upernet._backbone(params["backbone"], img, kw)
+        backbone = count.get_total_flops()
+        swin_upernet._decode_head(params["decode_head"], feats, kw)
+    return dict(params=n_params[0], backbone_flop=backbone,
+                head_flop=count.get_total_flops() - backbone)
+
+
+def phase_swin_squim(song):
+    """swin_upernet (upernet-swin-large in VitLarge23's shell) through
+    cli.main in bf16 with 0 rescues and no kernel launch; one model call in
+    bf16 against f32 on the card (SWIN_BF16_REL) and one chunk in f32 on the
+    card against the CPU; the profile of one model call (window attention,
+    MLP, patch merging, LayerNorms, resizes, the head's conv modules by
+    scope). Then
+    SQUIM's scores on the card against the CPU, and utils.demix of a
+    ModelBundle (seed 0) against an f32 InferenceSession on the same
+    parameters: equal stems."""
+    import numpy as np
+    import torch
+
+    from sesa_tpu_torch import utils
+    from sesa_tpu_torch.models import swin_upernet
+    from sesa_tpu_torch.runtime.session import InferenceSession
+
+    out = {}
+    sections = {"audio": SEGM_AUDIO}
+    with tempfile.TemporaryDirectory() as work:
+        res, session = drive_cli(work, "swin_upernet", SWIN_MODEL, song, expect(),
+                                 sections=sections, chunk=SEGM_CHUNK, batch=SEGM_BATCH)
+        cfg_path = os.path.join(work, "config.json")
+        if list(session._prepared) != [torch.bfloat16]:
+            raise RuntimeError(f"swin_upernet: prepared weights {list(session._prepared)}")
+        res["bf16_vs_f32"] = bf16_vs_f32("swin_upernet", swin_upernet, session.params,
+                                         session.config, _chunks(song, SEGM_CHUNK, SEGM_BATCH),
+                                         SWIN_BF16_REL)
+        res["card_vs_cpu"] = card_vs_cpu("swin_upernet", swin_upernet, session.params,
+                                         session.config, song, SEGM_CHUNK)
+        res["profile"] = phase_profile("swin_upernet", session, song,
+                                       scopes=SWIN_PROFILE_SCOPES)
+        res["counts"] = swin_counts(session.params, session.config)
+        log(f"[swin_upernet counts] {json.dumps(res['counts'])}")
+        del session
+        torch.cuda.empty_cache()
+
+        # the reference-shaped API against the session, both f32 on seed 0's weights
+        bundle, config = utils.get_model_from_config("swin_upernet", cfg_path)
+        bundle.init(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stems = utils.demix(config, bundle, song)
+        torch.cuda.synchronize()
+        demix_s = time.perf_counter() - t0
+        ref = InferenceSession.create("swin_upernet", cfg_path, compute_dtype=None).separate(song)
+    err = max(float(np.abs(stems[k] - ref[k]).max()) for k in ref)
+    scale = max(float(np.abs(ref[k]).max()) for k in ref)
+    res["utils_demix"] = dict(stems=list(stems), max_abs_err=err, session_max=scale,
+                              wall_s=demix_s, rtf=SONG_S / demix_s)
+    log(f"[utils.demix vs session f32] {json.dumps(res['utils_demix'])}")
+    if list(stems) != list(ref) or not err <= 1e-6 * scale:
+        raise RuntimeError(f"utils.demix: stems {list(stems)} differ from the session's "
+                           f"{list(ref)} by {err:.4g} (max {scale:.4g})")
+    del bundle, stems, ref
+    torch.cuda.empty_cache()
+    out["swin_upernet"] = res
+    prof = res["profile"]
+    log(f"  swin_upernet: rtf_cli {res['rtf_cli']:.2f}, rtf_warm {res['rtf_warm']:.2f}, peak CUDA "
+        f"memory {res['peak_cuda_mem_gib']:.2f} GiB, bf16 vs f32 {res['bf16_vs_f32']['rel']:.3g} "
+        f"of max, card vs CPU {res['card_vs_cpu']['rel']:.3g} of max; a model call: "
+        f"{prof['kernel_launches']} launches, device busy {prof['device_busy_ms']:.1f} ms, idle "
+        f"share {prof['idle_share']:.3f}")
+    out["squim"] = _squim_phase()
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -2216,6 +2388,7 @@ def main(argv=None) -> int:
     out["melband_experimental"] = phase_melband_experimental(song)
     out["mdx_demucs"] = phase_mdx_demucs(song)
     out["bandit_segm"] = phase_bandit_segm(song)
+    out["swin_squim"] = phase_swin_squim(song)
     out["seconds"] = time.perf_counter() - t0
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -5,6 +5,14 @@ sesa_tpu/audio_io.py without its native codec or soundfile).
 JAX package does without soundfile; ``write_audio`` returns the path it
 actually wrote. ``AudioReader`` and ``AudioWriter`` stream frames for the
 long-file paths (the streaming ensemble).
+
+The JAX package's ``native/`` (a WAV codec in C++, built with g++ at first
+use and bound with ctypes) is not copied: the JAX package itself falls back
+to scipy and ``wave`` when it cannot build it, the codec is an optional
+speed-up of host reads and writes, not a separate format, and this module's
+``AudioReader`` / ``AudioWriter`` already stream PCM WAV files in windows
+of bounded memory. A g++ build at first use would add a
+toolchain the port does not otherwise need on the host.
 """
 
 from __future__ import annotations

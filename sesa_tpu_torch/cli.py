@@ -83,7 +83,13 @@ def main(argv=None, session_out: list = None) -> int:
         print("error: provide --audio_path or --input_folder", file=sys.stderr)
         return 2
     if args.lora_checkpoint:
-        raise NotImplementedError("--lora_checkpoint is not ported yet (ROADMAP.md queue 1)")
+        # the JAX CLI parses the flag and never reads it, so its users get the
+        # base model's stems without a word; this one refuses instead
+        raise NotImplementedError(
+            "--lora_checkpoint is not applied by the CLI; merge the adapter with "
+            "sesa_tpu_torch.utils.load_start_checkpoint(bundle, checkpoint, "
+            "lora_checkpoint=...) and separate with sesa_tpu_torch.utils.demix, the route "
+            "the JAX package has")
 
     t0 = time.time()
     session = InferenceSession.create(

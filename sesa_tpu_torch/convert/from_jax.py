@@ -53,7 +53,7 @@ def params_from_jax(params_np, model, config=None):
     or the legacy ``demucs``), ``"bandit"``, ``"bandit_v2"``,
     ``"segm_models"`` or ``"torchseg"`` (the MaxViT, ResNet or EfficientNet
     U-Net its config's ``model.encoder_name`` names, else the fallback conv
-    U-Net). Raises ``ValueError``
+    U-Net) or ``"swin_upernet"``. Raises ``ValueError``
     when the tree's keys or shapes differ from those of the port's own init.
     """
     expected = _shapes(_expected(model, config))

@@ -87,6 +87,14 @@ def elu(x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
     return torch.where(x > 0, x, alpha * (torch.exp(x) - 1.0))
 
 
+def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """torch nn.PReLU with its default single shared parameter (weight
+    shape (1,)): max(0, x) + alpha·min(0, x). A per-channel alpha
+    broadcasts over x's trailing axes, not over dim 1 as torch's does: a
+    caller that needs that reshapes alpha itself."""
+    return torch.clamp_min(x, 0) + alpha * torch.clamp_max(x, 0)
+
+
 def glu(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """torch nn.GLU: split in half along ``dim``, first · sigmoid(second)."""
     a, b = x.chunk(2, dim=dim)

@@ -1,5 +1,5 @@
 """model_type string -> model module dispatch (counterpart of
-sesa_tpu/models/registry.py). Only the ported model types are listed."""
+sesa_tpu/models/registry.py): every model type of the JAX registry."""
 
 from __future__ import annotations
 
@@ -28,14 +28,12 @@ MODEL_TYPES = {
     # the encoder zoo follows config.model.encoder_name
     "segm_models": "sesa_tpu_torch.models.segm_models",
     "torchseg": "sesa_tpu_torch.models.segm_models",
+    "swin_upernet": "sesa_tpu_torch.models.swin_upernet",
 }
 
 
 def get_model(model_type: str):
     """Return the model module for a model_type string."""
     if model_type not in MODEL_TYPES:
-        raise ValueError(
-            f"model type {model_type!r} is not ported to sesa_tpu_torch yet "
-            f"(ported: {sorted(MODEL_TYPES)}); see ROADMAP.md queue 1 for the "
-            "order of the remaining models")
+        raise ValueError(f"unknown model type {model_type!r}; known: {sorted(MODEL_TYPES)}")
     return importlib.import_module(MODEL_TYPES[model_type])

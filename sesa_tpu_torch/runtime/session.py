@@ -22,6 +22,17 @@ from sesa_tpu_torch.tree import tree_map
 Audio = Union[np.ndarray, torch.Tensor]
 
 
+def normalize_audio(audio: Audio):
+    """Mono-statistics normalisation (reference utils.py:199-217): the audio
+    less the mono mix's mean over its (biased) std, and the statistics."""
+    mono = audio.mean(0)
+    if isinstance(mono, torch.Tensor):
+        mean, std = float(mono.mean()), float(mono.std(correction=0))
+    else:
+        mean, std = mono.mean(), mono.std()
+    return (audio - mean) / std, {"mean": mean, "std": std}
+
+
 def denormalize_audio(audio: Audio, norm: Dict[str, float]) -> Audio:
     return audio * norm["std"] + norm["mean"]
 
@@ -34,6 +45,32 @@ def prefer_target_instrument(config) -> List[str]:
     if training.get("instruments"):
         return list(training["instruments"])
     return ["restored"]
+
+
+def demix_spec(config, model_type: str, chunk_size: Optional[int] = None,
+               num_overlap: Optional[int] = None, batch_size: Optional[int] = None,
+               num_channels: Optional[int] = None) -> DemixSpec:
+    """The demix chunking a config gives a model; an argument that is given
+    (not None or 0) overrides the config's value. htdemucs chunks by its
+    training segment and averages plainly (sesa_tpu session.py:87-98)."""
+    audio_cfg = config.get("audio", {}) or {}
+    inference_cfg = config.get("inference", {}) or {}
+    training_cfg = config.get("training", {}) or {}
+    demucs_mode = model_type == "htdemucs"
+    if demucs_mode:
+        chunk = int(training_cfg["samplerate"] * training_cfg["segment"])
+        stems = len(training_cfg["instruments"])
+    else:
+        chunk = int(chunk_size or audio_cfg.get("chunk_size") or 352800)
+        stems = len(prefer_target_instrument(config))
+    return DemixSpec(
+        chunk_size=chunk,
+        num_overlap=int(num_overlap or inference_cfg.get("num_overlap", 2)),
+        batch_size=int(batch_size or inference_cfg.get("batch_size", 4)),
+        num_stems=stems,
+        num_channels=int(num_channels or audio_cfg.get("num_channels", 2)),
+        demucs_mode=demucs_mode,
+    )
 
 
 @dataclasses.dataclass
@@ -67,27 +104,7 @@ class InferenceSession:
         else:
             params = model.init(torch.Generator().manual_seed(seed), config)
         params = tree_map(lambda p: p.to(device=dev, dtype=torch.float32), params)
-
-        audio_cfg = config.get("audio", {}) or {}
-        inference_cfg = config.get("inference", {}) or {}
-        training_cfg = config.get("training", {}) or {}
-        # htdemucs chunks by its training segment and averages plainly
-        # (sesa_tpu session.py:87-98)
-        demucs_mode = model_type == "htdemucs"
-        if demucs_mode:
-            chunk = int(training_cfg["samplerate"] * training_cfg["segment"])
-            stems = len(training_cfg["instruments"])
-        else:
-            chunk = int(chunk_size or audio_cfg.get("chunk_size") or 352800)
-            stems = len(prefer_target_instrument(config))
-        spec = DemixSpec(
-            chunk_size=chunk,
-            num_overlap=int(num_overlap or inference_cfg.get("num_overlap", 2)),
-            batch_size=int(batch_size or inference_cfg.get("batch_size", 4)),
-            num_stems=stems,
-            num_channels=int(num_channels or audio_cfg.get("num_channels", 2)),
-            demucs_mode=demucs_mode,
-        )
+        spec = demix_spec(config, model_type, chunk_size, num_overlap, batch_size, num_channels)
         return cls(model_type, config, params, spec, dev, compute_dtype)
 
     @property

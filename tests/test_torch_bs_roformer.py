@@ -126,16 +126,19 @@ def test_unported_variants_raise(flag):
 
 
 def test_registry_knows_only_ported_models():
-    from sesa_tpu_torch.models import mel_band_conformer, mel_band_roformer
+    """Every key of the JAX registry resolves in the port, to the module of
+    the same name; a key the JAX registry lacks raises."""
+    from sesa_tpu.models.registry import MODEL_TYPES as JAX_TYPES
+    from sesa_tpu_torch.models import MODEL_TYPES, mel_band_conformer, mel_band_roformer
 
     assert get_model("bs_roformer") is bs_roformer
     assert get_model("mel_band_roformer") is mel_band_roformer
     assert get_model("mel_band_conformer") is mel_band_conformer
-    for key in ("mdx23c", "experimental_mdx23c_stht", "htdemucs", "bandit", "bandit_v2",
-                "segm_models", "torchseg"):
-        assert get_model(key).__name__.startswith("sesa_tpu_torch.models.")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        get_model("swin_upernet")
+    assert set(MODEL_TYPES) == set(JAX_TYPES) and len(JAX_TYPES) == 21
+    for key, path in JAX_TYPES.items():
+        assert get_model(key).__name__ == path.replace("sesa_tpu.", "sesa_tpu_torch.", 1), key
+    with pytest.raises(ValueError, match="unknown model type"):
+        get_model("swin_unet")
 
 
 def test_seeded_init_is_deterministic():

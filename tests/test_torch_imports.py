@@ -35,7 +35,8 @@ def test_every_module_imports_with_jax_blocked():
         "models.scnet_masked", "models.scnet_unofficial", "models.mdx23c",
         "models.mdx23c_stht", "models.htdemucs", "models.demucs_legacy", "ops.wiener",
         "models.bandit", "models.bandit_v2", "models.resnet_unet", "models.efficientnet_unet",
-        "models.maxvit_unet", "models.segm_models")} <= names
+        "models.maxvit_unet", "models.segm_models", "models.swin_upernet", "models.squim",
+        "metrics", "convert.lora", "utils")} <= names
 
 
 def test_sources_name_no_jax_package():
