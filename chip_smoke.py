@@ -141,6 +141,20 @@ and prints no result line):
    ``squim_objective_base`` on 4 x 10 s of 16 kHz mono through
    ``metrics.squim_objective_scores``, card against CPU per score (1e-3),
    and its time per call.
+17. the app layer: with ``SESA_TPU_HOME`` at a temporary directory, the
+   flagship and mel_band_roformer (seeded; ``roformer_state_dict`` writes
+   them as reference-layout checkpoints) registered as custom models
+   (``add_custom_model`` and ``conf_edit`` where pyyaml imports, else
+   entries with .json configs), then ``processing.process_audio`` of the
+   song with each (live progress, stems and slots, K1 and K2 at layers x
+   calls, the flagship's stem equal to a direct session on the same file,
+   the loaded parameters equal to the seeded ones bit for bit),
+   ``auto_ensemble_process`` of both (K1 and K2 at the sum, the file equal to
+   the host ensemble of the single-model stems), the TF32 repair (a bf16
+   SCNet call equal before and after an f32 one, the flags each call sees,
+   the BiLSTMs' device time against the policy before the repair),
+   ``benchmark.main`` test and benchmark, ``warmup.main`` and a
+   ``device_trace`` of one flagship model call that names K1's norm kernel.
 
 Prints the ``kernels`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
@@ -2301,6 +2315,514 @@ def phase_swin_squim(song):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the app layer: registry -> checkpoint file -> processing
+# ---------------------------------------------------------------------------
+
+# the two custom models phase_app registers (display names), and the URLs
+# their entries carry: never fetched, since the files are in place (and the
+# phase puts a requests stub in place that refuses any call)
+APP_MODELS = (("Chip Smoke BS-Roformer", "bs_roformer", FLAGSHIP_MODEL, 11),
+              ("Chip Smoke Mel-Band-Roformer", "mel_band_roformer", MELBAND_MODEL, 12))
+APP_URL = "https://models.invalid/chip_smoke"
+# the app path against the direct session, the auto ensemble against the host
+# ensemble of the single-model stems, and the two bf16 SCNet calls around an
+# f32 one: max |a - b| <= this share of max |b|
+APP_REL = 1e-6
+
+
+def roformer_state_dict(params, spec):
+    """The port's bs_roformer or mel_band_roformer parameter tree -> a state
+    dict in the reference layout: the inverse of
+    ``bs_roformer.convert_from_spec``, the port-side mirror of
+    tests/test_roformer.py ``export_state_dict``. The transformers' output
+    norms and the final norm are written where the tree has them (the
+    mel-band and the band-split conventions)."""
+    import torch
+
+    def t(a):
+        return a.detach().to("cpu", torch.float32).clone()
+
+    def tt(a):
+        return t(a).T.contiguous()
+
+    plan = spec.band_plan()
+    sd = {}
+    for g, ids in enumerate(plan.group_band_ids):
+        gp = params["band_split"]["groups"][g]
+        for pos, i in enumerate(ids):
+            sd[f"band_split.to_features.{i}.0.gamma"] = t(gp["norm_gamma"][pos])
+            sd[f"band_split.to_features.{i}.1.weight"] = tt(gp["weight"][pos])
+            sd[f"band_split.to_features.{i}.1.bias"] = t(gp["bias"][pos])
+
+    def put_transformer(prefix, tp, linear_attn=False):
+        for i, layer in enumerate(tp["layers"]):
+            a, f = layer["attn"], layer["ff"]
+            ap, fp = f"{prefix}.layers.{i}.0", f"{prefix}.layers.{i}.1"
+            if "hc" in a or "hc" in f:
+                raise ValueError("roformer_state_dict: hyper-connection trees are not written")
+            sd[f"{ap}.norm.gamma"] = t(a["norm_gamma"])
+            if linear_attn:
+                sd[f"{ap}.to_qkv.0.weight"] = t(a["qkv_w"])
+                sd[f"{ap}.temperature"] = t(a["temperature"])
+                sd[f"{ap}.to_out.1.weight"] = t(a["out_w"])
+            else:
+                sd[f"{ap}.to_qkv.weight"] = t(a["qkv_w"])
+                sd[f"{ap}.to_gates.weight"] = t(a["gates_w"])
+                sd[f"{ap}.to_gates.bias"] = t(a["gates_b"])
+                sd[f"{ap}.to_out.0.weight"] = t(a["out_w"])
+                if "vr_mix_w" in a:
+                    sd[f"{ap}.to_value_residual_mix.weight"] = t(a["vr_mix_w"])
+                    sd[f"{ap}.to_value_residual_mix.bias"] = t(a["vr_mix_b"])
+            sd[f"{fp}.net.0.gamma"] = t(f["norm_gamma"])
+            sd[f"{fp}.net.1.weight"] = t(f["lin1_w"])
+            sd[f"{fp}.net.1.bias"] = t(f["lin1_b"])
+            sd[f"{fp}.net.4.weight"] = t(f["lin2_w"])
+            sd[f"{fp}.net.4.bias"] = t(f["lin2_b"])
+        if "norm_gamma" in tp:
+            sd[f"{prefix}.norm.gamma"] = t(tp["norm_gamma"])
+
+    for d, layer in enumerate(params["layers"]):
+        j = 0
+        if "linear" in layer:
+            put_transformer(f"layers.{d}.{j}", layer["linear"], linear_attn=True)
+            j += 1
+        put_transformer(f"layers.{d}.{j}", layer["time"])
+        put_transformer(f"layers.{d}.{j + 1}", layer["freq"])
+        if "fno" in layer:
+            fn = layer["fno"]
+            sd[f"layers.{d}.{j + 2}.weight_real"] = t(fn["w_re"])
+            sd[f"layers.{d}.{j + 2}.weight_imag"] = t(fn["w_im"])
+            sd[f"layers.{d}.{j + 2}.bypass.weight"] = tt(fn["bypass_w"])
+            sd[f"layers.{d}.{j + 2}.bypass.bias"] = t(fn["bypass_b"])
+
+    for s, me in enumerate(params["mask_estimators"]):
+        pre = f"mask_estimators.{s}.to_freqs"
+        for li, h in enumerate(me["hidden"]):
+            for i in range(plan.num_bands):
+                sd[f"{pre}.{i}.0.{2 * li}.weight"] = tt(h["weight"][i])
+                sd[f"{pre}.{i}.0.{2 * li}.bias"] = t(h["bias"][i])
+        last = 2 * len(me["hidden"])
+        for g, ids in enumerate(plan.group_band_ids):
+            gp = me["groups"][g]
+            for pos, i in enumerate(ids):
+                sd[f"{pre}.{i}.0.{last}.weight"] = tt(gp["weight"][pos])
+                sd[f"{pre}.{i}.0.{last}.bias"] = t(gp["bias"][pos])
+
+    sd["time_rotary_embed.freqs"] = t(params["rope_time_freqs"])
+    sd["freq_rotary_embed.freqs"] = t(params["rope_freq_freqs"])
+    if "final_norm_gamma" in params:
+        sd["final_norm.gamma"] = t(params["final_norm_gamma"])
+    return sd
+
+
+def _no_network_requests():
+    """A ``requests`` module whose calls raise: the app phase must find every
+    file in place and never reach for the network."""
+    import types
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError(f"chip_smoke: no network; refused requests call {args[:1]}")
+
+    stub = types.ModuleType("requests")
+    stub.get = stub.head = stub.post = refuse
+    return stub
+
+
+def _drain(gen, label):
+    """Run a processing generator to its end; check that progress never goes
+    back and ends at 100. Returns (updates, wall seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    updates = list(gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    progress = [u["progress"] for u in updates]
+    if progress != sorted(progress) or progress[-1] != 100:
+        raise RuntimeError(f"{label}: progress {progress}")
+    return updates, wall
+
+
+def _separating_statuses(updates):
+    import re
+
+    live = [int(m.group(1)) for u in updates
+            for m in [re.fullmatch(r"Separating\.\.\. (\d+)%", u["status"])] if m]
+    return [p for p in live if 5 < p < 75]
+
+
+def _rel_err(a, b):
+    import numpy as np
+
+    return float(np.abs(a - b).max()), float(np.abs(b).max())
+
+
+def _app_setup(home):
+    """Write the two seeded models' configs and reference-layout checkpoints
+    into the registry's CHECKPOINT_DIR and register them as custom models:
+    through ``add_custom_model`` (which asks for ``conf_edit``) where pyyaml
+    imports, else as entries with a .json config and no conf_edit. Returns
+    {name: dict(model_type, params, config_path, checkpoint_path)}."""
+    import torch
+
+    from sesa_tpu_torch.configs import AttrDict
+    from sesa_tpu_torch.models import get_model
+    from sesa_tpu_torch.registry import models as reg
+
+    if reg.BASE_DIR != home:
+        raise RuntimeError(f"the registry was imported before SESA_TPU_HOME was set: "
+                           f"{reg.BASE_DIR}")
+    try:
+        import yaml
+    except ImportError:
+        yaml = None
+    log("  registration: " + ("add_custom_model + conf_edit (pyyaml imports)" if yaml else
+                              "custom_models.json, .json configs (no pyyaml)"))
+    os.makedirs(reg.CHECKPOINT_DIR, exist_ok=True)
+    entries, custom = {}, {}
+    for name, model_type, model_cfg, seed in APP_MODELS:
+        cfg = {"audio": {"chunk_size": CHUNK, "num_channels": 2, "sample_rate": SR},
+               "model": model_cfg,
+               "training": {"instruments": ["vocals", "other"], "target_instrument": "vocals"},
+               "inference": {"num_overlap": OVERLAP, "batch_size": BATCH, "normalize": False}}
+        module = get_model(model_type)
+        params = module.init(torch.Generator().manual_seed(seed), AttrDict(cfg))
+        ckpt_name = f"chip_smoke_{model_type}.ckpt"
+        cfg_url = f"{APP_URL}/config_{model_type}.{'yaml' if yaml else 'json'}"
+        if yaml is not None:
+            ok, msg = reg.add_custom_model(name, model_type, f"{APP_URL}/{ckpt_name}", cfg_url)
+            if not ok:
+                raise RuntimeError(f"add_custom_model {name}: {msg}")
+            cfg_name = reg.load_custom_models()[name]["config_filename"]
+            with open(os.path.join(reg.CHECKPOINT_DIR, cfg_name), "w") as f:
+                yaml.safe_dump(cfg, f, sort_keys=False)
+        else:
+            cfg_name = os.path.basename(cfg_url)
+            custom[name] = {"model_type": model_type, "checkpoint_url": f"{APP_URL}/{ckpt_name}",
+                            "config_url": cfg_url, "checkpoint_filename": ckpt_name,
+                            "config_filename": cfg_name, "needs_conf_edit": False}
+            with open(os.path.join(reg.CHECKPOINT_DIR, cfg_name), "w") as f:
+                json.dump(cfg, f)
+        spec = module.spec_from_config(AttrDict(cfg).model)
+        ckpt = os.path.join(reg.CHECKPOINT_DIR, ckpt_name)
+        torch.save(roformer_state_dict(params, spec), ckpt)
+        entries[name] = dict(model_type=model_type, params=params, checkpoint_path=ckpt,
+                             config_path=os.path.join(reg.CHECKPOINT_DIR, cfg_name),
+                             layers=model_cfg["depth"] * (model_cfg["time_transformer_depth"]
+                                                          + model_cfg["freq_transformer_depth"]))
+        log(f"  {name}: {os.path.getsize(ckpt) / 2 ** 20:.1f} MiB checkpoint, config {cfg_name}")
+    if custom:
+        reg.save_custom_models(custom)
+    return entries, yaml is not None
+
+
+def _tf32_repair(song):
+    """One SCNet (bench.py's _scnet_setup shape) bf16 model call, an f32 call,
+    the same bf16 call again: equal outputs, the TF32 flags each call saw, and
+    the LSTMs' device time (CUDA events around each BiLSTM) of a bf16 call after
+    an f32 one under today's policy and under the policy before the repair
+    (TF32 left off by the f32 call)."""
+    import contextlib
+
+    import torch
+
+    from sesa_tpu_torch.configs import AttrDict
+    from sesa_tpu_torch.models import scnet
+    from sesa_tpu_torch.tree import tree_map
+
+    config = AttrDict({"audio": {"chunk_size": CHUNK, "num_channels": 2, "sample_rate": SR},
+                       "model": SCNET_MODEL, "training": {"instruments": SCNET_STEMS}})
+    params = tree_map(lambda p: p.cuda(), scnet.init(torch.Generator().manual_seed(5), config))
+    prepared = scnet.prepare(params, config, torch.bfloat16)
+    chunks = _chunks(song)
+    seen, events = [], []
+    inner = scnet._bilstm
+
+    def probe(y, p):
+        if not events:
+            seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(y, p)
+        end.record()
+        events.append((start, end))
+        return out
+
+    def call(dtype):
+        events.clear()
+        with torch.inference_mode():
+            out = scnet.apply(prepared if dtype else params, config, chunks, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        return out, sum(s.elapsed_time(e) for s, e in events)
+
+    @contextlib.contextmanager
+    def policy_before_repair(compute_dtype):
+        # the parent's net_dtype: f32 turned TF32 off for the process, bf16
+        # left the flags as it found them
+        dtype = torch.float32 if compute_dtype is None else compute_dtype
+        if dtype == torch.float32:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        yield dtype
+
+    saved_flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    policy = scnet.net_precision
+    scnet._bilstm = probe
+    try:
+        call(torch.bfloat16)  # warm
+        first, lstm_first = call(torch.bfloat16)
+        _, lstm_f32 = call(None)
+        second, lstm_after = call(torch.bfloat16)
+        flags = list(seen[-3:])
+        scnet.net_precision = policy_before_repair
+        try:
+            call(None)
+            _, lstm_before_repair = call(torch.bfloat16)
+            flags_before_repair = seen[-1]
+        finally:
+            scnet.net_precision = policy
+    finally:
+        scnet._bilstm = inner
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved_flags
+    err, scale = float((first - second).abs().max()), float(second.abs().max())
+    res = dict(flags_bf16_f32_bf16=flags, max_abs_err=err, out_max=scale,
+               lstm_ms_bf16_first=lstm_first, lstm_ms_f32=lstm_f32,
+               lstm_ms_bf16_after_f32=lstm_after,
+               lstm_ms_bf16_after_f32_before_repair=lstm_before_repair,
+               flags_bf16_after_f32_before_repair=flags_before_repair)
+    log(f"[tf32 repair] {json.dumps(res)}")
+    if flags != [(True, True), (False, False), (True, True)]:
+        raise RuntimeError(f"tf32 repair: the calls saw (matmul, cudnn) allow_tf32 {flags}")
+    if not err <= APP_REL * scale:
+        raise RuntimeError(f"tf32 repair: bf16 SCNet moved by {err:.4g} (max {scale:.4g}) "
+                           "across an f32 call")
+    return res
+
+
+def phase_app(song):
+    """The app layer on the card: a display name -> registry -> the port's
+    session loaded from a checkpoint file -> processing. Sets SESA_TPU_HOME
+    to a temporary directory (the app modules read it at import), registers
+    the flagship and mel_band_roformer (seeded, written as reference-layout
+    checkpoints) as custom models, then: process_audio of the 60 s song with
+    each (live progress, the stems and their slots, K1 and K2 at layers x
+    calls, the flagship's stem equal to a direct InferenceSession on the same
+    file, the loaded parameters equal to the seeded ones bit for bit);
+    auto_ensemble_process of both (K1 and K2 at the sum, the file equal to
+    ensemble_waveforms of the two single-model stems); the TF32 repair on
+    SCNet; benchmark.main test and benchmark; warmup.main; device_trace of
+    one flagship model call, whose trace must name K1's norm kernel."""
+    import io
+    import re
+    import shutil
+    import sys as _sys
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    home = tempfile.mkdtemp(prefix="sesa_home_")
+    saved_env = os.environ.get("SESA_TPU_HOME")
+    saved_requests = _sys.modules.get("requests")
+    os.environ["SESA_TPU_HOME"] = home
+    _sys.modules["requests"] = _no_network_requests()
+    try:
+        from sesa_tpu_torch import benchmark, processing, warmup
+        from sesa_tpu_torch.audio_io import read_audio, write_audio
+        from sesa_tpu_torch.postprocess import ensemble_waveforms
+        from sesa_tpu_torch.runtime import profiling
+        from sesa_tpu_torch.runtime.session import InferenceSession
+        from sesa_tpu_torch.tree import tree_map
+
+        out = {}
+        entries, via_yaml = _app_setup(home)
+        out["registered_via"] = "add_custom_model" if via_yaml else "custom_models.json"
+        (flag_name, flag), (mel_name, mel) = entries.items()
+        calls = _model_calls()
+        song_path = write_audio(os.path.join(home, "song.wav"), song, SR)
+
+        made = []
+        make_session = processing._make_session
+
+        def timed_session(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            session = make_session(*args, **kwargs)
+            torch.cuda.synchronize()
+            made.append((session, time.perf_counter() - t0))
+            return session
+
+        processing._make_session = timed_session
+        try:
+            single = {}
+            for name, entry, instrumental in ((flag_name, flag, True), (mel_name, mel, False)):
+                out_dir = os.path.join(home, f"out_{entry['model_type']}")
+                reset_counts()
+                updates, wall = _drain(processing.process_audio(
+                    song_path, name, chunk_size=CHUNK, overlap=OVERLAP,
+                    extract_instrumental=instrumental, output_dir=out_dir), name)
+                launches = read_counts()
+                session, load_s = made[-1]
+                final = updates[-1]
+                stems = {s: final["slots"][s] for s in ("vocals", "instrumental")}
+                if not stems["vocals"] or bool(stems["instrumental"]) != instrumental or \
+                        set(final["outputs"]) != {f for f in stems.values() if f}:
+                    raise RuntimeError(f"{name}: outputs {final['outputs']}, slots {stems}")
+                vocals, sr = read_audio(stems["vocals"])
+                if vocals.shape != song.shape or sr != SR or not np.isfinite(vocals).all():
+                    raise RuntimeError(f"{name}: vocals {vocals.shape} at {sr} Hz, finite "
+                                       f"{np.isfinite(vocals).all()}")
+                live = _separating_statuses(updates)
+                if not live:
+                    raise RuntimeError(f"{name}: no live 'Separating... N%' status in "
+                                       f"{[u['status'] for u in updates]}")
+                want = expect(K1=entry["layers"] * calls, K2=entry["layers"] * calls)
+                if launches != want:
+                    raise RuntimeError(f"{name}: launches {launches}, expected {want}")
+                same = tree_map(lambda a, b: bool(torch.equal(a.cpu(), b)), session.params,
+                                entry["params"])
+                flat = []
+                tree_map(flat.append, same)
+                if not all(flat):
+                    raise RuntimeError(f"{name}: {flat.count(False)} of {len(flat)} loaded "
+                                       "parameters differ from the seeded ones")
+                res = dict(model_type=entry["model_type"], wall_s=wall, rtf_app=SONG_S / wall,
+                           checkpoint_load_s=load_s, launches=launches,
+                           progress=[u["progress"] for u in updates], live_progress=live,
+                           outputs=[os.path.basename(f) for f in final["outputs"]],
+                           rescues=session.rescues)
+                if name == flag_name:
+                    direct = InferenceSession.create(flag["model_type"], flag["config_path"],
+                                                     flag["checkpoint_path"], chunk_size=CHUNK,
+                                                     num_overlap=OVERLAP)
+                    ref = direct.separate(song)["vocals"]
+                    del direct
+                    err, scale = _rel_err(vocals, ref)
+                    res.update(vs_direct_session_max_abs_err=err, direct_max=scale)
+                    if not err <= APP_REL * scale:
+                        raise RuntimeError(f"{name}: the app's stem is {err:.4g} from the "
+                                           f"direct session's (max {scale:.4g})")
+                if session.rescues:
+                    raise RuntimeError(f"{name}: {session.rescues} rescues")
+                single[name] = vocals
+                out[f"process_audio_{entry['model_type']}"] = res
+                log(f"[app process_audio] {json.dumps(res)}")
+                made.clear()
+                del session
+                torch.cuda.empty_cache()
+
+            reset_counts()
+            updates, wall = _drain(processing.auto_ensemble_process(
+                song_path, [flag_name, mel_name], chunk_size=CHUNK, overlap=OVERLAP,
+                ensemble_type="avg_wave", output_dir=os.path.join(home, "out_ensemble")),
+                "auto_ensemble")
+            launches = read_counts()
+            load_s = [s for _, s in made]
+            made.clear()
+            torch.cuda.empty_cache()
+        finally:
+            processing._make_session = make_session
+        files = updates[-1]["outputs"]
+        want = expect(K1=(flag["layers"] + mel["layers"]) * calls,
+                      K2=(flag["layers"] + mel["layers"]) * calls)
+        if len(files) != 1 or "_vocals_" not in os.path.basename(files[0]):
+            raise RuntimeError(f"auto_ensemble: outputs {files}")
+        if launches != want:
+            raise RuntimeError(f"auto_ensemble: launches {launches}, expected {want}")
+        got, _ = read_audio(files[0])
+        err, scale = _rel_err(got, ensemble_waveforms([single[flag_name], single[mel_name]],
+                                                      "avg_wave"))
+        out["auto_ensemble"] = dict(wall_s=wall, rtf_app_ensemble=SONG_S / wall,
+                                    checkpoint_load_s=load_s, launches=launches,
+                                    max_abs_err_vs_host_ensemble=err, ensemble_max=scale,
+                                    progress=[u["progress"] for u in updates])
+        log(f"[app auto_ensemble] {json.dumps(out['auto_ensemble'])}")
+        if not err <= APP_REL * scale:
+            raise RuntimeError(f"auto_ensemble: {err:.4g} from the host ensemble of the "
+                               f"single-model stems (max {scale:.4g})")
+
+        out["tf32_repair"] = _tf32_repair(song)
+        torch.cuda.empty_cache()
+
+        args = ["--model_type", flag["model_type"], "--config_path", flag["config_path"],
+                "--start_check_point", flag["checkpoint_path"], "--batch_size", "2",
+                "--iterations", "3"]
+        bench = {}
+        for command in ("test", "benchmark"):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with redirect_stdout(buf):
+                rc = benchmark.main([command, *args])
+            text = buf.getvalue()
+            log(f"[app benchmark {command}] rc {rc}, {time.perf_counter() - t0:.1f}s\n{text}")
+            if rc != 0:
+                raise RuntimeError(f"benchmark {command}: exit {rc}")
+            bench[command] = text
+        ms = {m: float(v) for m, v in re.findall(r"^\s+(f32|bf16): ([0-9.]+) ms/iter \(",
+                                                  bench["benchmark"], re.M)}
+        if set(ms) != {"f32", "bf16"}:
+            raise RuntimeError(f"benchmark: no ms/iter for both modes in {bench['benchmark']!r}")
+        out["benchmark"] = dict(ms_per_iter=ms, batch_size=2, test=bench["test"])
+        torch.cuda.empty_cache()
+
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with redirect_stdout(buf):
+            rc = warmup.main(["--model_type", flag["model_type"], "--config_path",
+                              flag["config_path"], "--song_seconds", "10",
+                              "--phase_fix_models", "2"])
+        lines = buf.getvalue().splitlines()
+        log("[app warmup] " + " | ".join(lines))
+        if rc != 0 or len(lines) != 3 or not lines[0].startswith("[warmup] kernels:"):
+            raise RuntimeError(f"warmup: exit {rc}, lines {lines}")
+        out["warmup"] = dict(wall_s=time.perf_counter() - t0, lines=lines)
+        torch.cuda.empty_cache()
+
+        session = InferenceSession.create(flag["model_type"], flag["config_path"],
+                                          flag["checkpoint_path"])
+        fn = session._model_apply(session.compute_dtype)
+        chunks = _chunks(song)
+        fn(session.params, chunks)
+        trace_dir = os.path.join(home, "trace")
+        with profiling.device_trace(trace_dir):
+            fn(session.params, chunks)
+            torch.cuda.synchronize()
+        traces = os.listdir(trace_dir)
+        if len(traces) != 1:
+            raise RuntimeError(f"device_trace: wrote {traces}")
+        with open(os.path.join(trace_dir, traces[0])) as f:
+            trace = f.read()
+        out["device_trace"] = dict(file=traces[0], bytes=len(trace),
+                                   names_k1_norm="rms_norm_gates_kernel" in trace,
+                                   model_info=profiling.get_model_info(session.params,
+                                                                       flag["model_type"]))
+        log(f"[app device_trace] {json.dumps(out['device_trace'])}")
+        if not out["device_trace"]["names_k1_norm"]:
+            raise RuntimeError("device_trace: the trace does not name rms_norm_gates_kernel")
+        del session, fn, chunks
+        torch.cuda.empty_cache()
+    finally:
+        if saved_env is None:
+            os.environ.pop("SESA_TPU_HOME", None)
+        else:
+            os.environ["SESA_TPU_HOME"] = saved_env
+        if saved_requests is None:
+            _sys.modules.pop("requests", None)
+        else:
+            _sys.modules["requests"] = saved_requests
+        shutil.rmtree(home, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    single_f = out[f"process_audio_{flag['model_type']}"]
+    log(f"  app: rtf_app {single_f['rtf_app']:.2f} (checkpoint load "
+        f"{single_f['checkpoint_load_s']:.2f} s), rtf_app_ensemble "
+        f"{out['auto_ensemble']['rtf_app_ensemble']:.2f}, benchmark f32 / bf16 "
+        f"{ms['f32']:.1f} / {ms['bf16']:.1f} ms/iter, phase {out['wall_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -2389,6 +2911,7 @@ def main(argv=None) -> int:
     out["mdx_demucs"] = phase_mdx_demucs(song)
     out["bandit_segm"] = phase_bandit_segm(song)
     out["swin_squim"] = phase_swin_squim(song)
+    out["app"] = phase_app(song)
     out["seconds"] = time.perf_counter() - t0
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -7,17 +7,18 @@ the demix engine. Supports the reference's four model presets, the per-file
 mono channel -> L/R decode), and the same per-file fallback to the
 unenhanced file on error.
 
-The presets' files are looked up by base name in a local checkpoint
-directory; downloading them comes with the registry (ROADMAP.md).
+The presets' files are fetched through ``registry.download_file`` into the
+registry's checkpoint directory; files already there are kept.
 """
 
 from __future__ import annotations
 
 import os
-import re
 from typing import List
 
 import numpy as np
+
+from sesa_tpu_torch.helpers import sanitize_filename
 
 # display name -> (checkpoint url, config url): the reference's four presets
 APOLLO_MODELS = {
@@ -39,38 +40,18 @@ APOLLO_MODELS = {
     ),
 }
 
-# where the presets' checkpoint and config files are looked up: ``ckpts``
-# beside the package (the JAX package's registry downloads into a ``ckpts``
-# directory of the same layout)
-CHECKPOINT_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                              "ckpts")
-
-
-def sanitize_filename(filename: str) -> str:
-    """Strip characters that break shells/ffmpeg (reference helpers.py:220);
-    the extension is sanitised too (URL-derived names can carry query or
-    fragment junk after the dot)."""
-    base, ext = os.path.splitext(filename)
-    base = re.sub(r"[^\w\-. ]", "_", base)
-    base = re.sub(r"\s+", "_", base).strip("_")
-    ext = re.sub(r"[^\w.]", "", ext)
-    return f"{base}{ext}"
-
 
 def _apollo_session(model_name: str, chunk_size: int, overlap: int, num_channels: int = 2,
-                    checkpoint_dir: str = CHECKPOINT_DIR, device=None):
-    """The session of a preset, from its two files in ``checkpoint_dir``
-    (found by the base names of the preset's URLs). Raises
-    ``FileNotFoundError`` when either is absent."""
+                    device=None):
+    """The session of a preset, from its two files, downloaded into the
+    registry's ``CHECKPOINT_DIR`` unless they are there already. A failed
+    download raises."""
+    from sesa_tpu_torch.registry import download_file
     from sesa_tpu_torch.runtime.session import InferenceSession
 
     ckpt_url, config_url = APOLLO_MODELS.get(model_name, APOLLO_MODELS["Apollo Universal Model"])
-    ckpt = os.path.join(checkpoint_dir, os.path.basename(ckpt_url))
-    config = os.path.join(checkpoint_dir, os.path.basename(config_url))
-    for path in (ckpt, config):
-        if not os.path.exists(path):
-            raise FileNotFoundError(f"Apollo preset {model_name!r}: {path} not found; place the "
-                                    f"preset's files in {checkpoint_dir!r}")
+    ckpt = download_file(ckpt_url)
+    config = download_file(config_url)
     return InferenceSession.create(
         "apollo", config, ckpt,
         # the GUI expresses the apollo chunk size in seconds (default 19)

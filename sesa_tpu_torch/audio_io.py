@@ -1,10 +1,13 @@
-"""Host-side WAV I/O on scipy and the stdlib ``wave`` module (counterpart of
-sesa_tpu/audio_io.py without its native codec or soundfile).
+"""Host-side audio I/O (counterpart of sesa_tpu/audio_io.py without its
+native codec).
 
-``.flac`` output is written as ``.wav`` of the requested PCM depth, as the
-JAX package does without soundfile; ``write_audio`` returns the path it
-actually wrote. ``AudioReader`` and ``AudioWriter`` stream frames for the
-long-file paths (the streaming ensemble).
+soundfile is used when it imports, as the JAX package does: it reads any
+format libsndfile knows (FLAC, OGG, MP3, ...) and writes real FLAC.
+Without it, WAV is read with scipy and written with scipy or the stdlib
+``wave`` module, and a ``.flac`` output is written as ``.wav`` of the
+requested PCM depth; ``write_audio`` returns the path it actually wrote.
+``AudioReader`` and ``AudioWriter`` stream frames for the long-file paths
+(the streaming ensemble).
 
 The JAX package's ``native/`` (a WAV codec in C++, built with g++ at first
 use and bound with ctypes) is not copied: the JAX package itself falls back
@@ -25,9 +28,23 @@ from typing import Optional, Tuple
 import numpy as np
 
 
+def _soundfile():
+    """The soundfile module, or None where it is not installed."""
+    try:
+        import soundfile
+    except ImportError:
+        return None
+    return soundfile
+
+
 def read_audio(path: str, target_sr: Optional[int] = None) -> Tuple[np.ndarray, int]:
-    """Read a WAV file -> ((channels, T) float32, sample_rate); mono is (1, T).
+    """Read an audio file -> ((channels, T) float32, sample_rate); mono is
+    (1, T). Any format soundfile reads where it is installed, else WAV.
     Resamples with polyphase filtering when ``target_sr`` differs."""
+    sf = _soundfile()
+    if sf is not None:
+        data, sr = sf.read(path, always_2d=True)
+        return _resampled(np.asarray(data, dtype=np.float32).T, sr, target_sr)
     from scipy.io import wavfile
 
     sr, data = wavfile.read(path)
@@ -41,7 +58,10 @@ def read_audio(path: str, target_sr: Optional[int] = None) -> Tuple[np.ndarray, 
         data = (data.astype(np.float32) - 128.0) / 128.0
     else:
         data = data.astype(np.float32)
-    data = data.T
+    return _resampled(data.T, sr, target_sr)
+
+
+def _resampled(data: np.ndarray, sr: int, target_sr: Optional[int]):
     if target_sr is not None and target_sr != sr:
         from scipy.signal import resample_poly
 
@@ -52,19 +72,25 @@ def read_audio(path: str, target_sr: Optional[int] = None) -> Tuple[np.ndarray, 
 
 
 def write_audio(path: str, audio: np.ndarray, sr: int, subtype: str = "FLOAT") -> str:
-    """Write (channels, T) float32 audio as WAV. subtype: FLOAT | PCM_16 | PCM_24.
+    """Write (channels, T) float32 audio. subtype: FLOAT | PCM_16 | PCM_24.
 
-    A ``.flac`` path is written as ``.wav`` (FLOAT coerced to PCM_24, as FLAC
-    cannot carry floats). Returns the path written.
+    FLAC cannot carry floats, so a ``.flac`` path takes FLOAT as PCM_24. With
+    soundfile the file is written in its path's format; without it a
+    ``.flac`` path is written as ``.wav``. Returns the path written.
     """
     audio = np.asarray(audio, dtype=np.float32)
     if audio.ndim == 1:
         audio = audio[None]
     data = audio.T  # (T, channels)
-    if os.path.splitext(path)[1].lower() == ".flac":
+    flac = os.path.splitext(path)[1].lower() == ".flac"
+    if flac and subtype == "FLOAT":
+        subtype = "PCM_24"
+    sf = _soundfile()
+    if sf is not None:
+        sf.write(path, np.ascontiguousarray(data), sr, subtype=subtype)
+        return path
+    if flac:
         path = os.path.splitext(path)[0] + ".wav"
-        if subtype == "FLOAT":
-            subtype = "PCM_24"
     if subtype == "FLOAT":
         from scipy.io import wavfile
 
@@ -89,7 +115,8 @@ class AudioReader:
 
     PCM WAV files (8, 16, 24 and 32 bits) stream through the stdlib ``wave``
     module with bounded memory, scaled as :func:`read_audio` scales them;
-    anything else (float WAV) is read whole and served in slices.
+    anything else (float WAV, or another format through soundfile) is read
+    whole by :func:`read_audio` and served in slices.
     """
 
     def __init__(self, path: str):

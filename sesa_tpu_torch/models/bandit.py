@@ -18,7 +18,7 @@ import torch
 from sesa_tpu_torch.models.bandit_v2 import (analysis, band_split, init_tree, lstm_keys,
                                              musical_band_specs, seqband_apply, synthesis)
 from sesa_tpu_torch.models.bs_roformer import _make_take
-from sesa_tpu_torch.ops.prec import net_dtype
+from sesa_tpu_torch.ops.prec import net_precision
 
 
 def _kwargs(config):
@@ -56,14 +56,14 @@ def band_features(spec: torch.Tensor, s: int, e: int) -> torch.Tensor:
 
 def apply(params, config, x: torch.Tensor) -> torch.Tensor:
     """(B, ch, T) -> (B, stems, ch, T), in f32."""
-    net_dtype(None)
-    kw = _kwargs(config)
-    specs, freq_weights = _specs(kw)
-    b, ch, t_samples = x.shape
-    spec, window, scale = analysis(x, kw)  # (B', F, T, 2)
-    z = band_split(params, spec, specs, band_features)
-    q = seqband_apply(params["seqband"], z)
-    return synthesis(params, kw, specs, freq_weights, q, spec, window, scale, b, ch, t_samples)
+    with net_precision(None):
+        kw = _kwargs(config)
+        specs, freq_weights = _specs(kw)
+        b, ch, t_samples = x.shape
+        spec, window, scale = analysis(x, kw)  # (B', F, T, 2)
+        z = band_split(params, spec, specs, band_features)
+        q = seqband_apply(params["seqband"], z)
+        return synthesis(params, kw, specs, freq_weights, q, spec, window, scale, b, ch, t_samples)
 
 
 def convert_torch(state_dict, config):

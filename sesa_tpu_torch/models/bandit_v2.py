@@ -23,7 +23,7 @@ import torch
 
 from sesa_tpu_torch.models import layers as L
 from sesa_tpu_torch.models.bs_roformer import _make_take
-from sesa_tpu_torch.ops.prec import net_dtype
+from sesa_tpu_torch.ops.prec import net_precision
 from sesa_tpu_torch.ops.stft import hann_window, istft_ri, stft_ri
 
 
@@ -211,14 +211,14 @@ def band_split(params, spec: torch.Tensor, specs, features) -> torch.Tensor:
 
 def apply(params, config, x: torch.Tensor) -> torch.Tensor:
     """(B, ch, T) -> (B, stems, ch, T), in f32."""
-    net_dtype(None)
-    kw = _kwargs(config)
-    specs, freq_weights = musical_band_specs(kw["n_fft"], kw["fs"], kw["n_bands"])
-    b, ch, t_samples = x.shape
-    spec, window, scale = analysis(x, kw)  # (B', F, T, 2)
-    z = band_split(params, spec, specs, band_features)
-    q = seqband_apply(params["seqband"], z)
-    return synthesis(params, kw, specs, freq_weights, q, spec, window, scale, b, ch, t_samples)
+    with net_precision(None):
+        kw = _kwargs(config)
+        specs, freq_weights = musical_band_specs(kw["n_fft"], kw["fs"], kw["n_bands"])
+        b, ch, t_samples = x.shape
+        spec, window, scale = analysis(x, kw)  # (B', F, T, 2)
+        z = band_split(params, spec, specs, band_features)
+        q = seqband_apply(params["seqband"], z)
+        return synthesis(params, kw, specs, freq_weights, q, spec, window, scale, b, ch, t_samples)
 
 
 # --------------------------------------------------------------------------

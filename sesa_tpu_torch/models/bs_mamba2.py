@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from sesa_tpu_torch.models import layers as L
 from sesa_tpu_torch.models.bs_roformer import _make_take
-from sesa_tpu_torch.ops.prec import net_dtype
+from sesa_tpu_torch.ops.prec import net_precision
 from sesa_tpu_torch.ops.ssd import ssd
 from sesa_tpu_torch.ops.stft import hann_window, istft_ri, stft_ri
 from sesa_tpu_torch.tree import tree_map
@@ -269,70 +269,71 @@ def apply(params, config, x, compute_dtype=None):
     mask stay f32, and the SSD scan sums in f32 inside its kernel whatever
     the dtype it is handed.
     """
-    dtype = net_dtype(compute_dtype)
-    kw = _model_kwargs(config)
-    widths = band_widths(kw["sr"], kw["win"])
-    nband = len(widths)
-    n = kw["feature_dim"]
-    k_out = kw["num_output"]
-    bsz, nch, nsample = x.shape
+    with net_precision(compute_dtype) as dtype:
+        kw = _model_kwargs(config)
+        widths = band_widths(kw["sr"], kw["win"])
+        nband = len(widths)
+        n = kw["feature_dim"]
+        k_out = kw["num_output"]
+        bsz, nch, nsample = x.shape
 
-    window = hann_window(kw["win"], device=x.device)
-    spec = stft_ri(x.reshape(bsz * nch, nsample), kw["win"], kw["stride"], window)
-    t = spec.shape[-2]
-    enc_dim = kw["win"] // 2 + 1
+        window = hann_window(kw["win"], device=x.device)
+        spec = stft_ri(x.reshape(bsz * nch, nsample), kw["win"], kw["stride"], window)
+        t = spec.shape[-2]
+        enc_dim = kw["win"] // 2 + 1
 
-    # (B', 2, F, T): real and imaginary parts as channels
-    spec_ri = torch.stack([spec[..., 0], spec[..., 1]], dim=1).to(dtype)
-    if dtype != torch.float32:
-        params = tree_map(lambda p: p.to(dtype), params)
+        # (B', 2, F, T): real and imaginary parts as channels
+        spec_ri = torch.stack([spec[..., 0], spec[..., 1]], dim=1).to(dtype)
+        if dtype != torch.float32:
+            params = tree_map(lambda p: p.to(dtype), params)
 
-    offsets = np.concatenate([[0], np.cumsum(widths)[:-1]]).astype(int).tolist()
+        offsets = np.concatenate([[0], np.cumsum(widths)[:-1]]).astype(int).tolist()
 
-    def bottleneck(p, start, bw):
-        sub = spec_ri[:, :, start:start + bw].reshape(bsz * nch, bw * 2, t)
-        return _pointwise(L.group_norm(sub, p["norm"], 1, eps=_EPS_F32), p["conv"])
+        def bottleneck(p, start, bw):
+            sub = spec_ri[:, :, start:start + bw].reshape(bsz * nch, bw * 2, t)
+            return _pointwise(L.group_norm(sub, p["norm"], 1, eps=_EPS_F32), p["conv"])
 
-    def features(bns):  # (B', nband, N, T)
-        return torch.stack([bottleneck(p, o, w) for p, o, w in zip(bns, offsets, widths)], dim=1)
+        def features(bns):  # (B', nband, N, T)
+            return torch.stack([bottleneck(p, o, w) for p, o, w in zip(bns, offsets, widths)],
+                               dim=1)
 
-    feat_mask, feat_map = features(params["bn_mask"]), features(params["bn_map"])
+        feat_mask, feat_map = features(params["bn_mask"]), features(params["bn_map"])
 
-    z = feat_mask.reshape(bsz, nch, nband * n, t)
-    for p in params["separator_mask"]:
-        z = _bsnet_apply(p, z, nband)
-    sep_mask = z.reshape(bsz * nch, nband, n, t)
+        z = feat_mask.reshape(bsz, nch, nband * n, t)
+        for p in params["separator_mask"]:
+            z = _bsnet_apply(p, z, nband)
+        sep_mask = z.reshape(bsz * nch, nband, n, t)
 
-    combined = torch.cat([feat_map, sep_mask], dim=2).reshape(bsz * nch * nband, 2 * n, t)
-    z = torch.tanh(_pointwise(combined, params["in_conv"])).reshape(bsz, nch, nband * n, t)
-    for p in params["separator_map"]:
-        z = _bsnet_apply(p, z, nband)
-    sep_map = z.reshape(bsz * nch, nband, n, t)
+        combined = torch.cat([feat_map, sep_mask], dim=2).reshape(bsz * nch * nband, 2 * n, t)
+        z = torch.tanh(_pointwise(combined, params["in_conv"])).reshape(bsz, nch, nband * n, t)
+        for p in params["separator_map"]:
+            z = _bsnet_apply(p, z, nband)
+        sep_map = z.reshape(bsz * nch, nband, n, t)
 
-    est_parts = []
-    for i, (start, bw) in enumerate(zip(offsets, widths)):
-        sub_re = spec[:, start:start + bw, :, 0]  # (B', bw, T)
-        sub_im = spec[:, start:start + bw, :, 1]
+        est_parts = []
+        for i, (start, bw) in enumerate(zip(offsets, widths)):
+            sub_re = spec[:, start:start + bw, :, 0]  # (B', bw, T)
+            sub_im = spec[:, start:start + bw, :, 1]
 
-        # the masks apply to the f32 spectrum
-        out = _head_apply(params["mask"][i], sep_mask[:, i], k_out).float()
-        out = out.reshape(bsz * nch, 2, 2, k_out, bw, t)
-        m = out[:, 0] * torch.sigmoid(out[:, 1])  # (B', 2, K, bw, T)
-        m_re, m_im = m[:, 0], m[:, 1]
-        # the masks sum to one across the outputs (ts_bs_mamba2.py:280-284)
-        m_re = m_re - (m_re.sum(dim=1, keepdim=True) - 1.0) / k_out
-        m_im = m_im - m_im.sum(dim=1, keepdim=True) / k_out
-        est_re = sub_re[:, None] * m_re - sub_im[:, None] * m_im
-        est_im = sub_re[:, None] * m_im + sub_im[:, None] * m_re
+            # the masks apply to the f32 spectrum
+            out = _head_apply(params["mask"][i], sep_mask[:, i], k_out).float()
+            out = out.reshape(bsz * nch, 2, 2, k_out, bw, t)
+            m = out[:, 0] * torch.sigmoid(out[:, 1])  # (B', 2, K, bw, T)
+            m_re, m_im = m[:, 0], m[:, 1]
+            # the masks sum to one across the outputs (ts_bs_mamba2.py:280-284)
+            m_re = m_re - (m_re.sum(dim=1, keepdim=True) - 1.0) / k_out
+            m_im = m_im - m_im.sum(dim=1, keepdim=True) / k_out
+            est_re = sub_re[:, None] * m_re - sub_im[:, None] * m_im
+            est_im = sub_re[:, None] * m_im + sub_im[:, None] * m_re
 
-        out2 = _head_apply(params["map"][i], sep_map[:, i], k_out).float()
-        out2 = out2.reshape(bsz * nch, 2, 2, k_out, bw, t)
-        mp = out2[:, 0] * torch.sigmoid(out2[:, 1])
-        est_parts.append(torch.stack([est_re + mp[:, 0], est_im + mp[:, 1]], dim=-1))
+            out2 = _head_apply(params["map"][i], sep_map[:, i], k_out).float()
+            out2 = out2.reshape(bsz * nch, 2, 2, k_out, bw, t)
+            mp = out2[:, 0] * torch.sigmoid(out2[:, 1])
+            est_parts.append(torch.stack([est_re + mp[:, 0], est_im + mp[:, 1]], dim=-1))
 
-    est = torch.cat(est_parts, dim=2).reshape(bsz * nch * k_out, enc_dim, t, 2)
-    wav = istft_ri(est, kw["win"], kw["stride"], window, length=nsample)
-    return wav.reshape(bsz, nch, k_out, nsample).transpose(1, 2)  # (B, K, ch, T)
+        est = torch.cat(est_parts, dim=2).reshape(bsz * nch * k_out, enc_dim, t, 2)
+        wav = istft_ri(est, kw["win"], kw["stride"], window, length=nsample)
+        return wav.reshape(bsz, nch, k_out, nsample).transpose(1, 2)  # (B, K, ch, T)
 
 
 # --------------------------------------------------------------------------

@@ -36,7 +36,7 @@ from sesa_tpu_torch.models import roformer_core as core
 from sesa_tpu_torch.models.layers import rms_norm
 from sesa_tpu_torch.ops import bands as B
 from sesa_tpu_torch.ops.fft import irdft_tables, rdft_tables
-from sesa_tpu_torch.ops.prec import net_dtype
+from sesa_tpu_torch.ops.prec import net_precision
 from sesa_tpu_torch.ops.rope import default_freqs, rope_tables
 from sesa_tpu_torch.ops.stft import hann_window, istft_ri, stft_ri
 from sesa_tpu_torch.tree import tree_map
@@ -232,86 +232,86 @@ def apply_from_spec(params, spec: RoformerSpec, x: torch.Tensor, compute_dtype=N
     mask estimators in bf16 (kernels K1 and K2 on CUDA) while the STFT, mask
     multiply and iSTFT stay f32.
     """
-    dtype = net_dtype(compute_dtype)
-    plan = spec.band_plan()
-    b, ch, t = x.shape
-    if ch != spec.audio_channels:
-        raise ValueError(f"expected {spec.audio_channels} channels, got {ch}")
+    with net_precision(compute_dtype) as dtype:
+        plan = spec.band_plan()
+        b, ch, t = x.shape
+        if ch != spec.audio_channels:
+            raise ValueError(f"expected {spec.audio_channels} channels, got {ch}")
 
-    window = hann_window(spec.stft_win_length, device=x.device)
-    s = stft_ri(x, spec.stft_n_fft, spec.stft_hop_length, window,
-                win_length=spec.stft_win_length, normalized=spec.stft_normalized)
-    tf = s.shape[-2]
-    # pack (f, s, c) minor-to-major order: feature = (f*ch + s)*2 + c
-    sp = s.permute(0, 3, 2, 1, 4).reshape(b, tf, spec.num_features)
+        window = hann_window(spec.stft_win_length, device=x.device)
+        s = stft_ri(x, spec.stft_n_fft, spec.stft_hop_length, window,
+                    win_length=spec.stft_win_length, normalized=spec.stft_normalized)
+        tf = s.shape[-2]
+        # pack (f, s, c) minor-to-major order: feature = (f*ch + s)*2 + c
+        sp = s.permute(0, 3, 2, 1, 4).reshape(b, tf, spec.num_features)
 
-    nb = plan.num_bands
-    # RoPE tables in f32, then cast to the compute dtype with everything else
-    rope_time = rope_tables(params["rope_time_freqs"].float(), tf)
-    rope_freq = rope_tables(params["rope_freq_freqs"].float(), nb)
-    if dtype != torch.float32:
-        params = tree_map(lambda p: p.to(dtype), params)
-        rope_time = tuple(r.to(dtype) for r in rope_time)
-        rope_freq = tuple(r.to(dtype) for r in rope_freq)
-    xb = B.band_split_apply(plan, params["band_split"], sp.to(dtype))
+        nb = plan.num_bands
+        # RoPE tables in f32, then cast to the compute dtype with everything else
+        rope_time = rope_tables(params["rope_time_freqs"].float(), tf)
+        rope_freq = rope_tables(params["rope_freq_freqs"].float(), nb)
+        if dtype != torch.float32:
+            params = tree_map(lambda p: p.to(dtype), params)
+            rope_time = tuple(r.to(dtype) for r in rope_time)
+            rope_freq = tuple(r.to(dtype) for r in rope_freq)
+        xb = B.band_split_apply(plan, params["band_split"], sp.to(dtype))
 
-    streams = spec.num_residual_streams
-    vr_forward = spec.value_residual or spec.experimental_forward or streams > 1
-    # the residual streams are expanded once before the depth loop and summed
-    # after it (reference bs_roformer_experimental.py:558-560, 608-610)
-    xb = HC.expand_streams(xb, streams)
+        streams = spec.num_residual_streams
+        vr_forward = spec.value_residual or spec.experimental_forward or streams > 1
+        # the residual streams are expanded once before the depth loop and summed
+        # after it (reference bs_roformer_experimental.py:558-560, 608-610)
+        xb = HC.expand_streams(xb, streams)
 
-    store = []
-    first_values = {"time": None, "freq": None}  # the first depth layer's V, per axis
+        store = []
+        first_values = {"time": None, "freq": None}  # the first depth layer's V, per axis
 
-    def stack(layer, axis, z, rope):
-        if not vr_forward:
-            return core.transformer_apply(layer[axis], z, spec.heads, rope=rope)
-        z, values = core.transformer_apply_vr(layer[axis], z, spec.heads, rope=rope,
-                                              value_residual=first_values[axis],
-                                              streams=streams)
-        if first_values[axis] is None:
-            first_values[axis] = values
-        return z
+        def stack(layer, axis, z, rope):
+            if not vr_forward:
+                return core.transformer_apply(layer[axis], z, spec.heads, rope=rope)
+            z, values = core.transformer_apply_vr(layer[axis], z, spec.heads, rope=rope,
+                                                  value_residual=first_values[axis],
+                                                  streams=streams)
+            if first_values[axis] is None:
+                first_values[axis] = values
+            return z
 
-    for layer in params["layers"]:
-        # reference order (bs_roformer.py:510-524): the linear transformer
-        # runs first, then the skip sums are added
-        if "linear" in layer:
-            z = core.transformer_apply(layer["linear"], xb.reshape(-1, tf * nb, spec.dim),
-                                       spec.heads, linear_attn=True)
-            xb = z.reshape(-1, tf, nb, spec.dim)
-        if spec.skip_connection and store:
-            xb = xb + sum(store)
-        z = xb.permute(0, 2, 1, 3).contiguous()  # (B, NB, Tf, D): sequence = frames
-        z = stack(layer, "time", z, rope_time)
-        z = z.permute(0, 2, 1, 3).contiguous()  # (B, Tf, NB, D): sequence = bands
-        xb = stack(layer, "freq", z, rope_freq)
-        if "fno" in layer:
-            xb = _fno_apply(layer["fno"], xb)
-        if spec.skip_connection:
-            store.append(xb)
+        for layer in params["layers"]:
+            # reference order (bs_roformer.py:510-524): the linear transformer
+            # runs first, then the skip sums are added
+            if "linear" in layer:
+                z = core.transformer_apply(layer["linear"], xb.reshape(-1, tf * nb, spec.dim),
+                                           spec.heads, linear_attn=True)
+                xb = z.reshape(-1, tf, nb, spec.dim)
+            if spec.skip_connection and store:
+                xb = xb + sum(store)
+            z = xb.permute(0, 2, 1, 3).contiguous()  # (B, NB, Tf, D): sequence = frames
+            z = stack(layer, "time", z, rope_time)
+            z = z.permute(0, 2, 1, 3).contiguous()  # (B, Tf, NB, D): sequence = bands
+            xb = stack(layer, "freq", z, rope_freq)
+            if "fno" in layer:
+                xb = _fno_apply(layer["fno"], xb)
+            if spec.skip_connection:
+                store.append(xb)
 
-    xb = HC.reduce_streams(xb, streams)
+        xb = HC.reduce_streams(xb, streams)
 
-    if "final_norm_gamma" in params:
-        xb = rms_norm(xb, params["final_norm_gamma"])
+        if "final_norm_gamma" in params:
+            xb = rms_norm(xb, params["final_norm_gamma"])
 
-    masks = torch.stack([B.mask_estimator_apply(plan, p, xb)
-                         for p in params["mask_estimators"]], dim=1).float()
+        masks = torch.stack([B.mask_estimator_apply(plan, p, xb)
+                             for p in params["mask_estimators"]], dim=1).float()
 
-    # complex multiply mask × stft in packed RI features
-    nstems = masks.shape[1]
-    m = masks.reshape(b, nstems, tf, spec.num_features // 2, 2)
-    sr = sp.reshape(b, 1, tf, spec.num_features // 2, 2)
-    re = m[..., 0] * sr[..., 0] - m[..., 1] * sr[..., 1]
-    im = m[..., 0] * sr[..., 1] + m[..., 1] * sr[..., 0]
-    out = torch.stack([re, im], dim=-1)
-    # unpack rows (f, s) -> (B, S, ch, F, Tf, 2)
-    out = out.reshape(b, nstems, tf, spec.num_freqs, ch, 2).permute(0, 1, 4, 3, 2, 5)
-    return istft_ri(out, spec.stft_n_fft, spec.stft_hop_length, window,
-                    win_length=spec.stft_win_length, normalized=spec.stft_normalized,
-                    length=t)
+        # complex multiply mask × stft in packed RI features
+        nstems = masks.shape[1]
+        m = masks.reshape(b, nstems, tf, spec.num_features // 2, 2)
+        sr = sp.reshape(b, 1, tf, spec.num_features // 2, 2)
+        re = m[..., 0] * sr[..., 0] - m[..., 1] * sr[..., 1]
+        im = m[..., 0] * sr[..., 1] + m[..., 1] * sr[..., 0]
+        out = torch.stack([re, im], dim=-1)
+        # unpack rows (f, s) -> (B, S, ch, F, Tf, 2)
+        out = out.reshape(b, nstems, tf, spec.num_freqs, ch, 2).permute(0, 1, 4, 3, 2, 5)
+        return istft_ri(out, spec.stft_n_fft, spec.stft_hop_length, window,
+                        win_length=spec.stft_win_length, normalized=spec.stft_normalized,
+                        length=t)
 
 
 def apply(params, config, x, compute_dtype=None):

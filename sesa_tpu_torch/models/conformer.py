@@ -19,7 +19,7 @@ import torch
 from sesa_tpu_torch.models import conformer_core as cc
 from sesa_tpu_torch.models.bs_roformer import _make_take
 from sesa_tpu_torch.models.layers import kaiming_uniform, linear
-from sesa_tpu_torch.ops.prec import net_dtype
+from sesa_tpu_torch.ops.prec import net_precision
 from sesa_tpu_torch.ops.stft import hann_window, istft_ri, stft_ri
 
 
@@ -60,33 +60,33 @@ def init(generator: torch.Generator, config):
 
 def apply(params, config, x):
     """(B, C, T) -> (B, S, C, T), in f32."""
-    net_dtype(None)
-    kw = _kwargs(config)
-    b, ch, t_samples = x.shape
-    fb, s_src = kw["freq_bins"], kw["sources"]
-    x = x.float()
+    with net_precision(None):
+        kw = _kwargs(config)
+        b, ch, t_samples = x.shape
+        fb, s_src = kw["freq_bins"], kw["sources"]
+        x = x.float()
 
-    window = hann_window(kw["win_length"], device=x.device)
-    spec = stft_ri(x.reshape(b * ch, t_samples), kw["n_fft"], kw["hop_length"], window,
-                   win_length=kw["win_length"], center=kw["center"])
-    tf = spec.shape[-2]
-    spec = spec.reshape(b, ch, fb, tf, 2)
-    mag = torch.sqrt(spec[..., 0] ** 2 + spec[..., 1] ** 2)  # (B, C, F, T)
+        window = hann_window(kw["win_length"], device=x.device)
+        spec = stft_ri(x.reshape(b * ch, t_samples), kw["n_fft"], kw["hop_length"], window,
+                       win_length=kw["win_length"], center=kw["center"])
+        tf = spec.shape[-2]
+        spec = spec.reshape(b, ch, fb, tf, 2)
+        mag = torch.sqrt(spec[..., 0] ** 2 + spec[..., 1] ** 2)  # (B, C, F, T)
 
-    z = mag.permute(0, 3, 1, 2).reshape(b, tf, ch * fb)
-    z = linear(z, params["input_proj"])
-    z = cc.conformer_apply(params["conformer"], z, kw["heads"])
-    z = linear(torch.tanh(z), params["output_proj"])
+        z = mag.permute(0, 3, 1, 2).reshape(b, tf, ch * fb)
+        z = linear(z, params["input_proj"])
+        z = cc.conformer_apply(params["conformer"], z, kw["heads"])
+        z = linear(torch.tanh(z), params["output_proj"])
 
-    # (B, T, 2·S·C·F) -> (B, 2, S, C, F, T)
-    z = z.reshape(b, tf, s_src * ch * 2, fb).permute(0, 2, 3, 1)
-    z = z.reshape(b, 2, s_src, ch, fb, tf)
-    m_re, m_im = z[:, 0], z[:, 1]  # (B, S, C, F, T)
-    sr_, si_ = spec[:, None, ..., 0], spec[:, None, ..., 1]  # (B, 1, C, F, T)
-    est = torch.stack([m_re * sr_ - m_im * si_, m_re * si_ + m_im * sr_], dim=-1)
-    wav = istft_ri(est.reshape(b * s_src * ch, fb, tf, 2), kw["n_fft"], kw["hop_length"],
-                   window, win_length=kw["win_length"], center=kw["center"], length=t_samples)
-    return wav.reshape(b, s_src, ch, t_samples)
+        # (B, T, 2·S·C·F) -> (B, 2, S, C, F, T)
+        z = z.reshape(b, tf, s_src * ch * 2, fb).permute(0, 2, 3, 1)
+        z = z.reshape(b, 2, s_src, ch, fb, tf)
+        m_re, m_im = z[:, 0], z[:, 1]  # (B, S, C, F, T)
+        sr_, si_ = spec[:, None, ..., 0], spec[:, None, ..., 1]  # (B, 1, C, F, T)
+        est = torch.stack([m_re * sr_ - m_im * si_, m_re * si_ + m_im * sr_], dim=-1)
+        wav = istft_ri(est.reshape(b * s_src * ch, fb, tf, 2), kw["n_fft"], kw["hop_length"],
+                       window, win_length=kw["win_length"], center=kw["center"], length=t_samples)
+        return wav.reshape(b, s_src, ch, t_samples)
 
 
 def convert_torch(state_dict, config):

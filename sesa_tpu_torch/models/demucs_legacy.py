@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from sesa_tpu_torch.models import layers as L
-from sesa_tpu_torch.ops.prec import net_dtype
+from sesa_tpu_torch.ops.prec import net_precision
 from sesa_tpu_torch.tree import tree_map
 
 
@@ -307,64 +307,64 @@ def prepare(params, config, compute_dtype=None):
 def apply(params, config, mix: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """(B, C, T) -> (B, S, C, T); the demucs package's Demucs.forward."""
     kw = kwargs_from_config(config)
-    dtype = net_dtype(compute_dtype)
-    x = mix.float()
-    length = x.shape[-1]
+    with net_precision(compute_dtype) as dtype:
+        x = mix.float()
+        length = x.shape[-1]
 
-    if kw["normalize"]:
-        mono = x.mean(dim=1, keepdim=True)
-        std, mean = torch.std_mean(mono, dim=-1, keepdim=True, correction=1)
-        x = (x - mean) / (1e-5 + std)
+        if kw["normalize"]:
+            mono = x.mean(dim=1, keepdim=True)
+            std, mean = torch.std_mean(mono, dim=-1, keepdim=True, correction=1)
+            x = (x - mean) / (1e-5 + std)
 
-    delta = valid_length(length, kw) - length
-    x = F.pad(x, (delta // 2, delta - delta // 2))
-    if kw["resample"]:
-        x = _resample(x, 1, 2)
+        delta = valid_length(length, kw) - length
+        x = F.pad(x, (delta // 2, delta - delta // 2))
+        if kw["resample"]:
+            x = _resample(x, 1, 2)
 
-    x = x.to(dtype)
-    params = prepare(params, config, compute_dtype)
+        x = x.to(dtype)
+        params = prepare(params, config, compute_dtype)
 
-    saved = []
-    for e in params["encoder"]:
-        x = L.conv1d(x, e["conv"]["weight"], e["conv"]["bias"], stride=kw["stride"])
-        if "norm" in e:
-            x = L.group_norm(x, e["norm"], kw["norm_groups"])
-        x = L.gelu(x)
-        if "dconv" in e:
-            x = _dconv(e["dconv"], x)
-        if "rewrite" in e:
-            x = L.conv1d(x, e["rewrite"]["weight"], e["rewrite"]["bias"])
-            if "rewrite_norm" in e:
-                x = L.group_norm(x, e["rewrite_norm"], kw["norm_groups"])
-            x = L.glu(x, dim=1)
-        saved.append(x)
-
-    if "lstm" in params:
-        x = _blstm(params["lstm"], x)
-
-    for i, d in enumerate(params["decoder"]):
-        x = x + center_trim(saved.pop(-1), x.shape[-1])
-        if "rewrite" in d:
-            k = d["rewrite"]["weight"].shape[-1]
-            x = L.conv1d(x, d["rewrite"]["weight"], d["rewrite"]["bias"], padding=k // 2)
-            if "rewrite_norm" in d:
-                x = L.group_norm(x, d["rewrite_norm"], kw["norm_groups"])
-            x = L.glu(x, dim=1)
-        if "dconv" in d:
-            x = _dconv(d["dconv"], x)
-        x = F.conv_transpose1d(x, d["tconv"]["weight"], d["tconv"]["bias"], stride=kw["stride"])
-        if "norm" in d:
-            x = L.group_norm(x, d["norm"], kw["norm_groups"])
-        if i < len(params["decoder"]) - 1:
+        saved = []
+        for e in params["encoder"]:
+            x = L.conv1d(x, e["conv"]["weight"], e["conv"]["bias"], stride=kw["stride"])
+            if "norm" in e:
+                x = L.group_norm(x, e["norm"], kw["norm_groups"])
             x = L.gelu(x)
+            if "dconv" in e:
+                x = _dconv(e["dconv"], x)
+            if "rewrite" in e:
+                x = L.conv1d(x, e["rewrite"]["weight"], e["rewrite"]["bias"])
+                if "rewrite_norm" in e:
+                    x = L.group_norm(x, e["rewrite_norm"], kw["norm_groups"])
+                x = L.glu(x, dim=1)
+            saved.append(x)
 
-    if kw["resample"]:
-        x = _resample(x, 2, 1)
-    x = x.float()
-    if kw["normalize"]:
-        x = x * std + mean
-    x = center_trim(x, length)
-    return x.reshape(x.shape[0], len(kw["sources"]), kw["audio_channels"], length)
+        if "lstm" in params:
+            x = _blstm(params["lstm"], x)
+
+        for i, d in enumerate(params["decoder"]):
+            x = x + center_trim(saved.pop(-1), x.shape[-1])
+            if "rewrite" in d:
+                k = d["rewrite"]["weight"].shape[-1]
+                x = L.conv1d(x, d["rewrite"]["weight"], d["rewrite"]["bias"], padding=k // 2)
+                if "rewrite_norm" in d:
+                    x = L.group_norm(x, d["rewrite_norm"], kw["norm_groups"])
+                x = L.glu(x, dim=1)
+            if "dconv" in d:
+                x = _dconv(d["dconv"], x)
+            x = F.conv_transpose1d(x, d["tconv"]["weight"], d["tconv"]["bias"], stride=kw["stride"])
+            if "norm" in d:
+                x = L.group_norm(x, d["norm"], kw["norm_groups"])
+            if i < len(params["decoder"]) - 1:
+                x = L.gelu(x)
+
+        if kw["resample"]:
+            x = _resample(x, 2, 1)
+        x = x.float()
+        if kw["normalize"]:
+            x = x * std + mean
+        x = center_trim(x, length)
+        return x.reshape(x.shape[0], len(kw["sources"]), kw["audio_channels"], length)
 
 
 # --------------------------------------------------------------------------

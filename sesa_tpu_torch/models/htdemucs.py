@@ -34,7 +34,7 @@ import torch.nn.functional as F
 
 from sesa_tpu_torch.models import demucs_legacy
 from sesa_tpu_torch.models import layers as L
-from sesa_tpu_torch.ops.prec import net_dtype
+from sesa_tpu_torch.ops.prec import net_precision
 from sesa_tpu_torch.ops.stft import hann_window, istft_ri, stft_ri
 from sesa_tpu_torch.ops.wiener import wiener_ri
 from sesa_tpu_torch.tree import tree_map
@@ -548,114 +548,114 @@ def apply(params, config, mix: torch.Tensor, compute_dtype=None) -> torch.Tensor
     legacy time-domain net (``demucs_legacy``)."""
     if _variant(config) == "demucs":
         return demucs_legacy.apply(params, config, mix, compute_dtype=compute_dtype)
-    dtype = net_dtype(compute_dtype)
-    kw = _kwargs(config)
-    plan = _layer_plan(kw)
-    nfft, hl = kw["nfft"], kw["nfft"] // 4
-    mix = mix.float()
-    b, ch, length = mix.shape
+    with net_precision(compute_dtype) as dtype:
+        kw = _kwargs(config)
+        plan = _layer_plan(kw)
+        nfft, hl = kw["nfft"], kw["nfft"] // 4
+        mix = mix.float()
+        b, ch, length = mix.shape
 
-    # ---- STFT with the demucs alignment (reference :427-447) ----
-    le = int(math.ceil(length / hl))
-    pad = hl // 2 * 3
-    xpad = F.pad(mix, (pad, pad + le * hl - length), mode="reflect")
-    window = hann_window(nfft, device=mix.device)
-    spec = stft_ri(xpad.reshape(b * ch, -1), nfft, hl, window, normalized=True)
-    spec = spec[:, :-1, 2:2 + le]  # drop the Nyquist row; trim the frames
-    z_mix = spec.reshape(b, ch, nfft // 2, le, 2)
+        # ---- STFT with the demucs alignment (reference :427-447) ----
+        le = int(math.ceil(length / hl))
+        pad = hl // 2 * 3
+        xpad = F.pad(mix, (pad, pad + le * hl - length), mode="reflect")
+        window = hann_window(nfft, device=mix.device)
+        spec = stft_ri(xpad.reshape(b * ch, -1), nfft, hl, window, normalized=True)
+        spec = spec[:, :-1, 2:2 + le]  # drop the Nyquist row; trim the frames
+        z_mix = spec.reshape(b, ch, nfft // 2, le, 2)
 
-    if kw["cac"]:  # (B, C*2, F, T) with (ch, re/im) major-minor
-        mag = z_mix.permute(0, 1, 4, 2, 3).reshape(b, ch * 2, nfft // 2, le)
-    else:
-        mag = torch.sqrt(z_mix[..., 0] ** 2 + z_mix[..., 1] ** 2)
+        if kw["cac"]:  # (B, C*2, F, T) with (ch, re/im) major-minor
+            mag = z_mix.permute(0, 1, 4, 2, 3).reshape(b, ch * 2, nfft // 2, le)
+        else:
+            mag = torch.sqrt(z_mix[..., 0] ** 2 + z_mix[..., 1] ** 2)
 
-    subs = kw["num_subbands"]
-    if subs > 1:  # cac2cws: frequency rows (k, f/k) into channels
-        c_in = mag.shape[1]
-        mag = mag.reshape(b, c_in * subs, (nfft // 2) // subs, le)
+        subs = kw["num_subbands"]
+        if subs > 1:  # cac2cws: frequency rows (k, f/k) into channels
+            c_in = mag.shape[1]
+            mag = mag.reshape(b, c_in * subs, (nfft // 2) // subs, le)
 
-    # ddof 0, jnp's default (the torch oracle of the JAX tests uses ddof 1)
-    std, mean = torch.std_mean(mag, dim=(1, 2, 3), keepdim=True, correction=0)
-    x = (mag - mean) / (1e-5 + std)
-    stdt, meant = torch.std_mean(mix, dim=(1, 2), keepdim=True, correction=0)
-    xt = (mix - meant) / (1e-5 + stdt)
+        # ddof 0, jnp's default (the torch oracle of the JAX tests uses ddof 1)
+        std, mean = torch.std_mean(mag, dim=(1, 2, 3), keepdim=True, correction=0)
+        x = (mag - mean) / (1e-5 + std)
+        stdt, meant = torch.std_mean(mix, dim=(1, 2), keepdim=True, correction=0)
+        xt = (mix - meant) / (1e-5 + stdt)
 
-    x, xt = x.to(dtype), xt.to(dtype)
-    params = prepare(params, config, compute_dtype)
+        x, xt = x.to(dtype), xt.to(dtype)
+        params = prepare(params, config, compute_dtype)
 
-    saved, saved_t, lengths, lengths_t = [], [], [], []
-    for idx, lp in enumerate(plan):
-        lengths.append(x.shape[-1])
-        inject = None
-        if idx < len(params["tencoder"]):
-            lengths_t.append(xt.shape[-1])
-            tout = _henc_apply(params["tencoder"][idx], xt, kw, False, kw["kernel_size"],
-                               kw["stride"], True, empty=lp["last_freq"])
-            if not lp["last_freq"]:
-                xt = tout
-                saved_t.append(xt)
+        saved, saved_t, lengths, lengths_t = [], [], [], []
+        for idx, lp in enumerate(plan):
+            lengths.append(x.shape[-1])
+            inject = None
+            if idx < len(params["tencoder"]):
+                lengths_t.append(xt.shape[-1])
+                tout = _henc_apply(params["tencoder"][idx], xt, kw, False, kw["kernel_size"],
+                                   kw["stride"], True, empty=lp["last_freq"])
+                if not lp["last_freq"]:
+                    xt = tout
+                    saved_t.append(xt)
+                else:
+                    inject = tout
+            ep = params["encoder"][idx]
+            if "layers" in ep:
+                if inject is not None or lp["norm"]:
+                    raise ValueError("MultiWrap takes neither a normed layer nor an injection")
+                x = _henc_multi(ep, x, kw, lp["ker"], lp["stride"])
             else:
-                inject = tout
-        ep = params["encoder"][idx]
-        if "layers" in ep:
-            if inject is not None or lp["norm"]:
-                raise ValueError("MultiWrap takes neither a normed layer nor an injection")
-            x = _henc_multi(ep, x, kw, lp["ker"], lp["stride"])
-        else:
-            x = _henc_apply(ep, x, kw, lp["freq"], lp["ker"], lp["stride"], lp["pad"],
-                            inject=inject)
-        if idx == 0:
-            # ScaledEmbedding: the table is sized from the nominal frequency
-            # count; only the rows present are read (1/k of it with k subbands)
-            emb = (params["freq_emb"] * kw["emb_scale"])[:x.shape[2]]
-            x = x + kw["freq_emb"] * emb.t()[None, :, :, None]
-        saved.append(x)
+                x = _henc_apply(ep, x, kw, lp["freq"], lp["ker"], lp["stride"], lp["pad"],
+                                inject=inject)
+            if idx == 0:
+                # ScaledEmbedding: the table is sized from the nominal frequency
+                # count; only the rows present are read (1/k of it with k subbands)
+                emb = (params["freq_emb"] * kw["emb_scale"])[:x.shape[2]]
+                x = x + kw["freq_emb"] * emb.t()[None, :, :, None]
+            saved.append(x)
 
-    if kw["variant"] == "hdemucs":
-        # no bottleneck net: the decoder starts from zeros and the signal
-        # flows through the skips
-        return _decode_and_assemble(params, kw, plan, torch.zeros_like(x), xt, saved, saved_t,
-                                    lengths, lengths_t, z_mix, mean, std, meant, stdt, length,
-                                    le, subs)
-    ct = params["crosstransformer"]
-    if kw["bottom_channels"]:  # 1x1 channel upsamplers (reference :620-625)
-        bb, c0, fr0, t0 = x.shape
-        x = _conv1x1(params["channel_upsampler"], x.reshape(bb, c0, fr0 * t0))
-        x = x.reshape(bb, -1, fr0, t0)
-        xt = _conv1x1(params["channel_upsampler_t"], xt)
-    bb, cc, fr, t1 = x.shape
-    pos2d = _sin_embedding_2d(cc, fr, t1, kw["t_max_period"]).to(x.device)
-    # token order (t1, fr): 'b c fr t1 -> b (t1 fr) c'
-    tok = x.permute(0, 3, 2, 1).reshape(bb, t1 * fr, cc)
-    pos_tok = pos2d.permute(0, 3, 2, 1).reshape(1, t1 * fr, cc)
-    tok = L.layer_norm(tok, ct["norm_in"])
-    # the position tables are f32; cast so bf16 tokens stay bf16
-    tok = tok + (kw["t_weight_pos_embed"] * pos_tok).to(tok.dtype)
+        if kw["variant"] == "hdemucs":
+            # no bottleneck net: the decoder starts from zeros and the signal
+            # flows through the skips
+            return _decode_and_assemble(params, kw, plan, torch.zeros_like(x), xt, saved, saved_t,
+                                        lengths, lengths_t, z_mix, mean, std, meant, stdt, length,
+                                        le, subs)
+        ct = params["crosstransformer"]
+        if kw["bottom_channels"]:  # 1x1 channel upsamplers (reference :620-625)
+            bb, c0, fr0, t0 = x.shape
+            x = _conv1x1(params["channel_upsampler"], x.reshape(bb, c0, fr0 * t0))
+            x = x.reshape(bb, -1, fr0, t0)
+            xt = _conv1x1(params["channel_upsampler_t"], xt)
+        bb, cc, fr, t1 = x.shape
+        pos2d = _sin_embedding_2d(cc, fr, t1, kw["t_max_period"]).to(x.device)
+        # token order (t1, fr): 'b c fr t1 -> b (t1 fr) c'
+        tok = x.permute(0, 3, 2, 1).reshape(bb, t1 * fr, cc)
+        pos_tok = pos2d.permute(0, 3, 2, 1).reshape(1, t1 * fr, cc)
+        tok = L.layer_norm(tok, ct["norm_in"])
+        # the position tables are f32; cast so bf16 tokens stay bf16
+        tok = tok + (kw["t_weight_pos_embed"] * pos_tok).to(tok.dtype)
 
-    t2 = xt.shape[-1]
-    tokt = L.layer_norm(xt.transpose(1, 2), ct["norm_in_t"])
-    pos_t = _sin_embedding_1d(t2, cc, kw["t_max_period"]).to(x.device)
-    tokt = tokt + (kw["t_weight_pos_embed"] * pos_t).to(tokt.dtype)
+        t2 = xt.shape[-1]
+        tokt = L.layer_norm(xt.transpose(1, 2), ct["norm_in_t"])
+        pos_t = _sin_embedding_1d(t2, cc, kw["t_max_period"]).to(x.device)
+        tokt = tokt + (kw["t_weight_pos_embed"] * pos_t).to(tokt.dtype)
 
-    parity = 1 if kw["t_cross_first"] else 0
-    for i in range(kw["t_layers"]):
-        if i % 2 == parity:
-            tok = _t_self_layer(ct["layers"][i], tok, kw["t_heads"])
-            tokt = _t_self_layer(ct["layers_t"][i], tokt, kw["t_heads"])
-        else:
-            old = tok
-            tok = _t_cross_layer(ct["layers"][i], tok, tokt, kw["t_heads"])
-            tokt = _t_cross_layer(ct["layers_t"][i], tokt, old, kw["t_heads"])
+        parity = 1 if kw["t_cross_first"] else 0
+        for i in range(kw["t_layers"]):
+            if i % 2 == parity:
+                tok = _t_self_layer(ct["layers"][i], tok, kw["t_heads"])
+                tokt = _t_self_layer(ct["layers_t"][i], tokt, kw["t_heads"])
+            else:
+                old = tok
+                tok = _t_cross_layer(ct["layers"][i], tok, tokt, kw["t_heads"])
+                tokt = _t_cross_layer(ct["layers_t"][i], tokt, old, kw["t_heads"])
 
-    x = tok.reshape(bb, t1, fr, cc).permute(0, 3, 2, 1)
-    xt = tokt.transpose(1, 2)
-    if kw["bottom_channels"]:  # back to the encoder's channels (reference :630-634)
-        x = _conv1x1(params["channel_downsampler"], x.reshape(bb, cc, fr * t1))
-        x = x.reshape(bb, -1, fr, t1)
-        xt = _conv1x1(params["channel_downsampler_t"], xt)
+        x = tok.reshape(bb, t1, fr, cc).permute(0, 3, 2, 1)
+        xt = tokt.transpose(1, 2)
+        if kw["bottom_channels"]:  # back to the encoder's channels (reference :630-634)
+            x = _conv1x1(params["channel_downsampler"], x.reshape(bb, cc, fr * t1))
+            x = x.reshape(bb, -1, fr, t1)
+            xt = _conv1x1(params["channel_downsampler_t"], xt)
 
-    return _decode_and_assemble(params, kw, plan, x, xt, saved, saved_t, lengths, lengths_t,
-                                z_mix, mean, std, meant, stdt, length, le, subs)
+        return _decode_and_assemble(params, kw, plan, x, xt, saved, saved_t, lengths, lengths_t,
+                                    z_mix, mean, std, meant, stdt, length, le, subs)
 
 
 def _decode_and_assemble(params, kw, plan, x, xt, saved, saved_t, lengths, lengths_t,

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from sesa_tpu_torch.models import layers as L
-from sesa_tpu_torch.ops.prec import net_dtype
+from sesa_tpu_torch.ops.prec import net_precision
 from sesa_tpu_torch.ops.stft import hann_window, istft_ri, stft_ri
 from sesa_tpu_torch.tree import tree_map
 
@@ -203,43 +203,43 @@ def apply(params, config, x: torch.Tensor, transform=None, hartley=False,
     act = L.make_act(config.model.act)
     s_stems = num_target_instruments(config)
     length = x.shape[-1]
-    dtype = net_dtype(compute_dtype)
+    with net_precision(compute_dtype) as dtype:
 
-    analysis, synthesis = transform or (spectrogram, inverse_spectrogram)
-    spec = analysis(x, config).to(dtype)  # (B, ch*2, dim_f, T) (Hartley: (B, ch, n_fft, T))
-    params = prepare(params, config, compute_dtype)
-    mix = xx = _cac2cws(spec, k)  # (B, dim_c, f, T)
+        analysis, synthesis = transform or (spectrogram, inverse_spectrogram)
+        spec = analysis(x, config).to(dtype)  # (B, ch*2, dim_f, T) (Hartley: (B, ch, n_fft, T))
+        params = prepare(params, config, compute_dtype)
+        mix = xx = _cac2cws(spec, k)  # (B, dim_c, f, T)
 
-    first_out = xx = L.conv2d(xx, params["first_conv"])
-    xx = xx.transpose(-1, -2)  # (B, c, T, f)
+        first_out = xx = L.conv2d(xx, params["first_conv"])
+        xx = xx.transpose(-1, -2)  # (B, c, T, f)
 
-    skips = []
-    for block in params["encoder"]:
-        xx = _apply_tfc_tdf(block["tfc_tdf"], xx, norm_fn, act)
-        skips.append(xx)
-        xx = L.conv2d(act(norm_fn(xx, block["down_norm"])), block["down_conv"], stride=scale)
+        skips = []
+        for block in params["encoder"]:
+            xx = _apply_tfc_tdf(block["tfc_tdf"], xx, norm_fn, act)
+            skips.append(xx)
+            xx = L.conv2d(act(norm_fn(xx, block["down_norm"])), block["down_conv"], stride=scale)
 
-    xx = _apply_tfc_tdf(params["bottleneck"], xx, norm_fn, act)
+        xx = _apply_tfc_tdf(params["bottleneck"], xx, norm_fn, act)
 
-    for block in params["decoder"]:
-        xx = L.conv_transpose2d_block(act(norm_fn(xx, block["up_norm"])), block["up_conv"])
-        xx = torch.cat([xx, skips.pop()], dim=1)
-        xx = _apply_tfc_tdf(block["tfc_tdf"], xx, norm_fn, act)
+        for block in params["decoder"]:
+            xx = L.conv_transpose2d_block(act(norm_fn(xx, block["up_norm"])), block["up_conv"])
+            xx = torch.cat([xx, skips.pop()], dim=1)
+            xx = _apply_tfc_tdf(block["tfc_tdf"], xx, norm_fn, act)
 
-    xx = xx.transpose(-1, -2)  # back to (B, c, f, T)
-    xx = xx * first_out  # reduce artifacts (reference :230)
-    xx = L.conv2d(torch.cat([mix, xx], dim=1), params["final_conv1"])
-    xx = L.conv2d(act(xx), params["final_conv2"])
-    xx = _cws2cac(xx, k)  # (B, S*ch*2, dim_f, T)
+        xx = xx.transpose(-1, -2)  # back to (B, c, f, T)
+        xx = xx * first_out  # reduce artifacts (reference :230)
+        xx = L.conv2d(torch.cat([mix, xx], dim=1), params["final_conv1"])
+        xx = L.conv2d(act(xx), params["final_conv2"])
+        xx = _cws2cac(xx, k)  # (B, S*ch*2, dim_f, T)
 
-    b = xx.shape[0]
-    xx = xx.float()  # synthesis runs f32
-    xx = xx.reshape(b, s_stems, dim_c // k, xx.shape[-2], xx.shape[-1])
-    wav = synthesis(xx, config, length)  # (B, S, ch, T')
-    # center=True gives hop*(frames-1) samples; frames = 1 + T//hop
-    if wav.shape[-1] < length:
-        wav = torch.nn.functional.pad(wav, (0, length - wav.shape[-1]))
-    return wav[..., :length]
+        b = xx.shape[0]
+        xx = xx.float()  # synthesis runs f32
+        xx = xx.reshape(b, s_stems, dim_c // k, xx.shape[-2], xx.shape[-1])
+        wav = synthesis(xx, config, length)  # (B, S, ch, T')
+        # center=True gives hop*(frames-1) samples; frames = 1 + T//hop
+        if wav.shape[-1] < length:
+            wav = torch.nn.functional.pad(wav, (0, length - wav.shape[-1]))
+        return wav[..., :length]
 
 
 # --------------------------------------------------------------------------

@@ -17,7 +17,7 @@ from sesa_tpu_torch.models import conformer_core as cc
 from sesa_tpu_torch.models.bs_roformer import _band_plan, _make_take
 from sesa_tpu_torch.models.mel_band_roformer import mel_band_feats
 from sesa_tpu_torch.ops import bands as B
-from sesa_tpu_torch.ops.prec import net_dtype
+from sesa_tpu_torch.ops.prec import net_precision
 from sesa_tpu_torch.ops.stft import hann_window, istft_ri, stft_ri
 from sesa_tpu_torch.tree import tree_map
 
@@ -72,44 +72,44 @@ def apply(params, config, x: torch.Tensor, compute_dtype=None):
     estimators in bf16 (kernels K2, K4 and K5 on CUDA); the STFT, mask
     multiply and iSTFT stay f32.
     """
-    dtype = net_dtype(compute_dtype)
-    kw = _kwargs(config)
-    plan = _plan(kw)
-    b, ch, t = x.shape
-    if ch != (2 if kw["stereo"] else 1):
-        raise ValueError(f"expected {2 if kw['stereo'] else 1} channels, got {ch}")
+    with net_precision(compute_dtype) as dtype:
+        kw = _kwargs(config)
+        plan = _plan(kw)
+        b, ch, t = x.shape
+        if ch != (2 if kw["stereo"] else 1):
+            raise ValueError(f"expected {2 if kw['stereo'] else 1} channels, got {ch}")
 
-    window = hann_window(kw["stft_win_length"], device=x.device)
-    s = stft_ri(x, kw["stft_n_fft"], kw["stft_hop_length"], window,
-                win_length=kw["stft_win_length"], normalized=kw["stft_normalized"])
-    tf = s.shape[-2]
-    n_features = plan.num_features
-    # pack (f, s, c) minor-to-major order: feature = (f*ch + s)*2 + c
-    sp = s.permute(0, 3, 2, 1, 4).reshape(b, tf, n_features)
+        window = hann_window(kw["stft_win_length"], device=x.device)
+        s = stft_ri(x, kw["stft_n_fft"], kw["stft_hop_length"], window,
+                    win_length=kw["stft_win_length"], normalized=kw["stft_normalized"])
+        tf = s.shape[-2]
+        n_features = plan.num_features
+        # pack (f, s, c) minor-to-major order: feature = (f*ch + s)*2 + c
+        sp = s.permute(0, 3, 2, 1, 4).reshape(b, tf, n_features)
 
-    if dtype != torch.float32:
-        params = tree_map(lambda p: p.to(dtype), params)
-    xb = B.band_split_apply(plan, params["band_split"], sp.to(dtype))
-    nb, dim = plan.num_bands, kw["dim"]
-    for layer in params["layers"]:
-        z = xb.permute(0, 2, 1, 3).reshape(b * nb, tf, dim)  # sequence = frames
-        z = cc.conformer_apply(layer["time"], z, kw["heads"])
-        z = z.reshape(b, nb, tf, dim).permute(0, 2, 1, 3).reshape(b * tf, nb, dim)
-        xb = cc.conformer_apply(layer["freq"], z, kw["heads"]).reshape(b, tf, nb, dim)
+        if dtype != torch.float32:
+            params = tree_map(lambda p: p.to(dtype), params)
+        xb = B.band_split_apply(plan, params["band_split"], sp.to(dtype))
+        nb, dim = plan.num_bands, kw["dim"]
+        for layer in params["layers"]:
+            z = xb.permute(0, 2, 1, 3).reshape(b * nb, tf, dim)  # sequence = frames
+            z = cc.conformer_apply(layer["time"], z, kw["heads"])
+            z = z.reshape(b, nb, tf, dim).permute(0, 2, 1, 3).reshape(b * tf, nb, dim)
+            xb = cc.conformer_apply(layer["freq"], z, kw["heads"]).reshape(b, tf, nb, dim)
 
-    masks = torch.stack([B.mask_estimator_apply(plan, p, xb)
-                         for p in params["mask_estimators"]], dim=1).float()
+        masks = torch.stack([B.mask_estimator_apply(plan, p, xb)
+                             for p in params["mask_estimators"]], dim=1).float()
 
-    nstems = masks.shape[1]
-    m = masks.reshape(b, nstems, tf, n_features // 2, 2)
-    sr = sp.reshape(b, 1, tf, n_features // 2, 2)
-    re = m[..., 0] * sr[..., 0] - m[..., 1] * sr[..., 1]
-    im = m[..., 0] * sr[..., 1] + m[..., 1] * sr[..., 0]
-    n_freq = kw["stft_n_fft"] // 2 + 1
-    out = torch.stack([re, im], dim=-1).reshape(b, nstems, tf, n_freq, ch, 2)
-    return istft_ri(out.permute(0, 1, 4, 3, 2, 5), kw["stft_n_fft"], kw["stft_hop_length"],
-                    window, win_length=kw["stft_win_length"],
-                    normalized=kw["stft_normalized"], length=t)
+        nstems = masks.shape[1]
+        m = masks.reshape(b, nstems, tf, n_features // 2, 2)
+        sr = sp.reshape(b, 1, tf, n_features // 2, 2)
+        re = m[..., 0] * sr[..., 0] - m[..., 1] * sr[..., 1]
+        im = m[..., 0] * sr[..., 1] + m[..., 1] * sr[..., 0]
+        n_freq = kw["stft_n_fft"] // 2 + 1
+        out = torch.stack([re, im], dim=-1).reshape(b, nstems, tf, n_freq, ch, 2)
+        return istft_ri(out.permute(0, 1, 4, 3, 2, 5), kw["stft_n_fft"], kw["stft_hop_length"],
+                        window, win_length=kw["stft_win_length"],
+                        normalized=kw["stft_normalized"], length=t)
 
 
 def convert_torch(state_dict, config):

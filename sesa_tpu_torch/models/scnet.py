@@ -30,7 +30,7 @@ from sesa_tpu_torch.models import layers as L
 from sesa_tpu_torch.models import roformer_core as core
 from sesa_tpu_torch.models.bs_roformer import _make_take
 from sesa_tpu_torch.ops.fft import irdft_ortho, rdft_ortho
-from sesa_tpu_torch.ops.prec import net_dtype
+from sesa_tpu_torch.ops.prec import net_precision
 from sesa_tpu_torch.ops.rope import default_freqs, rope_tables
 from sesa_tpu_torch.ops.stft import hann_window, istft_ri, stft_ri
 from sesa_tpu_torch.tree import tree_map
@@ -277,89 +277,89 @@ def _feature_conversion(x, inverse):
 
 def apply(params, config, x, variant="lstm", compute_dtype=None):
     """(B, ch, T) -> (B, sources, ch, T)."""
-    dtype = net_dtype(compute_dtype)
-    kw = _model_kwargs(config, variant)
-    b, ch, length = x.shape
-    hop = kw["hop_size"]
+    with net_precision(compute_dtype) as dtype:
+        kw = _model_kwargs(config, variant)
+        b, ch, length = x.shape
+        hop = kw["hop_size"]
 
-    padding = hop - length % hop
-    if (length + padding) // hop % 2 == 0:
-        padding += hop
-    x = F.pad(x.float(), (0, padding))
-    lpad = x.shape[-1]
+        padding = hop - length % hop
+        if (length + padding) // hop % 2 == 0:
+            padding += hop
+        x = F.pad(x.float(), (0, padding))
+        lpad = x.shape[-1]
 
-    window = _window(kw, variant, x.device)
-    spec = stft_ri(x.reshape(-1, lpad), kw["nfft"], hop, window, win_length=window.shape[0],
-                   normalized=kw["normalized"])
-    # (B·ch, F, T, 2) -> (B·ch, 2, F, T) -> (B, ch·2, F, T): channels (ch major, complex minor)
-    fr, t = spec.shape[1:3]
-    mixture = spec.permute(0, 3, 1, 2).reshape(b, ch * 2, fr, t)
-    z = mixture.to(dtype)
-    if dtype != torch.float32:
-        params = tree_map(lambda p: p.to(dtype), params)
+        window = _window(kw, variant, x.device)
+        spec = stft_ri(x.reshape(-1, lpad), kw["nfft"], hop, window, win_length=window.shape[0],
+                       normalized=kw["normalized"])
+        # (B·ch, F, T, 2) -> (B·ch, 2, F, T) -> (B, ch·2, F, T): channels (ch major, complex minor)
+        fr, t = spec.shape[1:3]
+        mixture = spec.permute(0, 3, 1, 2).reshape(b, ch * 2, fr, t)
+        z = mixture.to(dtype)
+        if dtype != torch.float32:
+            params = tree_map(lambda p: p.to(dtype), params)
 
-    if variant == "masked":
-        z = z + params["pos_embed_f"][:, :, :fr, :]
+        if variant == "masked":
+            z = z + params["pos_embed_f"][:, :, :fr, :]
 
-    skips, lens, olens = [], [], []
-    for blk in params["encoder"]:
-        z, skip, lengths, original_lengths = _apply_sd_block(blk, z, kw)
-        skips.append(skip)
-        lens.append(lengths)
-        olens.append(original_lengths)
+        skips, lens, olens = [], [], []
+        for blk in params["encoder"]:
+            z, skip, lengths, original_lengths = _apply_sd_block(blk, z, kw)
+            skips.append(skip)
+            lens.append(lengths)
+            olens.append(original_lengths)
 
-    # even layers rFFT the frames (channels double), odd layers invert it
-    for i, layer in enumerate(params["separation"]):
-        if variant == "tran":
-            # angles in f32 from the (net-dtype) frequencies, tables in the net dtype
-            rt = rope_tables(params["rope_time_freqs"].float(), z.shape[-1])
-            rf = rope_tables(params["rope_freq_freqs"].float(), z.shape[-2])
-            rt, rf = (tuple(r.to(dtype) for r in tab) for tab in (rt, rf))
-            z = _apply_dual_path_tran(layer, z, rt, rf, kw["tran_heads"])
+        # even layers rFFT the frames (channels double), odd layers invert it
+        for i, layer in enumerate(params["separation"]):
+            if variant == "tran":
+                # angles in f32 from the (net-dtype) frequencies, tables in the net dtype
+                rt = rope_tables(params["rope_time_freqs"].float(), z.shape[-1])
+                rf = rope_tables(params["rope_freq_freqs"].float(), z.shape[-2])
+                rt, rf = (tuple(r.to(dtype) for r in tab) for tab in (rt, rf))
+                z = _apply_dual_path_tran(layer, z, rt, rf, kw["tran_heads"])
+            else:
+                z = _apply_dual_path(layer, z)
+            z = _feature_conversion(z, inverse=(i % 2 == 1)).to(dtype)
+
+        for blk in params["decoder"]:
+            z = z + skips.pop()
+            z = torch.cat([z, z], dim=1)  # repeat(1, 2, 1, 1)
+            z = L.conv2d(z, blk["fusion_conv"]["weight"], blk["fusion_conv"]["bias"],
+                         padding=(1, 1))
+            z = L.glu(z, dim=1)
+            # sparse upsample
+            lengths, original_lengths = lens.pop(), olens.pop()
+            splits = [(0, lengths[0]), (lengths[0], lengths[0] + lengths[1]),
+                      (lengths[0] + lengths[1], z.shape[2])]
+            outs = []
+            for bi, (start, end) in enumerate(splits):
+                conv = blk["su_convs"][bi]
+                out = L.conv_transpose2d(z[:, :, start:end, :], conv["weight"], conv["bias"],
+                                         stride=(kw["band_stride"][bi], 1))
+                dist = abs(original_lengths[bi] - out.shape[2]) // 2
+                outs.append(out[:, :, dist: dist + original_lengths[bi], :])
+            z = torch.cat(outs, dim=2)
+
+        n, n_sources = kw["dims"][0], len(kw["sources"])
+        z = z.float()  # the mask head, the mask and the iSTFT run in f32
+
+        if variant == "masked":
+            # a complex mask of the tiled mixture (reference scnet_masked.py:333-415);
+            # the head's weights are the net dtype's, back in f32
+            c1 = tree_map(lambda a: a.float(), params["mask_conv1"])
+            c2 = tree_map(lambda a: a.float(), params["mask_conv2"])
+            mask = L.gelu(L.conv2d(z, c1["weight"], c1["bias"], padding=(1, 1)))
+            mask = torch.tanh(L.conv2d(mask, c2["weight"], c2["bias"]))
+            mr = mixture.repeat(1, n_sources, 1, 1).reshape(-1, 2, fr, t)
+            mk = mask.reshape(-1, 2, fr, t)
+            z = torch.stack([mr[:, 0] * mk[:, 0] - mr[:, 1] * mk[:, 1],
+                             mr[:, 0] * mk[:, 1] + mr[:, 1] * mk[:, 0]], dim=-1)
         else:
-            z = _apply_dual_path(layer, z)
-        z = _feature_conversion(z, inverse=(i % 2 == 1)).to(dtype)
+            z = z.reshape(-1, 2, fr, t).permute(0, 2, 3, 1)  # (.., F, T, 2)
 
-    for blk in params["decoder"]:
-        z = z + skips.pop()
-        z = torch.cat([z, z], dim=1)  # repeat(1, 2, 1, 1)
-        z = L.conv2d(z, blk["fusion_conv"]["weight"], blk["fusion_conv"]["bias"],
-                     padding=(1, 1))
-        z = L.glu(z, dim=1)
-        # sparse upsample
-        lengths, original_lengths = lens.pop(), olens.pop()
-        splits = [(0, lengths[0]), (lengths[0], lengths[0] + lengths[1]),
-                  (lengths[0] + lengths[1], z.shape[2])]
-        outs = []
-        for bi, (start, end) in enumerate(splits):
-            conv = blk["su_convs"][bi]
-            out = L.conv_transpose2d(z[:, :, start:end, :], conv["weight"], conv["bias"],
-                                     stride=(kw["band_stride"][bi], 1))
-            dist = abs(original_lengths[bi] - out.shape[2]) // 2
-            outs.append(out[:, :, dist: dist + original_lengths[bi], :])
-        z = torch.cat(outs, dim=2)
-
-    n, n_sources = kw["dims"][0], len(kw["sources"])
-    z = z.float()  # the mask head, the mask and the iSTFT run in f32
-
-    if variant == "masked":
-        # a complex mask of the tiled mixture (reference scnet_masked.py:333-415);
-        # the head's weights are the net dtype's, back in f32
-        c1 = tree_map(lambda a: a.float(), params["mask_conv1"])
-        c2 = tree_map(lambda a: a.float(), params["mask_conv2"])
-        mask = L.gelu(L.conv2d(z, c1["weight"], c1["bias"], padding=(1, 1)))
-        mask = torch.tanh(L.conv2d(mask, c2["weight"], c2["bias"]))
-        mr = mixture.repeat(1, n_sources, 1, 1).reshape(-1, 2, fr, t)
-        mk = mask.reshape(-1, 2, fr, t)
-        z = torch.stack([mr[:, 0] * mk[:, 0] - mr[:, 1] * mk[:, 1],
-                         mr[:, 0] * mk[:, 1] + mr[:, 1] * mk[:, 0]], dim=-1)
-    else:
-        z = z.reshape(-1, 2, fr, t).permute(0, 2, 3, 1)  # (.., F, T, 2)
-
-    wav = istft_ri(z, kw["nfft"], hop, window, win_length=window.shape[0],
-                   normalized=kw["normalized"])
-    wav = wav.reshape(b, n_sources, ch, -1)
-    return wav[..., : wav.shape[-1] - padding]
+        wav = istft_ri(z, kw["nfft"], hop, window, win_length=window.shape[0],
+                       normalized=kw["normalized"])
+        wav = wav.reshape(b, n_sources, ch, -1)
+        return wav[..., : wav.shape[-1] - padding]
 
 
 # --------------------------------------------------------------------------

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from sesa_tpu_torch.models import layers as L
 from sesa_tpu_torch.models.bs_roformer import _make_take
 from sesa_tpu_torch.ops.fft import irdft, rdft
-from sesa_tpu_torch.ops.prec import net_dtype
+from sesa_tpu_torch.ops.prec import net_precision
 from sesa_tpu_torch.ops.stft import hann_window, istft_ri, stft_ri
 
 
@@ -196,55 +196,55 @@ def _dualpath_apply(layers, x):
 
 def apply(params, config, x):
     """(B, C, T) -> (B, n_sources, C, T), in f32."""
-    net_dtype(None)
-    kw = _kwargs(config)
-    b, ch, length = x.shape
-    hop = kw["hop_length"]
+    with net_precision(None):
+        kw = _kwargs(config)
+        b, ch, length = x.shape
+        hop = kw["hop_length"]
 
-    xp = F.pad(x.float(), (0, hop - length % hop))
-    window = hann_window(kw["win_length"], device=x.device)
-    spec = stft_ri(xp.reshape(b * ch, -1), kw["n_fft"], hop, window,
-                   win_length=kw["win_length"], normalized=kw["stft_normalized"])
-    f, t = spec.shape[1:3]
-    # 'b c f t r -> b f t (c r)', c major
-    z = spec.reshape(b, ch, f, t, 2).permute(0, 2, 3, 1, 4).reshape(b, f, t, ch * 2)
+        xp = F.pad(x.float(), (0, hop - length % hop))
+        window = hann_window(kw["win_length"], device=x.device)
+        spec = stft_ri(xp.reshape(b * ch, -1), kw["n_fft"], hop, window,
+                       win_length=kw["win_length"], normalized=kw["stft_normalized"])
+        f, t = spec.shape[1:3]
+        # 'b c f t r -> b f t (c r)', c major
+        z = spec.reshape(b, ch, f, t, 2).permute(0, 2, 3, 1, 4).reshape(b, f, t, ch * 2)
 
-    skips = []
-    for blk in params["sd_blocks"]:
-        z, skip = _sd_block_apply(blk, z, kw)
-        skips.append(skip)
+        skips = []
+        for blk in params["sd_blocks"]:
+            z, skip = _sd_block_apply(blk, z, kw)
+            skips.append(skip)
 
-    z = _dualpath_apply(params["dualpath"], z)
+        z = _dualpath_apply(params["dualpath"], z)
 
-    subband_shapes, sd_intervals = _sd_shapes(kw)
-    n_blocks = len(kw["dims"]) - 1
-    for i, blk in enumerate(params["su_blocks"]):
-        level = n_blocks - 1 - i
-        # fusion: (x + skip) repeated on the channels, conv (3, 1), GLU
-        y = z + skips[level]
-        y = torch.cat([y, y], dim=-1).permute(0, 3, 1, 2)
-        y = L.conv2d(y, blk["fusion"]["weight"], blk["fusion"]["bias"], padding=(1, 0))
-        y = L.glu(y.permute(0, 2, 3, 1), dim=-1)
-        outs = []
-        for bi in range(3):
-            lo, hi = sd_intervals[level][bi]
-            target = subband_shapes[level][bi]
-            up = L.conv_transpose2d(y[:, lo:hi].permute(0, 3, 1, 2), blk["ups"][bi]["weight"],
-                                    stride=(kw["downsample_strides"][bi], 1))
-            # ConvTranspose2d's output padding extends the output before the
-            # bias is added: the extra rows carry the bias, not zeros
-            if up.shape[2] < target:
-                up = F.pad(up, (0, 0, 0, target - up.shape[2]))
-            up = up + blk["ups"][bi]["bias"][None, :, None, None]
-            outs.append(up[:, :, :target].permute(0, 2, 3, 1))
-        z = torch.cat(outs, dim=1)
+        subband_shapes, sd_intervals = _sd_shapes(kw)
+        n_blocks = len(kw["dims"]) - 1
+        for i, blk in enumerate(params["su_blocks"]):
+            level = n_blocks - 1 - i
+            # fusion: (x + skip) repeated on the channels, conv (3, 1), GLU
+            y = z + skips[level]
+            y = torch.cat([y, y], dim=-1).permute(0, 3, 1, 2)
+            y = L.conv2d(y, blk["fusion"]["weight"], blk["fusion"]["bias"], padding=(1, 0))
+            y = L.glu(y.permute(0, 2, 3, 1), dim=-1)
+            outs = []
+            for bi in range(3):
+                lo, hi = sd_intervals[level][bi]
+                target = subband_shapes[level][bi]
+                up = L.conv_transpose2d(y[:, lo:hi].permute(0, 3, 1, 2), blk["ups"][bi]["weight"],
+                                        stride=(kw["downsample_strides"][bi], 1))
+                # ConvTranspose2d's output padding extends the output before the
+                # bias is added: the extra rows carry the bias, not zeros
+                if up.shape[2] < target:
+                    up = F.pad(up, (0, 0, 0, target - up.shape[2]))
+                up = up + blk["ups"][bi]["bias"][None, :, None, None]
+                outs.append(up[:, :, :target].permute(0, 2, 3, 1))
+            z = torch.cat(outs, dim=1)
 
-    # 'b f t (c r n)' -> (b n c f t r)
-    n_src = kw["n_sources"]
-    z = z.reshape(b, f, t, ch, 2, n_src).permute(0, 5, 3, 1, 2, 4)
-    wav = istft_ri(z.reshape(b * n_src * ch, f, t, 2), kw["n_fft"], hop, window,
-                   win_length=kw["win_length"], normalized=kw["stft_normalized"])
-    return wav.reshape(b, n_src, ch, -1)[..., :length]
+        # 'b f t (c r n)' -> (b n c f t r)
+        n_src = kw["n_sources"]
+        z = z.reshape(b, f, t, ch, 2, n_src).permute(0, 5, 3, 1, 2, 4)
+        wav = istft_ri(z.reshape(b * n_src * ch, f, t, 2), kw["n_fft"], hop, window,
+                       win_length=kw["win_length"], normalized=kw["stft_normalized"])
+        return wav.reshape(b, n_src, ch, -1)[..., :length]
 
 
 # --------------------------------------------------------------------------

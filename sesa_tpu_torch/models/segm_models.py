@@ -23,7 +23,7 @@ from sesa_tpu_torch.models import layers as L
 from sesa_tpu_torch.models.bs_roformer import _make_take
 from sesa_tpu_torch.models.mdx23c import (_cac2cws, _cws2cac, inverse_spectrogram,
                                           num_target_instruments, spectrogram)
-from sesa_tpu_torch.ops.prec import net_dtype
+from sesa_tpu_torch.ops.prec import net_precision
 
 _DEPTH = 4
 
@@ -137,18 +137,18 @@ def image_path(params, config, mix):
 
 def apply(params, config, x: torch.Tensor) -> torch.Tensor:
     """(B, ch, T) -> (B, S, ch, T), in f32 (shell identical to mdx23c's)."""
-    net_dtype(None)
-    k, dim_c, c = _dims(config)
-    s_stems = num_target_instruments(config)
-    length = x.shape[-1]
+    with net_precision(None):
+        k, dim_c, c = _dims(config)
+        s_stems = num_target_instruments(config)
+        length = x.shape[-1]
 
-    mix = _cac2cws(spectrogram(x.float(), config), k)
-    xx = _cws2cac(image_path(params, config, mix), k)
-    xx = xx.reshape(xx.shape[0], s_stems, dim_c // k, xx.shape[-2], xx.shape[-1])
-    wav = inverse_spectrogram(xx, config, length)
-    if wav.shape[-1] < length:
-        wav = torch.nn.functional.pad(wav, (0, length - wav.shape[-1]))
-    return wav[..., :length]
+        mix = _cac2cws(spectrogram(x.float(), config), k)
+        xx = _cws2cac(image_path(params, config, mix), k)
+        xx = xx.reshape(xx.shape[0], s_stems, dim_c // k, xx.shape[-2], xx.shape[-1])
+        wav = inverse_spectrogram(xx, config, length)
+        if wav.shape[-1] < length:
+            wav = torch.nn.functional.pad(wav, (0, length - wav.shape[-1]))
+        return wav[..., :length]
 
 
 def convert_torch(state_dict, config):

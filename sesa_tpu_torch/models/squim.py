@@ -21,7 +21,7 @@ import torch
 
 from sesa_tpu_torch.models import layers as L
 from sesa_tpu_torch.models.bs_roformer import _make_take
-from sesa_tpu_torch.ops.prec import net_dtype
+from sesa_tpu_torch.ops.prec import net_precision
 
 # wide-band PESQ range: 0.999 + 4/(1+exp(-1.3669·4.5+3.8224)) upper bound
 _PESQ_LO = 1.0
@@ -175,15 +175,15 @@ def _branch(p, x, metric, nhead):
 def apply(params, config, x: torch.Tensor):
     """(B, T) 16 kHz mono -> {stoi, pesq, sisdr} of (B,) scores:
     RMS-normalise to 1/20, encode, DPRNN, one transformer branch a metric."""
-    net_dtype(None)
-    kw = _kwargs(config)
-    if x.ndim != 2:
-        raise ValueError(f"input must be (batch, time), got {tuple(x.shape)}")
-    x = x / (torch.sqrt(torch.mean(x ** 2, dim=1, keepdim=True)) * 20.0)
-    feats = L.relu(L.conv1d(x[:, None, :], params["encoder"]["weight"],
-                            stride=kw["win_len"] // 2))
-    out = _dprnn(params["dprnn"], feats, kw)
-    return {m: _branch(p, out, m, kw["nhead"]) for m, p in zip(METRICS, params["branches"])}
+    with net_precision(None):
+        kw = _kwargs(config)
+        if x.ndim != 2:
+            raise ValueError(f"input must be (batch, time), got {tuple(x.shape)}")
+        x = x / (torch.sqrt(torch.mean(x ** 2, dim=1, keepdim=True)) * 20.0)
+        feats = L.relu(L.conv1d(x[:, None, :], params["encoder"]["weight"],
+                                stride=kw["win_len"] // 2))
+        out = _dprnn(params["dprnn"], feats, kw)
+        return {m: _branch(p, out, m, kw["nhead"]) for m, p in zip(METRICS, params["branches"])}
 
 
 # --------------------------------------------------------------------------

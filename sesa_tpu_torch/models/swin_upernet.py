@@ -33,7 +33,7 @@ from sesa_tpu_torch.models.bs_roformer import _make_take
 from sesa_tpu_torch.models.mdx23c import (_cac2cws, _cws2cac, inverse_spectrogram,
                                           num_target_instruments, prepare, spectrogram)
 from sesa_tpu_torch.models.segm_models import _dims
-from sesa_tpu_torch.ops.prec import net_dtype
+from sesa_tpu_torch.ops.prec import net_precision
 
 
 def _swin_kwargs(config):
@@ -305,30 +305,30 @@ def apply(params, config, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     ``compute_dtype`` the spectrum and every weight are cast to it (the JAX
     function's rounding points: LayerNorm statistics in that dtype, softmax
     and resizes in f32); the iSTFT runs f32."""
-    dtype = net_dtype(compute_dtype)
-    kw = _swin_kwargs(config)
-    k, dim_c, _ = _dims(config)
-    act = L.make_act(config.model.act)
-    s_stems = num_target_instruments(config)
-    length = x.shape[-1]
+    with net_precision(compute_dtype) as dtype:
+        kw = _swin_kwargs(config)
+        k, dim_c, _ = _dims(config)
+        act = L.make_act(config.model.act)
+        s_stems = num_target_instruments(config)
+        length = x.shape[-1]
 
-    params = prepare(params, config, compute_dtype)
-    mix = xx = _cac2cws(spectrogram(x.float(), config).to(dtype), k)
-    first_out = xx = L.conv2d(xx, params["first_conv"])
-    xx = xx.transpose(-1, -2)  # (B, c, T, F)
+        params = prepare(params, config, compute_dtype)
+        mix = xx = _cac2cws(spectrogram(x.float(), config).to(dtype), k)
+        first_out = xx = L.conv2d(xx, params["first_conv"])
+        xx = xx.transpose(-1, -2)  # (B, c, T, F)
 
-    feats = _backbone(params["backbone"], xx, kw)
-    xx = _resize(_decode_head(params["decode_head"], feats, kw), xx.shape[2:])
+        feats = _backbone(params["backbone"], xx, kw)
+        xx = _resize(_decode_head(params["decode_head"], feats, kw), xx.shape[2:])
 
-    xx = xx.transpose(-1, -2) * first_out
-    xx = L.conv2d(torch.cat([mix, xx], dim=1), params["final_conv1"])
-    xx = L.conv2d(act(xx), params["final_conv2"])
-    xx = _cws2cac(xx, k).float()
-    xx = xx.reshape(xx.shape[0], s_stems, dim_c // k, xx.shape[-2], xx.shape[-1])
-    wav = inverse_spectrogram(xx, config, length)
-    if wav.shape[-1] < length:
-        wav = F.pad(wav, (0, length - wav.shape[-1]))
-    return wav[..., :length]
+        xx = xx.transpose(-1, -2) * first_out
+        xx = L.conv2d(torch.cat([mix, xx], dim=1), params["final_conv1"])
+        xx = L.conv2d(act(xx), params["final_conv2"])
+        xx = _cws2cac(xx, k).float()
+        xx = xx.reshape(xx.shape[0], s_stems, dim_c // k, xx.shape[-2], xx.shape[-1])
+        wav = inverse_spectrogram(xx, config, length)
+        if wav.shape[-1] < length:
+            wav = F.pad(wav, (0, length - wav.shape[-1]))
+        return wav[..., :length]
 
 
 # --------------------------------------------------------------------------

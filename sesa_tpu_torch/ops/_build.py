@@ -2,12 +2,13 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``. Builds go
-to ``sesa_tpu_torch/build/<hash>/``, keyed by a hash of every source and
-header plus the flags, so an edited source rebuilds and an unchanged one
-loads at once. Nothing is built when this module is imported: the first
-call that needs a library builds it; ``build_all`` builds every library in
-parallel (one ``nvcc`` per source, all started together). A failed build
-raises.
+to ``<BUILD_ROOT>/<hash>/``, keyed by a hash of every source and header plus
+the flags, so an edited source rebuilds and an unchanged one loads at once.
+``BUILD_ROOT`` is ``cache.cache_dir()`` at import: ``$SESA_CACHE_DIR``, else
+``sesa_tpu_torch/build``. Nothing is built when this module is imported:
+the first call that needs a library builds it; ``build_all`` builds every
+library in parallel (one ``nvcc`` per source, all started together). A
+failed build raises.
 """
 
 from __future__ import annotations
@@ -21,8 +22,10 @@ import subprocess
 import time
 from typing import Dict
 
+from sesa_tpu_torch.cache import cache_dir
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-BUILD_ROOT = os.path.join(os.path.dirname(CSRC), "build")
+BUILD_ROOT = cache_dir()
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

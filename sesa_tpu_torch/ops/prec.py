@@ -1,23 +1,32 @@
 """Matmul precision policy (counterpart of sesa_tpu/ops/prec.py).
 
-The JAX package passes ``Precision.HIGHEST`` to every f32 product of a net.
-The PyTorch counterpart is global state: the f32 path turns TF32 off for
-both matmuls (``torch.backends.cuda.matmul.allow_tf32``) and cuDNN
-convolutions (``torch.backends.cudnn.allow_tf32``, True by default), so f32
-products on the card keep full f32 precision. bf16 nets leave the flags as
-they are: their products run on bf16 operands with f32 accumulation.
+The JAX package picks a precision per net: ``Precision.HIGHEST`` for every
+product of an f32 net, ``DEFAULT`` for the f32 work inside a bf16 net. The
+PyTorch counterpart is two process-wide flags, TF32 for matmuls
+(``torch.backends.cuda.matmul.allow_tf32``) and for cuDNN
+(``torch.backends.cudnn.allow_tf32``). ``net_precision`` sets both for the
+length of one model call, off for an f32 net and on for a bf16 net (whose
+f32 cuDNN work, the SCNet and Demucs LSTMs, then runs TF32 whatever ran
+before it in the process), and restores what it found.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
-def net_dtype(compute_dtype) -> torch.dtype:
-    """Resolve a net's compute dtype (None means f32) and, for f32, apply the
-    full-precision policy above."""
+@contextlib.contextmanager
+def net_precision(compute_dtype):
+    """Resolve a net's compute dtype (None means f32) and hold the TF32 flags
+    at its policy inside the ``with`` block: off for f32, on otherwise."""
     dtype = torch.float32 if compute_dtype is None else compute_dtype
-    if dtype == torch.float32:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    return dtype
+    tf32 = dtype != torch.float32
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        yield dtype
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

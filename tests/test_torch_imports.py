@@ -36,7 +36,24 @@ def test_every_module_imports_with_jax_blocked():
         "models.mdx23c_stht", "models.htdemucs", "models.demucs_legacy", "ops.wiener",
         "models.bandit", "models.bandit_v2", "models.resnet_unet", "models.efficientnet_unet",
         "models.maxvit_unet", "models.segm_models", "models.swin_upernet", "models.squim",
-        "metrics", "convert.lora", "utils")} <= names
+        "metrics", "convert.lora", "utils", "cache", "clean_model",
+        "config_manager", "helpers", "download", "registry", "registry.models", "processing",
+        "runtime.profiling", "benchmark", "warmup")} <= names
+
+
+def test_app_modules_import_without_yaml_and_requests():
+    """A GPU host may have neither pyyaml nor requests: the app layer
+    imports them only inside the functions that need them."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'yaml', 'requests'): sys.modules[m] = None\n"
+        "import sesa_tpu_torch.processing, sesa_tpu_torch.registry, sesa_tpu_torch.benchmark\n"
+        "import sesa_tpu_torch.warmup, sesa_tpu_torch.download, sesa_tpu_torch.apollo_processing\n"
+        "from sesa_tpu_torch.registry import MODEL_CONFIGS\n"
+        "assert sum(len(c) for c in MODEL_CONFIGS.values()) >= 120\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
 
 
 def test_sources_name_no_jax_package():

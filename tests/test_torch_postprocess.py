@@ -547,18 +547,60 @@ def test_process_with_apollo_mid_side(apollo_patch, tmp_path):
     np.testing.assert_allclose(got, np.stack([mid_e + side_e, mid_e - side_e]), atol=1e-6)
 
 
-def test_apollo_session_needs_the_presets_files(tmp_path):
+def _fake_requests(calls, status=404):
+    """A ``requests`` stand-in that records each URL and answers ``status``."""
+    import types
+
+    mod = types.ModuleType("requests")
+
+    def get(url, stream=False, timeout=None):
+        calls.append(url)
+        return types.SimpleNamespace(status_code=status, headers={}, content=b"")
+
+    mod.get = get
+    return mod
+
+
+def test_apollo_session_needs_the_presets_files(tmp_path, monkeypatch):
+    """The presets' files come through registry.download_file (network
+    mocked): a failed download raises, files already in place are kept."""
+    import sys
+
+    from sesa_tpu_torch.registry import models as registry
+
     assert set(apollo_processing.APOLLO_MODELS) == {
         "MP3 Enhancer", "Lew Vocal Enhancer", "Lew Vocal Enhancer v2 (beta)",
         "Apollo Universal Model"}
-    with pytest.raises(FileNotFoundError, match="apollo_universal_model.ckpt"):
-        apollo_processing._apollo_session("Apollo Universal Model", 19, 2,
-                                          checkpoint_dir=str(tmp_path), device="cpu")
-    # a missing preset leaves the files as they are
+    calls = []
+    monkeypatch.setitem(sys.modules, "requests", _fake_requests(calls))
+    monkeypatch.setattr(registry, "CHECKPOINT_DIR", str(tmp_path / "ckpts"))
+    ckpt_url, config_url = apollo_processing.APOLLO_MODELS["Apollo Universal Model"]
+    with pytest.raises(RuntimeError, match="apollo_universal_model.ckpt"):
+        apollo_processing._apollo_session("Apollo Universal Model", 19, 2, device="cpu")
+    assert calls == [ckpt_url] and os.listdir(tmp_path / "ckpts") == []  # no partial file
+    # files in place are kept and the session is built from them
+    made = []
+    monkeypatch.setattr(InferenceSession, "create",
+                        classmethod(lambda cls, *a, **k: made.append((a, k)) or "session"))
+    for url in apollo_processing.APOLLO_MODELS["MP3 Enhancer"]:
+        (tmp_path / "ckpts" / os.path.basename(url)).write_bytes(b"in place")
+    assert apollo_processing._apollo_session("MP3 Enhancer", 19, 2, num_channels=1,
+                                             device="cpu") == "session"
+    assert apollo_processing._apollo_session("MP3 Enhancer", 300000, 4,
+                                             device="cpu") == "session"
+    assert calls == [ckpt_url]
+    files = ("apollo", str(tmp_path / "ckpts" / "apollo.yaml"),
+             str(tmp_path / "ckpts" / "pytorch_model.bin"))
+    assert made == [(files, dict(chunk_size=19 * 44100, num_overlap=2, num_channels=1,
+                                 device="cpu")),
+                    (files, dict(chunk_size=300000, num_overlap=4, num_channels=2,
+                                 device="cpu"))]
+    # a preset whose download fails leaves the files as they are
     paths = [str(tmp_path / "a.wav")]
     assert apollo_processing.process_with_apollo(
-        paths, str(tmp_path / "enh"), 19, 2, "normal_method", "MP3 Enhancer",
+        paths, str(tmp_path / "enh"), 19, 2, "normal_method", "Lew Vocal Enhancer",
         "MP3 Enhancer", device="cpu") == paths
+    assert calls[-1] == apollo_processing.APOLLO_MODELS["Lew Vocal Enhancer"][0]
     if not torch.cuda.is_available():  # no fallback for a missing device
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             apollo_processing.process_with_apollo(paths, str(tmp_path / "enh"), 19, 2,
