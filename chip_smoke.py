@@ -155,6 +155,20 @@ and prints no result line):
    the BiLSTMs' device time against the policy before the repair),
    ``benchmark.main`` test and benchmark, ``warmup.main`` and a
    ``device_trace`` of one flagship model call that names K1's norm kernel.
+18. training (``phase_train``): one SGD step of a tiny mdx23c and a tiny
+   bs_roformer (tests/test_torch_train.py's configs) on the card against
+   the CPU, loss and every gradient leaf (1e-3 of the leaf's largest); the
+   flagship at full width in f32 through ``sesa_tpu_torch.train.Trainer``
+   (default loss, Adam 1e-4) on one seeded batch of 1 x 2 x 352,800, 2
+   warm-up steps with hooks that read both TF32 flags inside the backward
+   pass (off, with both set on before), then 5 timed steps (ms per step,
+   peak CUDA memory; the loss must fall); ``save`` and ``load`` into a
+   fresh trainer (params bit for bit, the next losses equal);
+   ``validate_track`` of a 30 s seeded song through demix; a bs_mamba2
+   ``Trainer`` at K8's shape must raise the autograd guard with K8 not
+   launched, and ``ssd_fused`` under ``no_grad`` launches once; the UI:
+   ``sesa_tpu_torch.gui`` imports (``GRADIO_AVAILABLE``) and ``python -m
+   sesa_tpu_torch.main --help`` exits 0.
 
 Prints the ``kernels`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
@@ -289,6 +303,33 @@ SWIN_MODEL = dict(num_subbands=8, num_channels=128, act="gelu")
 # SQUIM at torchaudio's squim_objective_base (the JAX defaults): 4 x 10 s of
 # 16 kHz mono
 SQUIM_SR, SQUIM_BATCH, SQUIM_S = 16000, 4, 10
+# phase_train: the tiny configs of tests/test_torch_train.py (tests/
+# test_mdx23c.py tiny_config, tests/test_roformer.py bs_model_cfg) for one
+# step on the card against the CPU, with a batch of TRAIN_TINY_SAMPLES; the
+# flagship trains at full width on a batch of 1 x 2 x TRAIN_CHUNK in f32
+TRAIN_TINY = {
+    "mdx23c": {"audio": dict(n_fft=512, hop_length=128, dim_f=256, num_channels=2,
+                             chunk_size=8064, sample_rate=44100),
+               "model": dict(num_subbands=2, num_scales=2, scale=[2, 2], num_blocks_per_scale=1,
+                             num_channels=8, growth=4, bottleneck_factor=2,
+                             norm="InstanceNorm", act="gelu")},
+    "bs_roformer": {"model": dict(dim=32, depth=2, stereo=True, num_stems=2,
+                                  time_transformer_depth=1, freq_transformer_depth=1,
+                                  linear_transformer_depth=0,
+                                  freqs_per_bands=[2] * 8 + [4] * 4 + [16, 17], dim_head=8,
+                                  heads=4, stft_n_fft=128, stft_hop_length=32,
+                                  stft_win_length=128, mask_estimator_depth=2)},
+}
+TRAIN_TINY_SAMPLES = {"mdx23c": 8064, "bs_roformer": 2048}
+TRAIN_CHUNK, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_VAL_S = CHUNK, 2, 5, 30
+# a tiny model's gradient on the card against the CPU, both f32 with TF32
+# off: per leaf, max |card - cpu| <= this share of the leaf's largest CPU
+# gradient (cuDNN's and MKL's convolutions and cuFFT's and pocketfft's
+# transforms sum in other orders)
+TRAIN_CARD_VS_CPU_REL = 1e-3
+# the guard's bs_mamba2: K8's shape (feature_dim 128: 4 heads x 64, state
+# 128, chunk 64), one mask and one map repeat, 2 s
+TRAIN_MAMBA_MODEL = dict(MAMBA_MODEL, num_repeat_mask=1, num_repeat_map=1, num_output=2)
 
 # kernels against their plain versions, both bf16 on the card: the two
 # round at the same points, but the kernels sum in another order and the
@@ -2823,6 +2864,242 @@ def phase_app(song):
     return out
 
 
+def _train_stems(seconds):
+    """Vocals and other of a seeded song (the parts of ``_song``), each (2, T)."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    t = np.arange(int(seconds * SR)) / SR
+    voice = 0.3 * np.sin(2 * np.pi * 220 * t * (1 + 0.01 * np.sin(2 * np.pi * 0.5 * t)))
+    band = 0.2 * np.sin(2 * np.pi * 110 * t) + 0.1 * np.sign(np.sin(2 * np.pi * 2 * t))
+    vocals = np.stack([voice, 0.8 * voice]) + 0.01 * rng.standard_normal((2, t.size))
+    other = np.stack([band, band]) + 0.01 * rng.standard_normal((2, t.size))
+    return vocals.astype(np.float32), other.astype(np.float32)
+
+
+def _train_item(seconds, batched=True):
+    vocals, other = _train_stems(seconds)
+    audio = {"vocals": vocals, "other": other, "mixture": vocals + other}
+    if batched:
+        audio = {k: v[None] for k, v in audio.items()}
+    return {"audio": audio, "track": "train/seeded"}
+
+
+def _train_card_vs_cpu(model_type):
+    """One SGD(1e-2) step of a tiny model on the card and on the CPU from the
+    same seeded params and batch: the loss and every gradient leaf."""
+    import numpy as np
+    import torch
+
+    from sesa_tpu_torch.configs import AttrDict
+    from sesa_tpu_torch.models import get_model
+    from sesa_tpu_torch.train import Trainer, _flatten
+
+    cfg = AttrDict(dict(TRAIN_TINY[model_type], training={"instruments": ["vocals", "other"],
+                                                          "target_instrument": None}))
+    params = get_model(model_type).init(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    audio = {s: (0.1 * rng.standard_normal((1, 2, TRAIN_TINY_SAMPLES[model_type])))
+             .astype(np.float32) for s in ("vocals", "other")}
+    audio["mixture"] = audio["vocals"] + audio["other"]
+    item = {"audio": audio}
+    opt = {"optimizer": {"name": "SGD", "kwargs": {"lr": 1e-2}}}
+    runs = {}
+    for device in ("cuda", "cpu"):
+        trainer = Trainer(model_type, cfg, loss={"name": "L1Loss", "kwargs": {}},
+                          optimizer=opt, params=params, device=device)
+        loss = trainer.train_batch(item)
+        runs[device] = (loss, {k: v.grad.cpu() for k, v in _flatten(trainer.params).items()})
+    (l_card, g_card), (l_cpu, g_cpu) = runs["cuda"], runs["cpu"]
+    worst = max((float((g_card[k] - g_cpu[k]).abs().max())
+                 / max(float(g_cpu[k].abs().max()), 1e-30), k) for k in g_cpu)
+    res = dict(model_type=model_type, loss_card=l_card, loss_cpu=l_cpu,
+               loss_rel=abs(l_card - l_cpu) / abs(l_cpu), leaves=len(g_cpu),
+               max_grad_rel=worst[0], worst_leaf=worst[1], bound=TRAIN_CARD_VS_CPU_REL)
+    log(f"[train card vs cpu] {json.dumps(res)}")
+    if not res["loss_rel"] <= TRAIN_CARD_VS_CPU_REL or not worst[0] <= TRAIN_CARD_VS_CPU_REL:
+        raise RuntimeError(f"{model_type}: a training step on the card is {worst[0]:.3g} "
+                           f"(leaf {worst[1]}) and {res['loss_rel']:.3g} (loss) from the CPU")
+    return res
+
+
+def _tf32_probe(seen, where):
+    """A tensor hook that records both TF32 flags while autograd runs it."""
+    import torch
+
+    def hook(grad):
+        seen.append((where, torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32))
+        return grad
+
+    return hook
+
+
+def phase_train():
+    """Training and the UI on the card: phase 18 of the module docstring.
+    Raises on any failed check."""
+    import subprocess as sp
+    import sys as _sys
+
+    import numpy as np
+    import torch
+
+    from sesa_tpu_torch.ops.prec import net_precision
+    from sesa_tpu_torch.train import Trainer, _flatten
+
+    t_phase = time.perf_counter()
+    out = {"card_vs_cpu": [_train_card_vs_cpu(mt) for mt in TRAIN_TINY]}
+
+    # the flagship at full width in f32: default loss, Adam 1e-4, one batch
+    cfg = {"model": FLAGSHIP_MODEL, "audio": {"chunk_size": TRAIN_CHUNK, "sample_rate": SR},
+           "training": {"instruments": ["vocals", "other"], "target_instrument": "vocals"}}
+    item = _train_item(TRAIN_CHUNK / SR)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer("bs_roformer", cfg, seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    seen = []
+    probe_loss = trainer.loss_fn
+
+    def probed_loss(recon, target):  # the mask's product with the mix, first in backward
+        recon.register_hook(_tf32_probe(seen, "model output"))
+        return probe_loss(recon, target)
+
+    first = next(iter(_flatten(trainer.params["band_split"]).values()))
+    handle = first.register_hook(_tf32_probe(seen, "band split (last in backward)"))
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    trainer.loss_fn = probed_loss
+    try:
+        losses_seen = [trainer.train_batch(item) for _ in range(TRAIN_WARMUP)]
+        after_flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    finally:
+        trainer.loss_fn = probe_loss
+        handle.remove()
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    out["tf32_in_backward"] = [list(s) for s in seen]
+    log(f"  train: TF32 flags (matmul, cudnn) inside backward: {seen}; after the step "
+        f"{after_flags} (set True before)")
+    if len(seen) != 2 * TRAIN_WARMUP or any(m or c for _, m, c in seen) \
+            or after_flags != (True, True):
+        raise RuntimeError(f"train: TF32 inside the backward pass {seen}, after {after_flags}")
+
+    step_ms = []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses_seen.append(trainer.train_batch(item))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    mix, target = trainer.make_batch(item)
+    with torch.no_grad(), net_precision(None):
+        loss_after = float(trainer.loss_fn(trainer.model.apply(trainer.params, trainer.config,
+                                                               mix), target))
+    del mix, target
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    before = losses_seen[TRAIN_WARMUP]
+    n_params = sum(p.numel() for p in _flatten(trainer.params).values())
+    out["flagship"] = dict(batch=[1, 2, TRAIN_CHUNK], params=n_params, setup_s=setup_s,
+                           losses=losses_seen, loss_after=loss_after, step_ms=step_ms,
+                           ms_per_step=float(np.mean(step_ms)), peak_gib=peak, card=gpu_line())
+    log(f"  train flagship (dim {FLAGSHIP_MODEL['dim']}, depth {FLAGSHIP_MODEL['depth']}, "
+        f"{n_params} params, f32, batch 1 x 2 x {TRAIN_CHUNK}, Adam 1e-4, multi_res_stft_l1): {out['flagship']['ms_per_step']:.1f} ms/step over "
+        f"{TRAIN_STEPS} steps ({', '.join(f'{m:.1f}' for m in step_ms)}), peak "
+        f"{peak:.2f} GiB, loss {before:.5f} -> {loss_after:.5f}; {out['flagship']['card']}")
+    if not all(np.isfinite(losses_seen + [loss_after])) or not loss_after < before:
+        raise RuntimeError(f"train flagship: losses {losses_seen} then {loss_after}")
+
+    # checkpoint round trip into a fresh trainer
+    work = tempfile.mkdtemp(prefix="sesa_train_")
+    try:
+        t0 = time.perf_counter()
+        path = trainer.save(os.path.join(work, "flagship.npz"), extra={"phase": "train"})
+        save_s = time.perf_counter() - t0
+        fresh = Trainer("bs_roformer", cfg, seed=1)
+        t0 = time.perf_counter()
+        fresh.load(path)
+        load_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+    same = all(torch.equal(a, b) for a, b in zip(_flatten(trainer.params).values(),
+                                                  _flatten(fresh.params).values()))
+    next_a, next_b = trainer.train_batch(item), fresh.train_batch(item)
+    out["checkpoint"] = dict(bytes=size, save_s=save_s, load_s=load_s, params_equal=same,
+                             step=fresh.step, next_loss=[next_a, next_b])
+    log(f"[train checkpoint] {json.dumps(out['checkpoint'])}")
+    if not same or next_a != next_b or fresh.step != TRAIN_WARMUP + TRAIN_STEPS + 1:
+        raise RuntimeError(f"train checkpoint: {out['checkpoint']}")
+    del fresh
+    torch.cuda.empty_cache()
+
+    # validation of a seeded song through the port's demix
+    track = _train_item(TRAIN_VAL_S, batched=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = trainer.validate_track(track)
+    torch.cuda.synchronize()
+    out["validate_track"] = dict(seconds=time.perf_counter() - t0, song_s=TRAIN_VAL_S,
+                                 si_snr=scores)
+    log(f"[train validate_track] {json.dumps(out['validate_track'])}")
+    if not all(np.isfinite(list(scores.values()))):
+        raise RuntimeError(f"train validate_track: {scores}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the guard: bs_mamba2 in f32 reaches K8, which has no backward
+    from sesa_tpu_torch.ops.ssd import ssd_fused
+
+    mamba = Trainer("bs_mamba2", {"model": TRAIN_MAMBA_MODEL,
+                                  "training": {"instruments": ["vocals", "other"],
+                                               "target_instrument": None}}, seed=0)
+    reset_counts()
+    try:
+        mamba.train_batch(_train_item(2.0))
+    except RuntimeError as e:
+        guard = str(e)
+    else:
+        raise RuntimeError("train guard: a bs_mamba2 step on the card did not raise")
+    k8_during = read_counts()["K8"]
+    if "ssd_fused (K8)" not in guard or "no backward" not in guard or k8_during:
+        raise RuntimeError(f"train guard: {guard!r}, K8 launches {k8_during}")
+    gen = torch.Generator().manual_seed(5)
+    x, a, b, c = (t.requires_grad_(True) for t in ssd_inputs(gen, 2, 128, 4, torch.float32,
+                                                               mamba.device))
+    with torch.no_grad():
+        y = ssd_fused(x, a, b, c)
+    torch.cuda.synchronize()
+    out["guard"] = dict(message=guard[:160], k8_launches_during_step=k8_during,
+                        k8_launches_under_no_grad=read_counts()["K8"],
+                        finite=bool(torch.isfinite(y).all()))
+    log(f"[train guard] {json.dumps(out['guard'])}")
+    if out["guard"]["k8_launches_under_no_grad"] != 1 or not out["guard"]["finite"]:
+        raise RuntimeError(f"train guard: {out['guard']}")
+    del mamba, x, a, b, c, y
+
+    # the UI: the module imports without gradio; the launcher parses its arguments
+    from sesa_tpu_torch import gui
+
+    ui = dict(gradio_available=gui.GRADIO_AVAILABLE)
+    if gui.GRADIO_AVAILABLE:
+        ui["interface"] = type(gui.create_interface()).__name__
+    r = sp.run([_sys.executable, "-m", "sesa_tpu_torch.main", "--help"], capture_output=True,
+               text=True, timeout=120)
+    ui["main_help_rc"] = r.returncode
+    out["ui"] = ui
+    log(f"[train ui] {json.dumps(ui)}")
+    if r.returncode != 0 or "--ngrok-token" not in r.stdout:
+        raise RuntimeError(f"train ui: python -m sesa_tpu_torch.main --help: {r.returncode} "
+                           f"{r.stderr[-500:]}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"  train: phase {out['wall_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -2912,6 +3189,7 @@ def main(argv=None) -> int:
     out["bandit_segm"] = phase_bandit_segm(song)
     out["swin_squim"] = phase_swin_squim(song)
     out["app"] = phase_app(song)
+    out["train"] = phase_train()
     out["seconds"] = time.perf_counter() - t0
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

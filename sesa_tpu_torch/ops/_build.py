@@ -22,6 +22,8 @@ import subprocess
 import time
 from typing import Dict
 
+import torch
+
 from sesa_tpu_torch.cache import cache_dir
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
@@ -142,6 +144,33 @@ def load(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def refuse_autograd(kernel: str, *inputs) -> None:
+    """Raise when autograd would record a launch of ``kernel``: grad mode is
+    on and a tensor among ``inputs`` (nested dicts, lists and tuples are
+    searched) requires grad. A kernel called through ``ctypes`` returns a
+    tensor with no ``grad_fn``, so training through it would leave every
+    parameter upstream of the call without a gradient, silently. Each
+    wrapper calls this on the non-CPU path, before anything else: the plain
+    versions that CPU tensors run are differentiable."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in _tensors(inputs)):
+        raise RuntimeError(
+            f"{kernel}: the hand-written CUDA kernel has no backward (the JAX package has "
+            "no backward for its Pallas kernel either), and an input requires grad under "
+            "grad mode; run it under torch.no_grad(), or train the model in f32, whose "
+            "path launches no kernel (bs_mamba2's f32 path launches K8)")
 
 
 def check_tensor(kernel: str, name: str, t, shape, dtype) -> None:

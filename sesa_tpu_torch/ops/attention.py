@@ -131,6 +131,7 @@ def vmem_attention(q, k, v, scale):
     """
     if q.device.type == "cpu":
         return vmem_attention_plain(q, k, v, scale)
+    _build.refuse_autograd("vmem_attention (K3)", q, k, v)
     s, d = q.shape[-2:]
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16) or not (q.shape == k.shape == v.shape) \
             or d not in _K3_DIM_HEADS or q.ndim < 3 or s < 1:
@@ -308,6 +309,7 @@ def fused_attention_block(x, gamma, wqkv, wg, bg, wo, heads, scale, rope=None, v
     if x.device.type == "cpu":
         return fused_attention_block_plain(x, gamma, wqkv, wg, bg, wo, heads, scale, rope,
                                            vr=vr, add_residual=add_residual)
+    _build.refuse_autograd("fused_attention_block (K1)", x, gamma, wqkv, wg, bg, wo, rope, vr)
     b, n, d = x.shape
     hd = wqkv.shape[0] // 3
     dh = hd // heads
@@ -539,6 +541,8 @@ def fused_conformer_attention(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo, heads, s
     if x.device.type == "cpu":
         return fused_conformer_attention_plain(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo,
                                                heads, scale)
+    _build.refuse_autograd("fused_conformer_attention (K4)", x, ln_w, ln_b, wqkv, rel_pos_emb,
+                           wo, bo)
     b, n, d = x.shape
     hd = wqkv.shape[0] // 3
     dh = hd // heads
@@ -715,6 +719,7 @@ def fused_rope_attention(qkv, heads, scale, rope=None):
     """
     if qkv.device.type == "cpu":
         return fused_rope_attention_plain(qkv, heads, scale, rope)
+    _build.refuse_autograd("fused_rope_attention (K7)", qkv, rope)
     b, n, packed = qkv.shape
     dh = packed // (3 * heads)
     w = 0 if rope is None else rope[0].shape[-1]

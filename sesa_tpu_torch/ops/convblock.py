@@ -122,6 +122,7 @@ def fused_conformer_conv(x, p):
     """
     if x.device.type == "cpu":
         return fused_conformer_conv_plain(x, p)
+    _build.refuse_autograd("fused_conformer_conv (K5)", x, p)
     b, n, d = x.shape
     w1, b1, taps, scale, shift, w2, b2 = conv_weights(p, x.dtype)
     e, k = w2.shape[1], taps.shape[0]
@@ -223,6 +224,7 @@ def fused_apollo_conv(x, p):
     """
     if x.device.type == "cpu":
         return fused_apollo_conv_plain(x, p)
+    _build.refuse_autograd("fused_apollo_conv (K6)", x, p)
     b, n, d = x.shape
     w1, w2 = p["pw1_w"], p["pw2_w"]
     hidden, k = w1.shape[0], p["dw_w"].shape[-1]

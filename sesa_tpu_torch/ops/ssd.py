@@ -181,6 +181,7 @@ def ssd_fused(x, a, b, c, chunk_size: int = 64):
     """
     if x.device.type == "cpu":
         return ssd_plain(x, a, b, c, chunk_size)
+    _build.refuse_autograd("ssd_fused (K8)", x, a, b, c)
     if not use_fused_ssd(x, a, b, c, chunk_size):
         raise ValueError(f"ssd_fused: unsupported x {x.dtype} {tuple(x.shape)}, a "
                          f"{a.dtype} {tuple(a.shape)}, b {b.dtype} {tuple(b.shape)}, chunk "

@@ -38,7 +38,28 @@ def test_every_module_imports_with_jax_blocked():
         "models.maxvit_unet", "models.segm_models", "models.swin_upernet", "models.squim",
         "metrics", "convert.lora", "utils", "cache", "clean_model",
         "config_manager", "helpers", "download", "registry", "registry.models", "processing",
-        "runtime.profiling", "benchmark", "warmup")} <= names
+        "runtime.profiling", "benchmark", "warmup", "losses", "train", "data",
+        "data.augmentation", "data.datasets", "i18n", "gui", "main")} <= names
+
+
+def test_training_and_ui_import_with_jax_and_the_jax_package_blocked():
+    """The training and UI layers run where neither JAX, the JAX package,
+    optax nor gradio imports; the launcher parses its arguments there."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'sesa_tpu', 'optax', 'gradio', 'ml_collections'):\n"
+        "    sys.modules[m] = None\n"
+        "import sesa_tpu_torch.train, sesa_tpu_torch.losses, sesa_tpu_torch.data\n"
+        "import sesa_tpu_torch.gui as gui, sesa_tpu_torch.main as main\n"
+        "assert not gui.GRADIO_AVAILABLE\n"
+        "t = sesa_tpu_torch.train.parse_optimizer_config({'optimizer': {'name': 'RAdam'}})\n"
+        "assert t.schedule(0) == 1e-3\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'sesa_tpu', 'optax')\n"
+        "       and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
 
 
 def test_app_modules_import_without_yaml_and_requests():
