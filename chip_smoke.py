@@ -33,8 +33,13 @@ and prints no result line):
    even kernels, K7 at every dim_head it takes with partial and no rope,
    one token, several boxes along n and a partial head group, sequences
    beyond one tile, one and three chunks, an impulse the state must carry,
-   fast decays); K7's row also gives its device time. With
-   ``--only``, phases 1-2 build and check just the kernels named.
+   fast decays); K7's row also gives its device time. Then the widths
+   (``width_rows``): K1 at 4 heads x 128 on the flagship's legs and at 8 x 48
+   on the mel-band roformer's, K3 at D 48 and 96 (BH 2976 x S 690), K4 at 8 x
+   48 on the mel-band conformer's legs, K6 at d 768 and 1024 (b 320 x n
+   1901, k 7), each a timed row with its bound on the real widths, and
+   small shapes of each at head widths from 8 to 128 and at d 576 to 1024.
+   With ``--only``, phases 1-2 build and check just the kernels named.
 3. flagship: separates a generated 60 s stereo song through
    ``sesa_tpu_torch.cli.main`` with the flagship bs_roformer (dim 512,
    depth 12, 8 heads x 64, seeded weights) in bf16, and checks the stems,
@@ -60,10 +65,17 @@ and prints no result line):
    kernels (K1, K2) and with their plain versions. Then the per-kernel
    choices off the main paths (``GATE_PATHS``, depth 1, one model call each
    with the kernels and with their plain versions): Apollo at feature_dim
-   384 (K7 at dim_head 48 and K6) and 768 (K7 at dim_head 96, the ICBs
-   unfused), the mel-band conformer at dim_head 48 (K2 and K5, the attention
-   unfused) and at conv kernel 33 (K2 and K4, the conv unfused); launches as
-   the choice predicts, parity as in 7.
+   384, 768 and 1024 (K7 at dim_head 48, 96 and 128, K6 at d 384, 768 and
+   1024), the mel-band conformer at dim_head 48 (K2, K5 and K4 on heads
+   padded to 64) and at conv kernel 33 (K2 and K4, the conv unfused), the
+   four-stream roformer at 8 heads x 48 and x 96 (K3 on its time legs);
+   launches as the choice predicts, parity as in 7. Then the widths of
+   larger checkpoints at full depth (``WIDTH_PATHS``), each through
+   ``cli.main`` as in 3 and warm, with exact launch counts from the model's
+   choice, parity as in 7 and the profile of one warm call: the flagship at
+   4 heads x 128 (K1 and K2 72 times a run), the mel-band roformer at 8 x
+   48 (K1 and K2 72), the mel-band conformer at 8 x 48 (K2 96, K4 and K5
+   48) and Apollo at feature_dim 768 (K6 90, K7 30).
 9. experimental roformers and bs_mamba2: the same song through ``cli.main``
    with ``bs_roformer_experimental`` at the flagship widths with value
    residual learning (K1 in modes 1 and 2, K2 at depth 0), the same with
@@ -212,6 +224,14 @@ APOLLO_MODEL = dict(sr=44100, win=20, feature_dim=256, layer=6)
 APOLLO_CHUNK, APOLLO_BATCH = 19 * 44100, 2
 APOLLO_BPRIME, APOLLO_BANDS = 2 * APOLLO_BATCH, 80
 APOLLO_FRAMES = APOLLO_CHUNK // 441 + 1  # 1901 frames per chunk
+# the head widths and Apollo widths of larger checkpoints that the JAX gates
+# fuse and the kernels take padded (K1, K4: heads padded per head to 64 or
+# 128) or wider (K6 at d 768): each through cli.main at full depth.
+# (label, model type, model config)
+WIDTH_PATHS = (("flagship_dh128", "bs_roformer", dict(FLAGSHIP_MODEL, heads=4, dim_head=128)),
+               ("melband_dh48", "mel_band_roformer", dict(MELBAND_MODEL, dim_head=48)),
+               ("melconf_dh48", "mel_band_conformer", dict(MELCONF_MODEL, dim_head=48)),
+               ("apollo_fd768", "apollo", dict(APOLLO_MODEL, feature_dim=768)))
 # the experimental roformers at the flagship widths: value residual learning
 # on one stream, and on four residual streams (hyper-connections)
 VR_MODEL = dict(FLAGSHIP_MODEL, use_value_residual_learning=True)
@@ -798,7 +818,15 @@ K1_SMALL = ((3, 62, 128, 1, 64, 64, 0, True), (5, 65, 192, 2, 32, None, 0, True)
             (2, 257, 256, 8, 32, 16, 1, True), (1, 690, 128, 2, 64, 32, 2, False),
             (7, 62, 64, 2, 32, 32, 2, False), (4, 65, 128, 4, 64, 48, 1, True),
             (2, 257, 64, 1, 64, None, 0, False), (3, 690, 192, 3, 64, 64, 0, True),
-            (5, 1, 128, 2, 32, 32, 2, False))
+            (5, 1, 128, 2, 32, 32, 2, False),
+            # head widths the cores run padded (3 x 8 to 64, 24 to 32, 48 to
+            # 64, 96 and 120 to 128) and 128 on both routes
+            (3, 100, 64, 3, 8, 8, 0, True), (5, 62, 128, 2, 24, 16, 2, False),
+            (2, 257, 384, 8, 48, 48, 1, True), (4, 62, 256, 2, 96, 96, 0, False),
+            (3, 65, 128, 1, 120, 64, 2, False), (3, 129, 256, 2, 128, 128, 0, True),
+            (5, 33, 256, 2, 128, None, 1, True),
+            # one head of 24 and of 32: run at 64, the out product's k-step
+            (3, 100, 64, 1, 24, 24, 0, True), (4, 62, 64, 1, 32, 32, 2, False))
 
 
 def _k1_args(gen, b, n, d, heads, dh, rot, device):
@@ -858,7 +886,12 @@ def _k1_row(args, rope, label, key):
 # above n, one key tile and several
 K4_SMALL = ((3, 64, 128, 2, 64, 512), (3, 65, 128, 2, 64, 16), (3, 130, 64, 2, 32, 64),
             (5, 40, 64, 2, 32, 16), (2, 300, 64, 2, 32, 512), (2, 129, 128, 2, 64, 512),
-            (2, 200, 128, 2, 64, 80), (2, 70, 128, 1, 128, 512), (2, 300, 256, 2, 128, 100))
+            (2, 200, 128, 2, 64, 80), (2, 70, 128, 1, 128, 512), (2, 300, 256, 2, 128, 100),
+            # head widths the cores run padded: 3 x 8 and 40 on the tiles route
+            # at 64, 48 on both routes, 96 and 120 on the mma route at 128
+            (2, 300, 128, 3, 8, 16), (2, 130, 192, 3, 40, 64), (3, 60, 384, 8, 48, 512),
+            (2, 200, 384, 8, 48, 100), (2, 200, 128, 1, 96, 64), (3, 65, 128, 2, 120, 512),
+            (2, 130, 64, 1, 32, 64))
 # K5's small shapes (b, n, d, k)
 K5_SMALL = ((3, 100, 64, 7), (2, 33, 128, 8), (4, 64, 64, 31), (2, 300, 64, 31),
             (3, 130, 128, 32), (5, 1, 64, 31))
@@ -875,6 +908,170 @@ def _k4_args(gen, b, n, d, heads, dh, max_pos, device):
             _weights(gen, d, hd, device), heads)
 
 
+# K3's and K6's small shapes at the new widths: K3 (BH, S, D) contiguous,
+# read in place (D 8, 48, 96, 120) or padded by a copy (D 20); K6 (b, n, d, k)
+# with the conv rows beside the staged input (d 576 at k 9) and in xn (d 768
+# at 31 taps, d 1024)
+K3_WIDTHS_SMALL = ((5, 256, 8), (5, 1000, 20), (3, 257, 48), (3, 690, 96), (2, 2048, 120))
+K6_WIDTHS_SMALL = ((2, 70, 576, 9), (3, 100, 768, 31), (2, 257, 1024, 7), (3, 62, 1024, 31))
+
+
+def _k3_views(gen, dev, b, n, heads, dh):
+    """q, k, v (b, h, n, dh) as the four-stream roformer hands them to K3:
+    permuted views of a qkv projection, q and k through rope."""
+    import torch
+
+    from sesa_tpu_torch.ops.rope import apply_rope, default_freqs, rope_tables
+
+    qkv = torch.randn((b * n, 3 * heads * dh), generator=gen).to(dev, torch.bfloat16)
+    rope = tuple(r.to(dev, torch.bfloat16)
+                 for r in rope_tables(torch.from_numpy(default_freqs(dh)).to(dev), n))
+    q, k, v = qkv.reshape(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
+    return apply_rope(q, *rope), apply_rope(k, *rope), v
+
+
+def _k3_row(q, k, v, key):
+    """K3 on q, k, v (b, h, S, D) against its plain version, timed beside the
+    plain version and SDPA's fastest backend; the bound counts the real D."""
+    import torch
+
+    from sesa_tpu_torch.ops.attention import vmem_attention, vmem_attention_plain
+
+    b, heads, n, dh = q.shape
+    scale = dh ** -0.5
+    out = vmem_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    err = compare(f"K3 (BH={b * heads}, S={n}, D={dh})", out,
+                  vmem_attention_plain(q, k, v, scale), torch.zeros((), device=q.device))
+    del out
+    torch.cuda.empty_cache()
+    return dict(name=f"vmem_attention (BH={b * heads}, S={n}, D={dh}, strided views)",
+                route="cuda", source="sesa_tpu_torch/csrc/vmem_attention.cu",
+                replaces="sesa_tpu/ops/attention.py:137", max_abs_err=err,
+                ms=time_ms(lambda: vmem_attention(q, k, v, scale)),
+                plain_ms=time_ms(lambda: vmem_attention_plain(q, k, v, scale), reps=2, warmup=1),
+                **k3_library(q, k, v, scale),
+                **_bound(4 * b * heads * n * n * dh, 2 * 4 * b * heads * n * dh), kernel=key)
+
+
+def _k4_row(args, label, key):
+    """K4 on ``args`` (from :func:`_k4_args`) against its plain version, timed
+    beside the plain version and the library composite, with the device time
+    by sub-kernel; the bound counts the real dim_head."""
+    import torch
+
+    from sesa_tpu_torch.ops.attention import (fused_conformer_attention,
+                                              fused_conformer_attention_plain)
+
+    x, heads, rel = args[0], args[7], args[4]
+    b, n, d = x.shape
+    dh = rel.shape[1]
+    hd, tokens = heads * dh, b * n
+    out = fused_conformer_attention(*args)
+    torch.cuda.synchronize()
+    err = compare(f"K4 {label} (b={b}, n={n})", out, fused_conformer_attention_plain(*args), x)
+    del out
+    flops = 2 * tokens * d * 4 * hd + 6 * b * heads * n * n * dh
+    nbytes = 2 * (2 * tokens * d + 4 * hd * d + 3 * d + rel.shape[0] * dh)
+    row = dict(name=f"fused_conformer_attention ({label}, b={b}, n={n})", route="cuda",
+               source="sesa_tpu_torch/csrc/conformer_attention.cu",
+               replaces="sesa_tpu/ops/attention.py:641", max_abs_err=err,
+               ms=time_ms(lambda: fused_conformer_attention(*args)),
+               plain_ms=time_ms(lambda: fused_conformer_attention_plain(*args), reps=2, warmup=1),
+               library_ms=time_ms(lambda: k4_library(*args)), **_bound(flops, nbytes), kernel=key)
+    log_breakdown(row, f"K4 {label}", lambda: fused_conformer_attention(*args))
+    return row
+
+
+def _k6_row(gen, dev, b, n, d, k, key):
+    """K6 at (b, n, d) with k taps against its plain version, timed beside
+    the plain version and the library composite, with the device time by
+    sub-kernel."""
+    import torch
+
+    from sesa_tpu_torch.ops.convblock import fused_apollo_conv, fused_apollo_conv_plain
+
+    tokens, hidden = b * n, 4 * d
+    p = _apollo_conv_params(gen, d, k, dev)
+    x = (0.5 * torch.randn((b, n, d), generator=gen)).to(dev, torch.bfloat16)
+    out = fused_apollo_conv(x, p)
+    torch.cuda.synchronize()
+    err = compare(f"K6 (b={b}, n={n}, d={d}, k={k})", out, fused_apollo_conv_plain(x, p), x)
+    del out
+    torch.cuda.empty_cache()
+    row = dict(name=f"fused_apollo_conv (b={b}, n={n}, d={d}, hidden={hidden}, k={k})",
+               route="cuda", source="sesa_tpu_torch/csrc/apollo_conv.cu",
+               replaces="sesa_tpu/ops/convblock.py:200", max_abs_err=err,
+               ms=time_ms(lambda: fused_apollo_conv(x, p)),
+               plain_ms=time_ms(lambda: fused_apollo_conv_plain(x, p), reps=2, warmup=1),
+               library_ms=time_ms(lambda: k6_library(x, p)),
+               **_bound(2 * tokens * 2 * d * hidden + 2 * tokens * k * d,
+                        2 * (2 * tokens * d + 2 * d * hidden + k * d + 3 * d + hidden)),
+               kernel=key)
+    log_breakdown(row, f"K6 d={d}", lambda: fused_apollo_conv(x, p))
+    return row
+
+
+def width_rows(gen, dev, want):
+    """The kernels at the widths their cores run padded or that widened them,
+    each against its plain version at a model path's shape: K1 at 4 heads x
+    128 on the flagship's legs and at 8 x 48 on the mel-band roformer's
+    (d 384); K3 at D 48 and 96 (BH 2976 x S 690, strided views as the
+    four-stream roformer hands them over); K4 at 8 x 48 on the mel-band
+    conformer's legs; K6 at d 768 and 1024 on Apollo's shape (b 320 x n
+    1901, k 7). Each row is timed beside the plain version and the library
+    composite, its bound counts the real widths; then the small shapes."""
+    import torch
+
+    from sesa_tpu_torch.ops.attention import vmem_attention, vmem_attention_plain
+    from sesa_tpu_torch.ops.convblock import fused_apollo_conv, fused_apollo_conv_plain
+
+    rows = []
+    zero = torch.zeros((), device=dev)
+    if want("K1"):
+        for key, d, heads, dh, legs in (
+                ("K1dh128", FLAGSHIP_MODEL["dim"], 4, 128,
+                 (("time", BATCH * BANDS, FRAMES), ("freq", BATCH * FRAMES, BANDS))),
+                ("K1dh48", MELBAND_MODEL["dim"], 8, 48,
+                 (("time", BATCH * MEL_BANDS, FRAMES), ("freq", BATCH * FRAMES, MEL_BANDS)))):
+            for leg, b, n in legs:
+                args, rope = _k1_args(gen, b, n, d, heads, dh, dh, dev)
+                rows.append(_k1_row(args, rope, f"{heads} x {dh}, d={d}, {leg} leg", key))
+                del args, rope
+                torch.cuda.empty_cache()
+    if want("K3"):
+        for dh in (48, 96):
+            q, k, v = _k3_views(gen, dev, BATCH * BANDS, FRAMES, 8, dh)
+            rows.append(_k3_row(q, k, v, f"K3dh{dh}"))
+            del q, k, v
+            torch.cuda.empty_cache()
+        for bh, s_len, dh in K3_WIDTHS_SMALL:
+            q, k, v = (torch.randn((bh, s_len, dh), generator=gen).to(dev, torch.bfloat16)
+                       for _ in range(3))
+            compare(f"K3 small (BH={bh}, S={s_len}, D={dh})", vmem_attention(q, k, v, dh ** -0.5),
+                    vmem_attention_plain(q, k, v, dh ** -0.5), zero)
+        torch.cuda.synchronize()
+    if want("K4"):
+        d, heads, dh, max_pos = MELCONF_MODEL["dim"], 8, 48, 512
+        for leg, b, n in (("time", BATCH * MEL_BANDS, FRAMES), ("freq", BATCH * FRAMES, MEL_BANDS)):
+            args = _k4_args(gen, b, n, d, heads, dh, max_pos, dev)
+            rows.append(_k4_row(args, f"{heads} x {dh}, {leg} leg", "K4dh48"))
+            del args
+            torch.cuda.empty_cache()
+    if want("K6"):
+        b, n = APOLLO_BPRIME * APOLLO_BANDS, APOLLO_FRAMES
+        for d in (768, 1024):
+            rows.append(_k6_row(gen, dev, b, n, d, 7, f"K6d{d}"))
+            torch.cuda.empty_cache()
+        for b, n, d, k in K6_WIDTHS_SMALL:
+            p = _apollo_conv_params(gen, d, k, dev)
+            x = (0.5 * torch.randn((b, n, d), generator=gen)).to(dev, torch.bfloat16)
+            compare(f"K6 small (b={b}, n={n}, d={d}, k={k})", fused_apollo_conv(x, p),
+                    fused_apollo_conv_plain(x, p), x)
+        torch.cuda.synchronize()
+    return rows
+
+
 def phase_kernels(only=None):
     """Each kernel's rows (all, or the kernels in ``only``, e.g. {"K2", "K3"})."""
     import torch
@@ -889,7 +1086,7 @@ def phase_kernels(only=None):
     from sesa_tpu_torch.ops.convblock import (fused_apollo_conv, fused_apollo_conv_plain,
                                               fused_conformer_conv, fused_conformer_conv_plain)
     from sesa_tpu_torch.ops.ff import fused_ff_residual, fused_ff_residual_plain
-    from sesa_tpu_torch.ops.rope import apply_rope, default_freqs, rope_tables
+    from sesa_tpu_torch.ops.rope import default_freqs, rope_tables
     from sesa_tpu_torch.ops.ssd import ssd_einsum, ssd_fused, ssd_plain
 
     dev = torch.device("cuda")
@@ -916,24 +1113,10 @@ def phase_kernels(only=None):
             rope = tuple(r.to(dev, torch.bfloat16)
                          for r in rope_tables(torch.from_numpy(default_freqs(dh)).to(dev), n))
             args = (x, gamma, wqkv, wg, bg, wo, heads, dh ** -0.5)
-            out = fused_attention_block(*args, rope=rope)
-            torch.cuda.synchronize()
-            ref = fused_attention_block_plain(*args, rope=rope)
-            err = compare(f"K1 {leg} leg (b={b}, n={n})", out, ref, x)
-            del out, ref
-            ms = time_ms(lambda: fused_attention_block(*args, rope=rope))
-            plain_ms = time_ms(lambda: fused_attention_block_plain(*args, rope=rope), reps=2,
-                               warmup=1)
-            lib_ms = time_ms(lambda: k1_library(*args, rope))
+            rows.append(_k1_row(args, rope, f"{leg} leg", "K1"))
             tokens = b * n
             flops = 2 * tokens * d * (3 * hd + heads + hd) + 4 * b * heads * n * n * dh
             nbytes = 2 * (2 * tokens * d + (3 * hd + heads + hd) * d + heads + d + 2 * n * dh)
-            rows.append(dict(name=f"fused_attention_block ({leg} leg, b={b}, n={n})",
-                             route="cuda", source="sesa_tpu_torch/csrc/attention.cu",
-                             replaces="sesa_tpu/ops/attention.py:461", max_abs_err=err,
-                             ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             **_bound(flops, nbytes), kernel="K1"))
-            log_breakdown(rows[-1], f"K1 {leg} leg", lambda: fused_attention_block(*args, rope=rope))
 
             # the value-residual modes: mode 1 (first layer: with the residual,
             # returns the pre-mix V) and mode 2 (later layers: V lerped toward a
@@ -1055,28 +1238,13 @@ def phase_kernels(only=None):
         # K4 and K5 at the mel-band conformer shapes
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         d, heads, dh, max_pos, k = MELCONF_MODEL["dim"], 8, 64, 512, 31
-        hd, e = heads * dh, 2 * d
+        e = 2 * d
         conv_p = _conv_params(gen, d, e, k, dev)
         for leg, b, n in (("time", BATCH * MEL_BANDS, FRAMES), ("freq", BATCH * FRAMES, MEL_BANDS)):
             args = _k4_args(gen, b, n, d, heads, dh, max_pos, dev)
             x, tokens = args[0], b * n
-            out = fused_conformer_attention(*args)
-            torch.cuda.synchronize()
-            err = compare(f"K4 {leg} leg (b={b}, n={n})", out,
-                          fused_conformer_attention_plain(*args), x)
-            del out
-            flops = 2 * tokens * d * 4 * hd + 6 * b * heads * n * n * dh
-            nbytes = 2 * (2 * tokens * d + 4 * hd * d + 3 * d + (2 * max_pos + 1) * dh)
-            rows.append(dict(name=f"fused_conformer_attention ({leg} leg, b={b}, n={n})",
-                             route="cuda", source="sesa_tpu_torch/csrc/conformer_attention.cu",
-                             replaces="sesa_tpu/ops/attention.py:641", max_abs_err=err,
-                             ms=time_ms(lambda: fused_conformer_attention(*args)),
-                             plain_ms=time_ms(lambda: fused_conformer_attention_plain(*args),
-                                              reps=2, warmup=1),
-                             library_ms=time_ms(lambda: k4_library(*args)),
-                             **_bound(flops, nbytes), kernel="K4"))
+            rows.append(_k4_row(args, f"{leg} leg", "K4"))
             log(f"  K4 {leg} leg core route: {k4_plan(b, n, d, heads, dh, sms)['core']['route']}")
-            log_breakdown(rows[-1], f"K4 {leg} leg", lambda: fused_conformer_attention(*args))
             torch.cuda.empty_cache()
 
             out = fused_conformer_conv(x, conv_p)
@@ -1119,26 +1287,8 @@ def phase_kernels(only=None):
 
     if want("K6"):
         # K6 at Apollo's shape: 4 x 80 band sequences of 1901 frames, d 256, k 7
-        b, n, d, k = APOLLO_BPRIME * APOLLO_BANDS, APOLLO_FRAMES, APOLLO_MODEL["feature_dim"], 7
-        tokens, hidden = b * n, 4 * d
-        p = _apollo_conv_params(gen, d, k, dev)
-        x = (0.5 * torch.randn((b, n, d), generator=gen)).to(dev, torch.bfloat16)
-        out = fused_apollo_conv(x, p)
-        torch.cuda.synchronize()
-        err = compare(f"K6 (b={b}, n={n}, d={d}, k={k})", out, fused_apollo_conv_plain(x, p), x)
-        del out
-        torch.cuda.empty_cache()
-        rows.append(dict(name=f"fused_apollo_conv (b={b}, n={n}, d={d}, hidden={hidden}, k={k})",
-                         route="cuda", source="sesa_tpu_torch/csrc/apollo_conv.cu",
-                         replaces="sesa_tpu/ops/convblock.py:200", max_abs_err=err,
-                         ms=time_ms(lambda: fused_apollo_conv(x, p)),
-                         plain_ms=time_ms(lambda: fused_apollo_conv_plain(x, p), reps=2, warmup=1),
-                         library_ms=time_ms(lambda: k6_library(x, p)),
-                         **_bound(2 * tokens * 2 * d * hidden + 2 * tokens * k * d,
-                                  2 * (2 * tokens * d + 2 * d * hidden + k * d + 3 * d + hidden)),
-                         kernel="K6"))
-        log_breakdown(rows[-1], "K6", lambda: fused_apollo_conv(x, p))
-        del x
+        rows.append(_k6_row(gen, dev, APOLLO_BPRIME * APOLLO_BANDS, APOLLO_FRAMES,
+                            APOLLO_MODEL["feature_dim"], 7, "K6"))
         torch.cuda.empty_cache()
 
     if want("K7"):
@@ -1186,36 +1336,17 @@ def phase_kernels(only=None):
     if want("K3"):
         # K3 at the hyper-connection time leg, as attention_apply hands it over:
         # permuted views of the qkv projection, q and k through rope
-        heads, dh, n = FLAGSHIP_MODEL["heads"], FLAGSHIP_MODEL["dim_head"], FRAMES
-        b = BATCH * BANDS
-        qkv = torch.randn((b * n, 3 * heads * dh), generator=gen).to(dev, torch.bfloat16)
-        rope = tuple(r.to(dev, torch.bfloat16)
-                     for r in rope_tables(torch.from_numpy(default_freqs(dh)).to(dev), n))
-        q, k, v = qkv.reshape(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
-        q, k = apply_rope(q, *rope), apply_rope(k, *rope)
-        scale = dh ** -0.5
-        out = vmem_attention(q, k, v, scale)
-        torch.cuda.synchronize()
-        err = compare(f"K3 (BH={b * heads}, S={n}, D={dh})", out,
-                      vmem_attention_plain(q, k, v, scale), zero)
-        del out
-        torch.cuda.empty_cache()
-        rows.append(dict(name=f"vmem_attention (BH={b * heads}, S={n}, D={dh}, strided views)",
-                         route="cuda", source="sesa_tpu_torch/csrc/vmem_attention.cu",
-                         replaces="sesa_tpu/ops/attention.py:137", max_abs_err=err,
-                         ms=time_ms(lambda: vmem_attention(q, k, v, scale)),
-                         plain_ms=time_ms(lambda: vmem_attention_plain(q, k, v, scale), reps=2,
-                                          warmup=1),
-                         **k3_library(q, k, v, scale),
-                         **_bound(4 * b * heads * n * n * dh, 2 * 4 * b * heads * n * dh),
-                         kernel="K3"))
+        heads, dh = FLAGSHIP_MODEL["heads"], FLAGSHIP_MODEL["dim_head"]
+        q, k, v = _k3_views(gen, dev, BATCH * BANDS, FRAMES, heads, dh)
+        rows.append(_k3_row(q, k, v, "K3"))
         # the same on contiguous copies, to tell the cost of the strides
+        scale = dh ** -0.5
         qc, kc, vc = (t.contiguous() for t in (q, k, v))
         rows[-1].update(contiguous_ms=time_ms(lambda: vmem_attention(qc, kc, vc, scale)),
                         copies_ms=time_ms(lambda: [t.contiguous() for t in (q, k, v)]))
         log(f"  K3 on contiguous (b, h, s, d) copies: {rows[-1]['contiguous_ms']:.3f} ms; "
             f"the three copies: {rows[-1]['copies_ms']:.3f} ms")
-        del qkv, q, k, v, qc, kc, vc
+        del q, k, v, qc, kc, vc
         torch.cuda.empty_cache()
         # K3 at the edges of its gate and the other head widths, contiguous (BH, S, D)
         for s_len in (256, 257, 1000, 2048):
@@ -1268,6 +1399,7 @@ def phase_kernels(only=None):
             raise RuntimeError("K8 impulse: the state did not reach the last chunk")
         torch.cuda.synchronize()
 
+    rows += width_rows(gen, dev, want)
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} ms by "
             f"{r['bound_by']}, plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms)")
@@ -1403,7 +1535,7 @@ def _plain_swaps(model_type):
 
     if model_type.startswith("bs_mamba2"):  # ssd() looks ssd_fused up in its module
         return [(ssd_ops, "ssd_fused", ssd_ops.ssd_plain)]
-    if model_type == "bs_roformer_experimental_hc":  # so does sdpa() with K3
+    if model_type.startswith("bs_roformer_experimental_hc"):  # so does sdpa() with K3
         return [(attention_ops, "vmem_attention", attention_ops.vmem_attention_plain)]
     if model_type.startswith("apollo"):
         return [(apollo, "fused_rope_attention", fused_rope_attention_plain),
@@ -1735,32 +1867,45 @@ def phase_chain(sessions, song, expected, first="bs_roformer", label="chain"):
     return res
 
 
-# shapes off the main paths that the per-kernel choices send partly down the
-# plain chain, depth 1 each: (label, model type, model config)
+# shapes off the main paths that exercise the per-kernel choices, depth 1
+# each: (label, model type, model config)
 GATE_PATHS = (("apollo_fd384", "apollo", dict(APOLLO_MODEL, feature_dim=384, layer=1)),
               ("apollo_fd768", "apollo", dict(APOLLO_MODEL, feature_dim=768, layer=1)),
+              ("apollo_fd1024", "apollo", dict(APOLLO_MODEL, feature_dim=1024, layer=1)),
               ("mel_band_conformer_dh48", "mel_band_conformer",
                dict(MELCONF_MODEL, depth=1, dim_head=48)),
               ("mel_band_conformer_k33", "mel_band_conformer",
-               dict(MELCONF_MODEL, depth=1, conv_kernel_size=33)))
-# the kernels each of them must take: Apollo at dim_head 48 both, at 96 K7
-# with the ICBs unfused; the conformer at dim_head 48 K2 and K5 with the
-# attention unfused, at 33 taps K2 and K4 with the conv unfused
-GATE_KERNELS = {"apollo_fd384": {"K6", "K7"}, "apollo_fd768": {"K7"},
-                "mel_band_conformer_dh48": {"K2", "K5"}, "mel_band_conformer_k33": {"K2", "K4"}}
+               dict(MELCONF_MODEL, depth=1, conv_kernel_size=33)),
+              ("bs_roformer_experimental_hc_dh48", "bs_roformer_experimental",
+               dict(HC_MODEL, depth=1, dim_head=48)),
+              ("bs_roformer_experimental_hc_dh96", "bs_roformer_experimental",
+               dict(HC_MODEL, depth=1, dim_head=96)))
+# the kernels each of them must take: Apollo at feature_dim 384, 768 and 1024
+# both (K7 at dim_head 48, 96 and 128, K6 at d 384, 768 and 1024); the
+# conformer at dim_head 48 all three (K4 on heads padded to 64), at 33 taps
+# K2 and K4 with the conv unfused; the four-stream roformer at dim_head 48
+# and 96 K3 on its time legs (690 frames; the freq legs' 62 bands are below
+# K3's gate)
+GATE_KERNELS = {"apollo_fd384": {"K6", "K7"}, "apollo_fd768": {"K6", "K7"},
+                "apollo_fd1024": {"K6", "K7"}, "mel_band_conformer_dh48": {"K2", "K4", "K5"},
+                "mel_band_conformer_k33": {"K2", "K4"},
+                "bs_roformer_experimental_hc_dh48": {"K3"},
+                "bs_roformer_experimental_hc_dh96": {"K3"}}
 
 
 def phase_gates(song):
     """One model call of each of GATE_PATHS (seeded weights) with the kernels
     and with their plain versions (model_parity: finite, >= 20 dB). The
     kernels launched are those the model's choice (``apollo_kernels``,
-    ``conformer_kernels``) names for the call's shapes, each as often as the
-    layers reach it, and the choice is GATE_KERNELS."""
+    ``conformer_kernels``, the four-stream roformer's ``sdpa`` through K3's
+    gate) names for the call's shapes, each as often as the layers reach it,
+    and the choice is GATE_KERNELS."""
     import torch
 
     from sesa_tpu_torch.configs import AttrDict
     from sesa_tpu_torch.models import apollo, get_model
     from sesa_tpu_torch.models import conformer_core as cc
+    from sesa_tpu_torch.ops.attention import use_vmem_attention
     from sesa_tpu_torch.tree import tree_map
 
     out = []
@@ -1774,6 +1919,14 @@ def phase_gates(song):
             chosen = apollo.apollo_kernels("cuda", torch.bfloat16, APOLLO_BPRIME, APOLLO_FRAMES,
                                            APOLLO_BANDS, n)
             per_kernel = {"K7": model_cfg["layer"], "K6": 3 * model_cfg["layer"]}
+        elif model_type == "bs_roformer_experimental":
+            # the branches' sdpa: K3 where its gate takes a leg's (b, h, n, dh)
+            dh = model_cfg["dim_head"]
+            chosen = {"K3"} if any(
+                use_vmem_attention(*[torch.empty((1, 1, n, dh), device="cuda",
+                                                 dtype=torch.bfloat16)] * 3)
+                for n in (FRAMES, BANDS)) else set()
+            per_kernel = {"K3": model_cfg["depth"] * model_cfg["time_transformer_depth"]}
         else:
             dim, dh = model_cfg["dim"], model_cfg.get("dim_head", 64)
             legs = {cc.conformer_kernels("cuda", torch.bfloat16, b, n, dim, 8, dh, 4 * dim,
@@ -1794,6 +1947,71 @@ def phase_gates(song):
         res["kernels_chosen"] = sorted(chosen)
         out.append(res)
         del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_widths(song, calls):
+    """WIDTH_PATHS through cli.main (drive_cli: stems, 0 rescues, exact
+    launch counts, a warm second separation), each kernel chosen by the
+    model's choice at its shapes and launched as often as the layers reach
+    it; then model parity (kernels against plain versions, >= 20 dB, the
+    same counts per call) and the profile of one warm call. Each session is
+    dropped before the next model loads."""
+    import torch
+
+    from sesa_tpu_torch.models import apollo
+    from sesa_tpu_torch.models import conformer_core as cc
+    from sesa_tpu_torch.ops.attention import attention_block_shape_ok
+    from sesa_tpu_torch.ops.ff import ff_shape_ok
+
+    out = {"runs": {}, "parity": [], "profile": {}}
+    for label, model_type, model_cfg in WIDTH_PATHS:
+        kw, n_calls = {}, calls
+        if model_type == "apollo":
+            n = model_cfg["feature_dim"]
+            chosen = apollo.apollo_kernels("cuda", torch.bfloat16, APOLLO_BPRIME, APOLLO_FRAMES,
+                                           APOLLO_BANDS, n)
+            per_call = {"K7": model_cfg["layer"], "K6": 3 * model_cfg["layer"]}
+            kw = dict(chunk=APOLLO_CHUNK, batch=APOLLO_BATCH, stem="restored")
+            n_calls = _model_calls(APOLLO_CHUNK, APOLLO_BATCH)
+        else:
+            dim, heads = model_cfg["dim"], model_cfg.get("heads", 8)
+            dh = model_cfg["dim_head"]
+            bands = BANDS if model_type == "bs_roformer" else MEL_BANDS
+            legs = ((BATCH * bands, FRAMES), (BATCH * FRAMES, bands))
+            if model_type == "mel_band_conformer":
+                kinds = {cc.conformer_kernels("cuda", torch.bfloat16, b, n, dim, heads, dh,
+                                              4 * dim, 2 * dim, 31) for b, n in legs}
+                blocks = 2 * model_cfg["depth"]
+                per_call = {"K2": 2 * blocks, "K4": blocks, "K5": blocks}
+            else:  # the roformer's choice: use_fused_attention on a bf16 CUDA x, K2 likewise
+                kinds = {frozenset(k for k, ok in (
+                    ("K1", attention_block_shape_ok(b, n, dim, heads, dh)),
+                    ("K2", ff_shape_ok(b * n, dim, 4 * dim))) if ok) for b, n in legs}
+                layers = 2 * model_cfg["depth"]
+                per_call = {"K1": layers, "K2": layers}
+            if len(kinds) != 1:
+                raise RuntimeError(f"{label}: the time and freq legs take {kinds}")
+            chosen = kinds.pop()
+        if set(chosen) != set(per_call):
+            raise RuntimeError(f"{label}: the choice takes {sorted(chosen)}, expected "
+                               f"{sorted(per_call)}")
+        k1_modes = [per_call["K1"] * n_calls, 0, 0] if "K1" in per_call else None
+        with tempfile.TemporaryDirectory() as work:
+            res, session = drive_cli(work, model_type, model_cfg, song,
+                                     expect(**{k: v * n_calls for k, v in per_call.items()}),
+                                     k1_modes=k1_modes, **kw)
+        res["config"] = label
+        out["runs"][label] = res
+        parity = model_parity(model_type, session.params, session.config, song,
+                              with_f32=False, label=f"{model_type}_{label}")
+        if parity["launches"] != expect(**per_call):
+            raise RuntimeError(f"{label} parity: launches {parity['launches']} in one model "
+                               f"call, expected {expect(**per_call)}")
+        out["parity"].append(parity)
+        out["profile"][label] = phase_profile(model_type, session, song, label=label)
+        del session
         torch.cuda.empty_cache()
     return out
 
@@ -3169,6 +3387,9 @@ def main(argv=None) -> int:
     out["melband"] = phase_melband(song)
     out["gates"] = phase_gates(song)
     out["profile"] = {mt: phase_profile(mt, s, song) for mt, s in sessions.items()}
+    # the sessions above stay loaded for the second chain: the widths' models
+    # load one at a time beside them
+    out["widths"] = phase_widths(song, calls)
     # bench.py's own chain pair: SCNet's vocals (stem 3) and the mel-band
     # conformer's -> ensemble + phase fix -> Apollo
     out["scnet"], scnet_session = phase_scnet(song)
@@ -3212,6 +3433,17 @@ def main(argv=None) -> int:
                 "K8f32": runs["bs_mamba2_f32"]["k8_launches_by_dtype"]["f32"],
                 "K1scnet": out["scnet_family"]["scnet_tran"]["launches"]["K1"],
                 "K2scnet": out["scnet_family"]["scnet_tran"]["launches"]["K2"]}
+    # the widths' rows: their CLI runs, or (K3 at D 48 and 96, K6 at d 1024) the
+    # one model call of their GATE_PATHS entry
+    widths = out["widths"]["runs"]
+    gates = {g["model_type"]: g["launches"] for g in out["gates"]}
+    launches.update({"K1dh128": widths["flagship_dh128"]["launches"]["K1"],
+                     "K1dh48": widths["melband_dh48"]["launches"]["K1"],
+                     "K4dh48": widths["melconf_dh48"]["launches"]["K4"],
+                     "K6d768": widths["apollo_fd768"]["launches"]["K6"],
+                     "K3dh48": gates["bs_roformer_experimental_hc_dh48"]["K3"],
+                     "K3dh96": gates["bs_roformer_experimental_hc_dh96"]["K3"],
+                     "K6d1024": gates["apollo_fd1024"]["K6"]})
     kernels = [dict(name=r["name"], route=r["route"], source=r["source"],
                     replaces=r["replaces"], launches=launches[r["kernel"]],
                     max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],

@@ -26,9 +26,14 @@
 //            warp reduction gives the norm with no second pass over memory;
 //            bf16(bf16(y * rsqrt(mean + eps)) * gamma) leaves in 16-byte
 //            stores.
+//            Where the conv rows do not fit beside the staged rows (d > 704
+//            at more than 8 taps, d > 832 at up to 8; 95 staged rows of 2 KB
+//            at d 1024, k 31), they wait in xn and the norm overwrites them
+//            there.
 //   2. up:   W1 on gemm_ws.cuh (persistent, TMA producer warp, two ping-pong
 //            consumer warpgroups; at K = d <= 512 the block's slice of W1
-//            stays in shared memory), + b1, SiLU in f32 (silu_fast: the fast
+//            stays in shared memory, beyond it both operands stream, as in
+//            the down product), + b1, SiLU in f32 (silu_fast: the fast
 //            divide, a few f32 ulps from an IEEE divide, far below the bf16
 //            rounding that follows), bf16 hidden.
 //   3. down: W2 on gemm_ws.cuh (K = 4d streams both operands), + b2, bf16,
@@ -45,9 +50,15 @@ namespace sesa {
 
 constexpr int AC_ROWS = 64;  // sequence rows per block: 8 warps x 8 rows
 constexpr int AC_RPT = 8;    // consecutive rows per warp
+constexpr int AC_SMEM_MAX = 227 * 1024;  // dynamic shared memory of one block
 
-// KMAX: taps held in registers (taps >= k are zero); 8 or 32
-template <int KMAX>
+// KMAX: taps held in registers (taps >= k are zero); 8 or 32. YSMEM: the
+// rows of conv + b_dw wait for their norm in shared memory beside the staged
+// input; where both do not fit (d > 704 at more than 8 taps, d > 832 at up
+// to 8) they wait in their rows of xn, which the norm then overwrites in
+// place (the lanes of the warp that owns a row read what other lanes wrote,
+// after __syncwarp)
+template <int KMAX, bool YSMEM>
 __global__ void __launch_bounds__(256)
 dwconv_rmsnorm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ taps,
                       const bf16* __restrict__ dwb, const bf16* __restrict__ gamma,
@@ -55,10 +66,11 @@ dwconv_rmsnorm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ taps,
   extern __shared__ __align__(16) unsigned char ac_smem[];
   constexpr int SROWS = AC_ROWS + KMAX - 1;
   bf16* s_in = reinterpret_cast<bf16*>(ac_smem);  // [SROWS][d] staged input
-  bf16* s_y = s_in + (size_t)SROWS * d;            // [AC_ROWS][d] conv + b_dw, bf16
 
   const int i0 = (blockIdx.x % tiles) * AC_ROWS, pad_l = (k - 1) / 2;
   const size_t seq0 = (size_t)(blockIdx.x / tiles) * n;
+  // conv + b_dw, bf16: [AC_ROWS][d] in shared memory, or rows i0.. of xn
+  bf16* s_y = YSMEM ? s_in + (size_t)SROWS * d : xn + (seq0 + i0) * d;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
   // staged row r is sequence row i0 - pad_l + r; zero outside [0, n)
@@ -108,7 +120,9 @@ dwconv_rmsnorm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ taps,
     for (int r = 0; r < AC_RPT; ++r) {
       const float y0 = rbf(acc[r].x + bias.x), y1 = rbf(acc[r].y + bias.y);
       ss[r] += y0 * y0 + y1 * y1;
-      *reinterpret_cast<uint32_t*>(s_y + (size_t)(rbase + r) * d + 2 * cp) = pack_bf16x2(y0, y1);
+      if (YSMEM || i0 + rbase + r < n)  // xn has no rows past the sequence
+        *reinterpret_cast<uint32_t*>(s_y + (size_t)(rbase + r) * d + 2 * cp) =
+            pack_bf16x2(y0, y1);
     }
   }
   __syncwarp();
@@ -135,18 +149,29 @@ dwconv_rmsnorm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ taps,
   }
 }
 
-template <int KMAX>
+template <int KMAX, bool YSMEM>
 static int launch_dwconv_rmsnorm(const bf16* x, const bf16* taps, const bf16* dwb,
                                  const bf16* gamma, bf16* xn, int batch, int n, int d, int k,
-                                 float eps, cudaStream_t s) {
-  const int smem = (AC_ROWS + KMAX - 1 + AC_ROWS) * d * 2;
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(dwconv_rmsnorm_kernel<KMAX>,
+                                 float eps, int smem, cudaStream_t s) {
+  cudaFuncSetAttribute(dwconv_rmsnorm_kernel<KMAX, YSMEM>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const int tiles = (n + AC_ROWS - 1) / AC_ROWS;
-  dwconv_rmsnorm_kernel<KMAX><<<(unsigned)(tiles * batch), 256, smem, s>>>(
+  dwconv_rmsnorm_kernel<KMAX, YSMEM><<<(unsigned)(tiles * batch), 256, smem, s>>>(
       x, taps, dwb, gamma, xn, n, d, k, tiles, eps);
   return (int)cudaGetLastError();
+}
+
+// the staged input, and the conv rows beside it where they fit
+template <int KMAX>
+static int launch_dwconv(const bf16* x, const bf16* taps, const bf16* dwb, const bf16* gamma,
+                         bf16* xn, int batch, int n, int d, int k, float eps, cudaStream_t s) {
+  const int staged = (AC_ROWS + KMAX - 1) * d * 2, with_y = staged + AC_ROWS * d * 2;
+  if (with_y <= AC_SMEM_MAX)
+    return launch_dwconv_rmsnorm<KMAX, true>(x, taps, dwb, gamma, xn, batch, n, d, k, eps,
+                                             with_y, s);
+  if (staged > AC_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  return launch_dwconv_rmsnorm<KMAX, false>(x, taps, dwb, gamma, xn, batch, n, d, k, eps,
+                                            staged, s);
 }
 
 }  // namespace sesa
@@ -156,16 +181,17 @@ using namespace sesa;
 extern "C" {
 
 // xn = bf16(bf16(y * rsqrt(mean(y^2) + eps)) * gamma) with
-// y = bf16(dwconv_k(x) + dwb) per sequence of n rows; taps (k, d), k odd <= 31
+// y = bf16(dwconv_k(x) + dwb) per sequence of n rows; taps (k, d), k odd <= 31,
+// d a multiple of 64 up to 1024
 int sesa_apollo_dw(const void* x, const void* taps, const void* dwb, const void* gamma,
                    void* xn, int batch, int n, int d, int k, float eps, void* stream) {
-  if (k < 1 || k > 31 || k % 2 == 0 || d % 64) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > 31 || k % 2 == 0 || d % 64 || d > 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (k <= 8)
-    return launch_dwconv_rmsnorm<8>((const bf16*)x, (const bf16*)taps, (const bf16*)dwb,
-                                    (const bf16*)gamma, (bf16*)xn, batch, n, d, k, eps, s);
-  return launch_dwconv_rmsnorm<32>((const bf16*)x, (const bf16*)taps, (const bf16*)dwb,
-                                   (const bf16*)gamma, (bf16*)xn, batch, n, d, k, eps, s);
+    return launch_dwconv<8>((const bf16*)x, (const bf16*)taps, (const bf16*)dwb,
+                            (const bf16*)gamma, (bf16*)xn, batch, n, d, k, eps, s);
+  return launch_dwconv<32>((const bf16*)x, (const bf16*)taps, (const bf16*)dwb,
+                           (const bf16*)gamma, (bf16*)xn, batch, n, d, k, eps, s);
 }
 
 // h = bf16(silu(xn . w1^T + b1)); grid: blocks of the persistent product

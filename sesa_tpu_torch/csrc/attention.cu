@@ -52,6 +52,15 @@
 // xn, the qkv tensor and the gated attention output cross device memory
 // once each, which the fused TPU kernel avoided.
 //
+// Head widths: the cores are built for dim_head 32, 64 and 128. The wrapper
+// runs any other width up to 128 at the narrowest of them that holds it and
+// makes heads * width a multiple of 64 (the out product's k-step), with
+// W_qkv's rows and W_o's columns zero-padded per head (ops/attention.py
+// core_width, pad_heads): zero q and k columns add nothing to q . k^T, zero
+// v columns give zero output columns, and W_o's zero columns drop them. The
+// scale stays the real dim_head's; the rope's pairs come first in a head, so
+// the padding is never rotated.
+//
 // The host plans every launch (ops/attention.py k1_plan): the GEMMs' grids,
 // the core's route, tensor maps and grid, and each launch's shared memory;
 // the entry points refuse a plan that does not match the layouts here.
@@ -247,16 +256,22 @@ attn_vr_kernel(bf16* __restrict__ qkv, const float* __restrict__ side,
 }
 
 // the core's launches: flash_wgmma tiles (n > 64), or one attn_core_kernel
-// block per (sequence, head) (n <= 64); their shared memory and blocks
+// block per (sequence, head) (n <= 64); their shared memory and blocks. The
+// tiles route runs three consumer warpgroups (192-query tiles) at dim_head
+// 32 and 64, two (128-query tiles) at 128, where three would not have the
+// registers for their accumulators (as K3)
+template <int DH>
+constexpr int k1_ncw() { return DH == 128 ? 2 : 3; }
+
 template <int DH>
 inline int k1_core_smem(bool short_route) {
-  return short_route ? flash_core_smem_bytes<DH, 64>() : FlashCfg<DH, 3>::SMEM;
+  return short_route ? flash_core_smem_bytes<DH, 64>() : FlashCfg<DH, k1_ncw<DH>()>::SMEM;
 }
 
 template <int DH>
 inline long long k1_core_blocks(bool short_route, long long batch, int heads, int n, int sms) {
   if (short_route) return batch * heads;
-  const long long tiles = flash_tiles<DH, 3>(batch, heads, n);
+  const long long tiles = flash_tiles<DH, k1_ncw<DH>()>(batch, heads, n);
   return tiles < sms ? tiles : sms;
 }
 
@@ -265,8 +280,8 @@ inline int k1_core_launch(bool short_route, const FlashArgs& a, const bf16* qkv,
                           const uint64_t* dims, const uint64_t* strides, int batch, int hd,
                           cudaStream_t s) {
   if (!short_route)
-    return launch_flash_wgmma<DH, 3, true>(a, qkv, qkv + hd, qkv + 2 * hd, dims, strides,
-                                           strides, strides, batch, s);
+    return launch_flash_wgmma<DH, k1_ncw<DH>(), true>(a, qkv, qkv + hd, qkv + 2 * hd, dims,
+                                                      strides, strides, strides, batch, s);
   constexpr int smem = flash_core_smem_bytes<DH, 64>();
   cudaFuncSetAttribute(attn_core_kernel<DH, 64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
@@ -292,7 +307,8 @@ int sesa_attn_proj(const void* x, const void* gamma, void* xn, const void* wqkv,
                    void* qkv, void* gates, int tokens, int dim, int heads, int dim_head,
                    int seq_len, int rot_width, int side, int grid, int smem, void* stream) {
   const int hd = heads * dim_head;
-  if (side < 1 || dim % 64 || (dim_head != 32 && dim_head != 64) || rot_width % 2 ||
+  if (side < 1 || dim % 64 || (dim_head != 32 && dim_head != 64 && dim_head != 128) ||
+      (heads * dim_head) % 64 || rot_width % 2 ||
       rot_width > dim_head || seq_len < 1 || smem != ws_smem_bytes(dim))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -341,26 +357,31 @@ int sesa_attn_core(const void* qkv, const void* gates, void* ao, int batch, int 
   const int hd = heads * dim_head;
   const bool short_route = n <= K1_SHORT_MAX_N;
   const int sms = sm_count();
-  if ((dim_head != 32 && dim_head != 64) || !(scale > 0.f) || n < 1 || batch < 1 || sms < 1 ||
+  if ((dim_head != 32 && dim_head != 64 && dim_head != 128) || !(scale > 0.f) || n < 1 ||
+      batch < 1 || sms < 1 ||
       route != (short_route ? K1_CORE_SHORT : K1_CORE_TILES) || d0 != dim_head || d1 != n ||
       d2 != heads || d3 != batch || s1 != 2LL * 3 * hd || s2 != 2LL * dim_head ||
       s3 != 2LL * n * 3 * hd || ob != (long long)n * hd || oh != dim_head || os != hd)
     return (int)cudaErrorInvalidValue;
-  const long long blocks = dim_head == 32 ? k1_core_blocks<32>(short_route, batch, heads, n, sms)
-                                          : k1_core_blocks<64>(short_route, batch, heads, n, sms);
-  const int want_smem = dim_head == 32 ? k1_core_smem<32>(short_route)
-                                       : k1_core_smem<64>(short_route);
+  const long long blocks =
+      dim_head == 32   ? k1_core_blocks<32>(short_route, batch, heads, n, sms)
+      : dim_head == 64 ? k1_core_blocks<64>(short_route, batch, heads, n, sms)
+                       : k1_core_blocks<128>(short_route, batch, heads, n, sms);
+  const int want_smem = dim_head == 32   ? k1_core_smem<32>(short_route)
+                        : dim_head == 64 ? k1_core_smem<64>(short_route)
+                                         : k1_core_smem<128>(short_route);
   if (grid != blocks || smem != want_smem) return (int)cudaErrorInvalidValue;
   const uint64_t dims[4] = {(uint64_t)d0, (uint64_t)d1, (uint64_t)d2, (uint64_t)d3};
   const uint64_t strides[3] = {(uint64_t)s1, (uint64_t)s2, (uint64_t)s3};
   FlashArgs a = {};
   a.o = (bf16*)ao; a.ob = ob; a.oh = oh; a.os = os;
   a.heads = heads; a.n = n; a.rank = 4; a.scale_log2 = scale * 1.4426950408889634f;
-  a.gates = (const float*)gates; a.gate_ld = gate_ld;
+  a.gates = (const float*)gates; a.gate_ld = gate_ld; a.dv = dim_head;
   const bf16* q = (const bf16*)qkv;
   cudaStream_t s = (cudaStream_t)stream;
-  return dim_head == 64 ? k1_core_launch<64>(short_route, a, q, dims, strides, batch, hd, s)
-                        : k1_core_launch<32>(short_route, a, q, dims, strides, batch, hd, s);
+  if (dim_head == 32) return k1_core_launch<32>(short_route, a, q, dims, strides, batch, hd, s);
+  if (dim_head == 64) return k1_core_launch<64>(short_route, a, q, dims, strides, batch, hd, s);
+  return k1_core_launch<128>(short_route, a, q, dims, strides, batch, hd, s);
 }
 
 // out = bf16(bf16(ao . wo^T) + x), or bf16(ao . wo^T) when x is null; grid,

@@ -29,6 +29,11 @@
 // products do. setmaxnreg moves registers from the producer to the
 // consumers: 24 / 160 with three consumers, 40 / 232 with two.
 //
+// Head widths other than 32, 64 and 128 (K3) run at the next of them: the
+// tensor maps' innermost dim is the real width, so TMA fills the columns
+// beyond it with zeros, which add nothing to q . k^T and give zero output
+// columns that are not stored.
+//
 // Rounding points (those of the TPU kernel, sesa_tpu/ops/attention.py
 // _vmem_attn_kernel): scores and softmax in f32 (exp2 of scores pre-scaled
 // by log2 e), the probabilities rounded to bf16 before the row sum is known
@@ -70,6 +75,10 @@ struct FlashArgs {
   float scale_log2;  // scale * log2(e), > 0
   const float* gates;  // GATE: (batch * n, gate_ld) f32, the heads' gates first
   int gate_ld;
+  // the head width of q, k, v and o in memory (a multiple of 8, at most DH):
+  // the tensor maps' innermost dim, so TMA's zero fill pads a head to DH
+  // columns, and the columns of o that are stored
+  int dv;
 };
 
 // one box of rows [row, row + box rows) at column `col` of head (hi, bi):
@@ -350,7 +359,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       bf16* og = p.o + bi * p.ob + hi * p.oh;
       for (int ci = tid; ci < 64 * (DH / 8); ci += 128) {
         const int r = ci / (DH / 8), ch = ci % (DH / 8), pos = row0 + r;
-        if (pos < n)
+        if (pos < n && ch * 8 < p.dv)
           *reinterpret_cast<uint4*>(og + (long long)pos * p.os + ch * 8) =
               *reinterpret_cast<const uint4*>(stage_o + r * C::OLD + ch * 8);
       }

@@ -40,7 +40,10 @@ extern "C" {
 // dim_head values. rank 4: dims (dim_head, n, heads, batch); rank 3: dims
 // (dim_head, n, batch), heads 1. *_s1..3: byte strides of dims 1..rank-1 of
 // q, k, v (multiples of 16); ob, oh, os: output strides in elements for
-// (batch, head, row), unit stride along dim_head; scale > 0
+// (batch, head, row), unit stride along dim_head; scale > 0. dim_head is a
+// multiple of 8 up to 128: other than 32, 64 or 128 it runs on the next of
+// them, TMA's zero fill padding each head (the wrapper pads a width that is
+// not a multiple of 8 with a copy)
 int sesa_vmem_attn(const void* q, const void* k, const void* v, void* o, int rank,
                    long long d0, long long d1, long long d2, long long d3,
                    long long q_s1, long long q_s2, long long q_s3,
@@ -48,7 +51,8 @@ int sesa_vmem_attn(const void* q, const void* k, const void* v, void* o, int ran
                    long long v_s1, long long v_s2, long long v_s3,
                    long long ob, long long oh, long long os,
                    int batch, int heads, int n, int dim_head, float scale, void* stream) {
-  if ((rank != 3 && rank != 4) || !(scale > 0.f) || d0 != dim_head || d1 != n ||
+  if ((rank != 3 && rank != 4) || !(scale > 0.f) || dim_head < 8 || dim_head > 128 ||
+      dim_head % 8 || d0 != dim_head || d1 != n ||
       (rank == 4 && (d2 != heads || d3 != batch)) || (rank == 3 && (d2 != batch || heads != 1)))
     return (int)cudaErrorInvalidValue;
   const uint64_t dims[4] = {(uint64_t)d0, (uint64_t)d1, (uint64_t)d2, (uint64_t)d3};
@@ -56,12 +60,13 @@ int sesa_vmem_attn(const void* q, const void* k, const void* v, void* o, int ran
   const uint64_t ks[3] = {(uint64_t)k_s1, (uint64_t)k_s2, (uint64_t)k_s3};
   const uint64_t vs[3] = {(uint64_t)v_s1, (uint64_t)v_s2, (uint64_t)v_s3};
   FlashArgs a = {(bf16*)o, ob, oh, os, heads, n, 0, 0, rank, scale * 1.4426950408889634f};
+  a.dv = dim_head;
   cudaStream_t s = (cudaStream_t)stream;
-  // three consumer warpgroups (192-query tiles) where their registers fit
-  if (dim_head == 32) return launch_flash_wgmma<32, 3>(a, q, k, v, dims, qs, ks, vs, batch, s);
-  if (dim_head == 64) return launch_flash_wgmma<64, 3>(a, q, k, v, dims, qs, ks, vs, batch, s);
-  if (dim_head == 128) return launch_flash_wgmma<128, 2>(a, q, k, v, dims, qs, ks, vs, batch, s);
-  return (int)cudaErrorInvalidValue;
+  // the narrowest instance that holds dim_head; three consumer warpgroups
+  // (192-query tiles) where their registers fit
+  if (dim_head <= 32) return launch_flash_wgmma<32, 3>(a, q, k, v, dims, qs, ks, vs, batch, s);
+  if (dim_head <= 64) return launch_flash_wgmma<64, 3>(a, q, k, v, dims, qs, ks, vs, batch, s);
+  return launch_flash_wgmma<128, 2>(a, q, k, v, dims, qs, ks, vs, batch, s);
 }
 
 }  // extern "C"

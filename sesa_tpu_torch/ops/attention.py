@@ -19,10 +19,12 @@ with its bf16 rounding points.
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sesa_tpu_torch.ops import _build
 from sesa_tpu_torch.ops.ff import ff_gemm_schedule, layer_norm_rounded, ws_smem_bytes
@@ -30,16 +32,75 @@ from sesa_tpu_torch.ops.rope import apply_rope
 
 
 _K3_MIN_SEQ, _K3_MAX_SEQ = 256, 2048
-_K3_DIM_HEADS = (32, 64, 128)
+# the head widths the attention cores are built for (csrc/flash_wgmma.cuh,
+# flash_core.cuh, flash_shaw.cuh and conformer_attention.cu's mma core); a
+# narrower head runs at the next of them, zero-padded
+_CORE_WIDTHS = (32, 64, 128)
+
+
+def core_width(dh: int, heads: Optional[int] = None) -> int:
+    """The head width a core runs a head of ``dh`` (1 to 128) at: the
+    narrowest of 32, 64 and 128 that holds dh and, for K1 and K4 (``heads``
+    given), makes heads × width a multiple of 64, the k-step of their out
+    product. K3 has no out product and passes no heads."""
+    return next(w for w in _CORE_WIDTHS
+                if w >= dh and (heads is None or heads * w % 64 == 0))
+
+
+def pad_heads(t: torch.Tensor, dh: int, width: int, dim: int = -1) -> torch.Tensor:
+    """``t`` with each run of ``dh`` entries along ``dim`` (one head's) followed
+    by ``width - dh`` zeros, contiguous: W_qkv's rows (dim 0), W_o's columns,
+    a V of (b, n, h·dh), the Shaw table's columns."""
+    t = t.movedim(dim, -1)
+    lead, cols = t.shape[:-1], t.shape[-1]
+    t = F.pad(t.reshape(lead + (cols // dh, dh)), (0, width - dh))
+    return t.reshape(lead + (cols // dh * width,)).movedim(-1, dim).contiguous()
+
+
+def unpad_heads(t: torch.Tensor, dh: int, width: int) -> torch.Tensor:
+    """The inverse of :func:`pad_heads` along the last dim, contiguous."""
+    lead, cols = t.shape[:-1], t.shape[-1]
+    return t.reshape(lead + (cols // width, width))[..., :dh].reshape(
+        lead + (cols // width * dh,))
+
+
+# padded weights by (identities of the source tensors, what was made of them)
+_MADE = {}
+
+
+def cached(tensors, tag, make):
+    """``make()``, kept while the ``tensors`` it was made from live unchanged:
+    keyed on their identities and checked against their version counters, so
+    an in-place update makes it anew. Inference tensors carry no version, so
+    for them it is made on every call."""
+    if any(t.is_inference() for t in tensors):
+        return make()
+    key = (tuple(id(t) for t in tensors), tag)
+    versions = tuple(t._version for t in tensors)
+    hit = _MADE.get(key)
+    if hit is not None and hit[1] == versions and all(r() is t for r, t in zip(hit[0], tensors)):
+        return hit[2]
+    value = make()
+    drop = lambda _ref, key=key: _MADE.pop(key, None)  # noqa: E731
+    _MADE[key] = (tuple(weakref.ref(t, drop) for t in tensors), versions, value)
+    return value
+
+
+def padded_block_weights(wqkv, wo, dh: int, width: int, table=None):
+    """W_qkv (3·h·dh, d), W_o (d, h·dh) and the Shaw table (rows, dh), or None,
+    padded per head to ``width`` (:func:`pad_heads`) for K1 and K4, each kept
+    by :func:`cached` while its source lives unchanged."""
+    pad = lambda t, dim: cached((t,), ("pad_heads", dh, width, dim),  # noqa: E731
+                                lambda: pad_heads(t, dh, width, dim))
+    return pad(wqkv, 0), pad(wo, 1), None if table is None else pad(table, 1)
 
 
 def use_vmem_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     """The gate of kernel K3, on device, dtype and shape only: CUDA bf16
-    q, k, v of one shape (..., S, D) with 256 <= S <= 2048 and D in
-    {32, 64, 128}."""
+    q, k, v of one shape (..., S, D) with 256 <= S <= 2048 and D <= 128."""
     return (q.device.type == "cuda" and q.dtype == k.dtype == v.dtype == torch.bfloat16
             and q.ndim >= 3 and q.shape == k.shape == v.shape
-            and _K3_MIN_SEQ <= q.shape[-2] <= _K3_MAX_SEQ and q.shape[-1] in _K3_DIM_HEADS)
+            and _K3_MIN_SEQ <= q.shape[-2] <= _K3_MAX_SEQ and 1 <= q.shape[-1] <= 128)
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -92,6 +153,12 @@ def k3_plan(q, k, v):
     """The host side of kernel K3: how it reads q, k, v (..., S, D) and
     where it writes.
 
+    The kernel runs at the narrowest of D 32, 64 and 128 that holds D, its
+    tensor maps reading heads of the real width (TMA's zero fill pads them)
+    and writing only those columns; a width that is not a multiple of 8,
+    whose rows could not be 16-byte multiples, is first zero-padded to one
+    (a copy), and the result is the view of the real columns.
+
     Returns ``(tensors, rank, dims, strides, out, out_strides, result, b,
     h)``. The kernel reads each of ``tensors`` through a TMA tensor map of
     ``rank`` dims ``dims`` (innermost first) with byte strides ``strides[i]``
@@ -104,6 +171,9 @@ def k3_plan(q, k, v):
     contiguous (BH, S, D), copied where it must be, and read as (d, s, bh)
     maps: a tensor map has no dim of stride 0 for the one head."""
     s, d = q.shape[-2:]
+    if d % 8:
+        plan = k3_plan(*(F.pad(t, (0, -d % 8)) for t in (q, k, v)))
+        return plan[:6] + (plan[6][..., :d],) + plan[7:]
     strides = [_bh_strides(t) for t in (q, k, v)] if q.ndim == 4 else [None]
     if all(st is not None for st in strides) and not q.is_contiguous():
         b, h = q.shape[:2]
@@ -125,8 +195,8 @@ def vmem_attention(q, k, v, scale):
     """softmax(q·kᵀ·scale)·v over (..., S, D): kernel K3.
 
     CPU tensors run :func:`vmem_attention_plain`. CUDA tensors must be bf16,
-    of one shape, with D in {32, 64, 128}, and the scale positive; anything
-    else raises. :func:`k3_plan` says how the kernel reads the tensors and
+    of one shape, with D <= 128, and the scale positive; anything else
+    raises. :func:`k3_plan` says how the kernel reads the tensors and
     where it writes. Each call adds one to ``vmem_attention.launches``.
     """
     if q.device.type == "cpu":
@@ -134,13 +204,14 @@ def vmem_attention(q, k, v, scale):
     _build.refuse_autograd("vmem_attention (K3)", q, k, v)
     s, d = q.shape[-2:]
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16) or not (q.shape == k.shape == v.shape) \
-            or d not in _K3_DIM_HEADS or q.ndim < 3 or s < 1:
+            or not 1 <= d <= 128 or q.ndim < 3 or s < 1:
         raise ValueError(f"vmem_attention: unsupported q {q.dtype} {tuple(q.shape)}, k "
                          f"{k.dtype} {tuple(k.shape)}, v {v.dtype} {tuple(v.shape)} (the kernel "
-                         "takes bf16 tensors of one shape with dim_head 32, 64 or 128)")
+                         "takes bf16 tensors of one shape with dim_head at most 128)")
     if not scale > 0:
         raise ValueError(f"vmem_attention: the kernel takes a positive scale, got {scale}")
     (q, k, v), rank, dims, strides, out, ostr, result, b, h = k3_plan(q, k, v)
+    d = dims[0]
     if b * h * -(-s // 128) > 2 ** 31 - 1 or b * h < 1:
         raise ValueError(f"vmem_attention: {b * h} sequences of {s} exceed one launch")
     lib = _build.load("vmem_attention")
@@ -211,12 +282,17 @@ def fused_attention_block_plain(x, gamma, wqkv, wg, bg, wo, heads, scale, rope=N
     return out if vr is None else (out, v_pre)
 
 
-_K1_DIM_HEADS = (32, 64)
 # the core's routes (csrc/attention.cu K1CoreRoute): the persistent
-# flash_wgmma core on (sequence, 192-query) tiles, or for n <= 64 one block of
-# flash_core<dh, 64> per (sequence, head)
+# flash_wgmma core on (sequence, 192-query) tiles (128-query at dim_head 128),
+# or for n <= 64 one block of flash_core<dh, 64> per (sequence, head)
 _K1_ROUTES = {"tiles": 0, "short": 1}
 _K1_SHORT_MAX_N = 64
+
+
+def _k1_consumers(dh: int) -> int:
+    """Consumer warpgroups of K1's tiles route (``csrc/attention.cu``
+    ``k1_ncw``): three at dim_head 32 and 64, two at 128."""
+    return 2 if dh == 128 else 3
 
 
 def _flash_smem(dh: int, ncw: int) -> int:
@@ -249,8 +325,8 @@ def k1_plan(b: int, n: int, d: int, heads: int, dh: int, sms: int, mix: bool = F
       ``tiles``, ``grid`` (:func:`ff_gemm_schedule`) and ``smem``;
     - ``core``: the gated attention core, its ``route`` and ``route_id``:
       "tiles" for n > 64 (``csrc/flash_wgmma.cuh``, persistent: ``tiles`` of
-      (sequence, 192 queries), ``grid`` one block per SM and never more than
-      tiles), "short" for n ≤ 64 (``csrc/flash_core.cuh``: one block per
+      (sequence, 192 queries; 128 at dh 128), ``grid`` one block per SM and
+      never more than tiles), "short" for n ≤ 64 (``csrc/flash_core.cuh``: one block per
       (sequence, head), ``tiles`` = ``grid`` = b·h); ``smem``; the qkv
       buffer as the tiles route's three tensor maps read it, (d, s, h, b)
       with ``dims`` (dh, n, h, b), byte ``strides`` of dims 1-3 (a row of
@@ -258,7 +334,9 @@ def k1_plan(b: int, n: int, d: int, heads: int, dh: int, sms: int, mix: bool = F
       element ``out_strides`` (batch, head, row) of the (b, n, h, dh)
       output.
 
-    ``csrc/attention.cu`` refuses a plan that does not match its layouts."""
+    ``dh`` is a width the cores are built for (32, 64 or 128: the wrapper
+    pads other widths, :func:`core_width`). ``csrc/attention.cu`` refuses a
+    plan that does not match its layouts."""
     tokens, hd = b * n, heads * dh
     plan = {"norm": dict(side=(2 if mix else 1) * heads)}
     for name, cols, depth in (("proj", 3 * hd, d), ("out", d, hd)):
@@ -267,24 +345,33 @@ def k1_plan(b: int, n: int, d: int, heads: int, dh: int, sms: int, mix: bool = F
     if n <= _K1_SHORT_MAX_N:
         route, tiles, grid, smem = "short", b * heads, b * heads, _flash_core_smem(dh)
     else:
-        tiles = b * heads * -(-n // 192)
-        route, grid, smem = "tiles", min(tiles, sms), _flash_smem(dh, 3)
+        ncw = _k1_consumers(dh)
+        tiles = b * heads * -(-n // (64 * ncw))
+        route, grid, smem = "tiles", min(tiles, sms), _flash_smem(dh, ncw)
     plan["core"] = dict(route=route, route_id=_K1_ROUTES[route], tiles=tiles, grid=grid, smem=smem,
                         dims=(dh, n, heads, b), strides=(2 * 3 * hd, 2 * dh, 2 * n * 3 * hd),
                         offsets=(0, hd, 2 * hd), out_strides=(n * hd, dh, hd))
     return plan
 
 
+def attention_block_shape_ok(b: int, n: int, d: int, heads: int, dh: int) -> bool:
+    """The shapes kernel K1 takes: dim_head from 1 to 128 (other than 32, 64
+    and 128 zero-padded per head to the next of them, :func:`core_width`), d
+    a multiple of 64, and b sequences of n tokens one launch covers.
+    :func:`fused_attention_block` raises on a CUDA tensor exactly where this
+    is false."""
+    return (1 <= dh <= 128 and heads >= 1 and d % 64 == 0 and 1 <= b <= 65535 and n >= 1
+            and -(-(b * n) // 128) <= 65535)
+
+
 def use_fused_attention(x: torch.Tensor, heads: int, dim_head: int) -> bool:
     """The gate of kernel K1, on device, dtype and shape only: a CUDA bf16
-    x (..., n, d) with dim_head in {32, 64}, d and heads·dim_head multiples
-    of 64, and a token count one launch covers. The roformer stacks run the
-    unfused chain (``attention_apply``) for everything else."""
+    x (..., n, d) of a shape :func:`attention_block_shape_ok` takes. The
+    roformer stacks run the unfused chain (``attention_apply``) for
+    everything else."""
     n, d = x.shape[-2:]
-    seqs = x.numel() // max(n * d, 1)
     return (x.device.type == "cuda" and x.dtype == torch.bfloat16
-            and dim_head in _K1_DIM_HEADS and d % 64 == 0 and (heads * dim_head) % 64 == 0
-            and 1 <= seqs <= 65535 and -(-(seqs * n) // 128) <= 65535)
+            and attention_block_shape_ok(x.numel() // max(n * d, 1), n, d, heads, dim_head))
 
 
 def fused_attention_block(x, gamma, wqkv, wg, bg, wo, heads, scale, rope=None, vr=None,
@@ -300,8 +387,10 @@ def fused_attention_block(x, gamma, wqkv, wg, bg, wo, heads, scale, rope=None, v
     sum (the new-style forward of the experimental roformers).
 
     CPU tensors run :func:`fused_attention_block_plain`. CUDA tensors must be
-    bf16, contiguous, with d and h·dh multiples of 64 and dh in {32, 64}
-    (:func:`use_fused_attention`); anything else raises. Each call adds one
+    bf16, contiguous, of a shape :func:`attention_block_shape_ok` takes;
+    anything else raises. A head width other than 32, 64 or 128 runs at
+    :func:`core_width`, W_qkv and W_o padded per head (kept while they live
+    unchanged), v_first padded and the pre-mix V unpadded. Each call adds one
     to ``fused_attention_block.launches`` and to its mode's entry of
     ``fused_attention_block.launches_by_mode`` (0: no ``vr``, 1: ``vr``
     without ``v_first``, 2: with it).
@@ -313,10 +402,11 @@ def fused_attention_block(x, gamma, wqkv, wg, bg, wo, heads, scale, rope=None, v
     b, n, d = x.shape
     hd = wqkv.shape[0] // 3
     dh = hd // heads
-    if not use_fused_attention(x, heads, dh) or wqkv.shape[0] != 3 * hd:
+    if x.dtype != torch.bfloat16 or not attention_block_shape_ok(b, n, d, heads, dh) \
+            or wqkv.shape[0] != 3 * hd or hd != heads * dh:
         raise ValueError(f"fused_attention_block: unsupported {x.dtype} x {tuple(x.shape)}, "
-                         f"heads={heads}, dim_head={dh} (the kernel takes bf16, dim_head 32 or "
-                         "64, d and heads * dim_head multiples of 64, at most 65535 sequences)")
+                         f"heads={heads}, dim_head={dh} (the kernel takes bf16, dim_head 1 to "
+                         "128, d a multiple of 64, at most 65535 sequences)")
     tokens = b * n
     tensors = [("x", x, (b, n, d)), ("gamma", gamma, (d,)), ("wqkv", wqkv, (3 * hd, d)),
                ("wg", wg, (heads, d)), ("bg", bg, (heads,)), ("wo", wo, (d, hd))]
@@ -338,6 +428,12 @@ def fused_attention_block(x, gamma, wqkv, wg, bg, wo, heads, scale, rope=None, v
         for name, t in (("cos", cos), ("sin", sin)):
             _build.check_tensor("fused_attention_block", name, t, (n, rot), torch.bfloat16)
         cos_p, sin_p = cos.data_ptr(), sin.data_ptr()
+    real_dh, width = dh, core_width(dh, heads)
+    if width != dh:
+        wqkv, wo, _ = padded_block_weights(wqkv, wo, dh, width)
+        if v_first is not None:
+            v_first = pad_heads(v_first, dh, width)
+        dh, hd = width, heads * width
     # the norm pass computes the mix beside the gates: h more rows of W_g
     plan = k1_plan(b, n, d, heads, dh, torch.cuda.get_device_properties(x.device)
                    .multi_processor_count, mix=v_first is not None)
@@ -374,6 +470,8 @@ def fused_attention_block(x, gamma, wqkv, wg, bg, wo, heads, scale, rope=None, v
                                    plan["out"]["smem"], stream), "sesa_attn_out")
     fused_attention_block.launches += 1
     fused_attention_block.launches_by_mode[0 if vr is None else 1 if v_first is None else 2] += 1
+    if v_pre is not None and real_dh != dh:
+        v_pre = unpad_heads(v_pre, real_dh, dh)
     return out if vr is None else (out, v_pre)
 
 
@@ -434,11 +532,11 @@ def fused_conformer_attention_plain(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo, he
 # flash_shaw core on (sequence, 128-query) tiles for n > 64 at dim_head 32 or
 # 64, or the mma.sync core, one block per (sequence, head, 64-query tile),
 # for n <= 64 (the freq leg) and for dim_head 128, whose table box does not
-# fit beside the q.E tiles
+# fit beside the q.E tiles; a padded width takes the route of the width it
+# is padded to
 _K4_ROUTES = {"tiles": 0, "mma": 1}
 _K4_MMA_MAX_N = 64
 _K4_TILE_DIM_HEADS = (32, 64)
-_K4_DIM_HEADS = (32, 64, 128)
 
 
 def _shaw_buffers(dh: int) -> dict:
@@ -484,8 +582,9 @@ def k4_plan(b: int, n: int, d: int, heads: int, dh: int, sms: int) -> dict:
       route) and ``box_origin``, the first row of the 256-row box of the
       tile pair (q0, k0) being q0 - k0 + ``box_origin``.
 
-    ``csrc/conformer_attention.cu`` refuses a plan that does not match its
-    layouts."""
+    ``dh`` is a width the cores are built for (32, 64 or 128: the wrapper
+    pads other widths, :func:`core_width`). ``csrc/conformer_attention.cu``
+    refuses a plan that does not match its layouts."""
     tokens, hd = b * n, heads * dh
     plan = {}
     for name, cols, depth in (("proj", 3 * hd, d), ("out", d, hd)):
@@ -507,12 +606,13 @@ def k4_plan(b: int, n: int, d: int, heads: int, dh: int, sms: int) -> dict:
 
 
 def conformer_attention_shape_ok(b: int, n: int, d: int, heads: int, dh: int) -> bool:
-    """The shapes kernel K4 takes: dim_head 32, 64 or 128, d and heads·dim_head
-    multiples of 64, and b sequences of n tokens one launch covers.
+    """The shapes kernel K4 takes: dim_head from 1 to 128 (other than 32, 64
+    and 128 zero-padded per head to the next of them, :func:`core_width`), d
+    a multiple of 64, and b sequences of n tokens one launch covers.
     :func:`fused_conformer_attention` raises on a CUDA tensor exactly where
     this is false."""
-    return (dh in _K4_DIM_HEADS and d % 64 == 0 and (heads * dh) % 64 == 0
-            and 1 <= b <= 65535 and b * heads * -(-n // 64) <= 2 ** 31 - 1)
+    return (1 <= dh <= 128 and heads >= 1 and d % 64 == 0 and 1 <= b <= 65535 and n >= 1
+            and b * heads * -(-n // 64) <= 2 ** 31 - 1)
 
 
 def shaw_table(rel_pos_emb: torch.Tensor, n: int) -> torch.Tensor:
@@ -534,9 +634,10 @@ def fused_conformer_attention(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo, heads, s
     CPU tensors run :func:`fused_conformer_attention_plain`. CUDA tensors
     must be bf16, contiguous and of a shape
     :func:`conformer_attention_shape_ok` takes; anything else raises. P
-    comes from the table's rows. :func:`k4_plan` plans the launches. Each
-    call adds one to
-    ``fused_conformer_attention.launches``.
+    comes from the table's rows. A head width other than 32, 64 or 128 runs
+    at :func:`core_width`, W_qkv, the table and W_o padded per head (kept
+    while they live unchanged). :func:`k4_plan` plans the launches. Each
+    call adds one to ``fused_conformer_attention.launches``.
     """
     if x.device.type == "cpu":
         return fused_conformer_attention_plain(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo,
@@ -546,10 +647,11 @@ def fused_conformer_attention(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo, heads, s
     b, n, d = x.shape
     hd = wqkv.shape[0] // 3
     dh = hd // heads
-    if not conformer_attention_shape_ok(b, n, d, heads, dh) or wqkv.shape[0] != 3 * hd:
+    if not conformer_attention_shape_ok(b, n, d, heads, dh) or wqkv.shape[0] != 3 * hd \
+            or hd != heads * dh:
         raise ValueError(f"fused_conformer_attention: unsupported {b} sequences of {n}, d={d}, "
-                         f"heads={heads}, dim_head={dh} (the kernel takes dim_head 32, 64 or "
-                         "128, d and heads * dim_head multiples of 64, at most 65535 sequences)")
+                         f"heads={heads}, dim_head={dh} (the kernel takes dim_head 1 to 128, d "
+                         "a multiple of 64, at most 65535 sequences)")
     rows = rel_pos_emb.shape[0]
     if rows % 2 == 0:
         raise ValueError(f"fused_conformer_attention: the Shaw table has {rows} rows, "
@@ -560,6 +662,10 @@ def fused_conformer_attention(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo, heads, s
                            ("wqkv", wqkv, (3 * hd, d)), ("rel_pos_emb", rel_pos_emb, (rows, dh)),
                            ("wo", wo, (d, hd)), ("bo", bo, (d,))):
         _build.check_tensor("fused_conformer_attention", name, t, shape, torch.bfloat16)
+    width = core_width(dh, heads)
+    if width != dh:
+        wqkv, wo, rel_pos_emb = padded_block_weights(wqkv, wo, dh, width, rel_pos_emb)
+        dh, hd = width, heads * width
     plan = k4_plan(b, n, d, heads, dh,
                    torch.cuda.get_device_properties(x.device).multi_processor_count)
     core = plan["core"]

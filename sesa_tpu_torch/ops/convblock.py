@@ -204,11 +204,12 @@ def k6_gemm_grids(tokens: int, d: int, hidden: int, sms: int):
 
 
 def apollo_conv_shape_ok(tokens: int, d: int, hidden: int, k: int) -> bool:
-    """The shapes kernel K6 takes: d ≤ 512 (the up product keeps W₁'s slice
-    resident) and hidden multiples of 64, an odd kernel of at most 31 taps,
-    and a token count one launch covers. :func:`fused_apollo_conv` raises on
-    a CUDA tensor exactly where this is false."""
-    return (d % 64 == 0 and d <= 512 and hidden % 64 == 0 and k % 2 == 1 and k <= 31
+    """The shapes kernel K6 takes: d ≤ 1024 (the stencil stages 64 rows and
+    the halo of all d channels in one block's shared memory) and hidden
+    multiples of 64, an odd kernel of at most 31 taps, and a token count one
+    launch covers. :func:`fused_apollo_conv` raises on a CUDA tensor exactly
+    where this is false."""
+    return (d % 64 == 0 and d <= 1024 and hidden % 64 == 0 and k % 2 == 1 and k <= 31
             and -(-tokens // 128) <= 65535)
 
 
@@ -231,7 +232,7 @@ def fused_apollo_conv(x, p):
     tokens = b * n
     if not apollo_conv_shape_ok(tokens, d, hidden, k):
         raise ValueError(f"fused_apollo_conv: unsupported {tokens} tokens, d={d}, "
-                         f"hidden={hidden}, kernel={k} (the kernel takes d <= 512 and hidden "
+                         f"hidden={hidden}, kernel={k} (the kernel takes d <= 1024 and hidden "
                          "multiples of 64, an odd kernel of at most 31 taps and at most "
                          f"{65535 * 128} tokens)")
     taps = p["dw_w"][:, 0, :].T.contiguous()  # (k, d)

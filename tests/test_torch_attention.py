@@ -98,22 +98,36 @@ def _k3_inputs(case, b=2, n=300, h=4, d=64):
         return tuple(torch.randn((b, h, n, d), generator=g).to(torch.bfloat16) for _ in range(3))
     if case == "flat":  # (BH, S, D)
         return tuple(torch.randn((b * h, n, d), generator=g).to(torch.bfloat16) for _ in range(3))
+    if case == "padded":  # a head width the kernel pads: d = 20, not a multiple of 8
+        return tuple(torch.randn((b, h, n, 20), generator=g).to(torch.bfloat16) for _ in range(3))
     # "unaligned": rows 36 elements apart, not a multiple of 16 bytes
     return tuple(torch.randn((b, h, n, d + 4), generator=g).to(torch.bfloat16)[..., :d]
                  for _ in range(3))
 
 
-@pytest.mark.parametrize("case", ["strided", "contiguous", "flat", "unaligned"])
+@pytest.mark.parametrize("case", ["strided", "contiguous", "flat", "unaligned", "strided48",
+                                  "padded"])
 def test_k3_plan_tensor_maps(case):
     """Strided 4-D views are read where they lie through (d, s, h, b) maps
     with their byte strides and written (b, s, h, d); everything else is read
     as contiguous (BH, S, D) through (d, s, bh) maps, copied only where the
-    strides are not multiples of 16 bytes."""
-    b, n, h, d = 2, 300, 4, 64
-    q, k, v = _k3_inputs(case, b, n, h, d)
+    strides are not multiples of 16 bytes. A head width of 48 is read where
+    it lies too (the kernel's 64-wide boxes zero-fill the rest); a width
+    that is not a multiple of 8 is zero-padded to one (a copy), and the
+    result is the view of the real columns."""
+    b, n, h, d = 2, 300, 4, 48 if case == "strided48" else 64
+    q, k, v = _k3_inputs(case.replace("48", ""), b, n, h, d)
+    if case == "padded":
+        tensors, rank, dims, strides, out, ostr, result, nb, nh = k3_plan(q, k, v)
+        assert (rank, dims, nb, nh) == (3, (24, n, b * h), b * h, 1)
+        assert strides == [(48, 48 * n)] * 3 and out.shape == (b * h, n, 24)
+        for t, src in zip(tensors, (q, k, v)):
+            assert torch.equal(t[..., :20], src.reshape(b * h, n, 20)) and not t[..., 20:].any()
+        assert result.shape == q.shape and result.data_ptr() == out.data_ptr()
+        return
     tensors, rank, dims, strides, out, ostr, result, nb, nh = k3_plan(q, k, v)
     assert result.shape == q.shape
-    if case == "strided":
+    if case.startswith("strided"):
         assert (rank, dims, nb, nh) == (4, (d, n, h, b), b, h)
         assert strides == [(2 * 3 * h * d, 2 * d, 2 * n * 3 * h * d)] * 3
         assert all(t.data_ptr() == src.data_ptr() for t, src in zip(tensors, (q, k, v)))
@@ -132,10 +146,12 @@ def test_k3_plan_tensor_maps(case):
 
 
 # (b, n, d, heads, dim_head): the flagship's time and freq legs, dim_head 32,
-# ragged sequences on either side of the short route's n <= 64, one token
+# ragged sequences on either side of the short route's n <= 64, one token;
+# dim_head 128 on both routes (the flagship's legs at 4 heads x 128)
 K1_PLAN_CASES = [(372, 690, 512, 8, 64), (4140, 62, 512, 8, 64), (6, 300, 256, 8, 32),
                  (3, 65, 128, 2, 64), (5, 64, 192, 3, 64), (7, 1, 64, 2, 32),
-                 (2, 257, 1024, 16, 64)]
+                 (2, 257, 1024, 16, 64), (372, 690, 512, 4, 128), (4140, 62, 512, 4, 128),
+                 (3, 129, 128, 1, 128)]
 SMEM_BLOCK_MAX = 232_448  # the H100's opt-in shared memory per block
 
 
@@ -158,7 +174,8 @@ def test_k1_plan(b, n, d, heads, dh, mix):
     core = plan["core"]
     short = n <= 64
     assert core["route"] == ("short" if short else "tiles")
-    assert core["tiles"] == (b * heads if short else b * heads * -(-n // 192))
+    rows = 128 if dh == 128 else 192  # two consumer warpgroups at 128, three below
+    assert core["tiles"] == (b * heads if short else b * heads * -(-n // rows))
     assert core["grid"] == (b * heads if short else min(core["tiles"], 132))
     assert core["dims"] == (dh, n, heads, b)
     assert core["strides"] == (2 * 3 * hd, 2 * dh, 2 * n * 3 * hd)
@@ -178,8 +195,9 @@ def test_k1_plan_covers_every_tile_once(b, n, d, heads, dh):
     """Both GEMMs' grids hand every 128 x 128 output tile to one block, each
     block keeping one column block; the core's tiles cover every (sequence,
     head, query row) once: with the tiles route (sequence, 192-query) tiles
-    walked by a persistent grid, a consumer warpgroup's 64 rows each; with
-    the short route one block per (sequence, head)."""
+    (128-query at dim_head 128) walked by a persistent grid, a consumer
+    warpgroup's 64 rows each; with the short route one block per (sequence,
+    head)."""
     hd = heads * dh
     plan = k1_plan(b, n, d, heads, dh, 132)
     for name, cols in (("proj", 3 * hd), ("out", d)):
@@ -195,17 +213,19 @@ def test_k1_plan_covers_every_tile_once(b, n, d, heads, dh):
     if core["route"] == "short":
         covered[np.arange(core["grid"])] += 1  # block (., head, sequence), 64 >= n rows
     else:
-        q_tiles = -(-n // 192)
+        ncw = 2 if dh == 128 else 3
+        q_tiles = -(-n // (64 * ncw))
         for mine in _schedule(core["tiles"], core["grid"]):
             for tile in mine:
-                for c in range(3):  # consumer warpgroup c
-                    seq, r0 = tile // q_tiles, (tile % q_tiles) * 192 + 64 * c
+                for c in range(ncw):  # consumer warpgroup c
+                    seq, r0 = tile // q_tiles, (tile % q_tiles) * 64 * ncw + 64 * c
                     covered[seq, r0:min(r0 + 64, n)] += 1
     assert (covered == 1).all()
 
 
 @pytest.mark.parametrize("dh,route,smem", [(64, "tiles", 176_232), (64, "short", 46_080),
-                                           (32, "tiles", 90_216), (32, "short", 25_600)])
+                                           (32, "tiles", 90_216), (32, "short", 25_600),
+                                           (128, "tiles", 199_744), (128, "short", 87_040)])
 def test_k1_plan_is_the_kernels_layout(dh, route, smem):
     """The plan's shared memory and route ids are what csrc/flash_wgmma.cuh
     (FlashCfg), csrc/flash_core.cuh (flash_core_smem_bytes) and

@@ -309,9 +309,11 @@ class _Fake:
     ((372, 690, 512), 8, 64, torch.bfloat16, "cuda", True),    # flagship time leg
     ((6, 690, 62, 512), 8, 64, torch.bfloat16, "cuda", True),  # freq leg, leading dims
     ((4, 100, 128), 4, 32, torch.bfloat16, "cuda", True),
-    ((4, 100, 128), 1, 128, torch.bfloat16, "cuda", False),    # dim_head 128
+    ((4, 100, 128), 1, 128, torch.bfloat16, "cuda", True),     # dim_head 128
     ((4, 100, 96), 3, 32, torch.bfloat16, "cuda", False),      # dim 96
-    ((4, 100, 128), 3, 32, torch.bfloat16, "cuda", False),     # heads * dim_head = 96
+    ((4, 100, 128), 3, 32, torch.bfloat16, "cuda", True),      # 3 heads padded to 64
+    ((4, 100, 384), 8, 48, torch.bfloat16, "cuda", True),      # padded to 64
+    ((4, 100, 128), 2, 136, torch.bfloat16, "cuda", False),    # dim_head above 128
     ((70000, 8, 128), 4, 32, torch.bfloat16, "cuda", False),   # more sequences than a launch
     ((4, 100, 128), 4, 32, torch.float32, "cuda", False),
     ((4, 100, 128), 4, 32, torch.bfloat16, "cpu", False),
@@ -328,7 +330,8 @@ def test_k2_and_k3_gates():
     assert not use_fused_ff(_Fake((10, 20, 64), device="cpu"), w1)
     for shape, takes in (((2976, 690, 64), True), ((6, 8, 256, 32), True),
                          ((6, 8, 2048, 128), True), ((6, 8, 255, 64), False),
-                         ((6, 8, 2049, 64), False), ((6, 8, 690, 48), False),
+                         ((6, 8, 2049, 64), False), ((6, 8, 690, 48), True),
+                         ((6, 8, 690, 20), True), ((6, 8, 690, 129), False),
                          ((690, 64), False)):
         t = _Fake(shape)
         assert use_vmem_attention(t, t, t) is takes, shape

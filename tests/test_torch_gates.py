@@ -3,18 +3,28 @@ block's (K2, K4, K5) and Apollo's (K6, K7), called with "cuda" and bf16 over
 grids of shapes. Every kernel a choice admits is one whose wrapper takes the
 shape, and each wrapper raises on a non-CPU tensor exactly where its shape
 predicate refuses: meta tensors carry the shapes into the wrappers, which
-then stop at the device check that follows the shape checks."""
+then stop at the device check that follows the shape checks. And the gates
+of the JAX package's kernels K1, K3, K4 and K6, asked as on a TPU: every
+shape they send to a Pallas kernel is one the port's kernel takes."""
 
 import itertools
+import types
 
+import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
+from sesa_tpu.ops import attention as jax_attention
+from sesa_tpu.ops import convblock as jax_convblock
 from sesa_tpu_torch.models import apollo
 from sesa_tpu_torch.models import conformer_core as cc
-from sesa_tpu_torch.ops.attention import (conformer_attention_shape_ok,
-                                          fused_conformer_attention, fused_rope_attention,
-                                          k7_plan)
+from sesa_tpu_torch.ops.attention import (attention_block_shape_ok, conformer_attention_shape_ok,
+                                          fused_attention_block, fused_conformer_attention,
+                                          fused_rope_attention, k7_plan, use_fused_attention,
+                                          use_vmem_attention, vmem_attention)
 from sesa_tpu_torch.ops.convblock import (apollo_conv_shape_ok, conformer_conv_shape_ok,
                                           fused_apollo_conv, fused_conformer_conv)
 from sesa_tpu_torch.ops.ff import ff_shape_ok, fused_ff_residual
@@ -69,13 +79,13 @@ def test_conformer_choice_admits_only_what_the_wrappers_take(dim_head):
 
 def test_conformer_choice_at_the_off_grid_shapes():
     """The shapes that raised before the per-kernel choice: dim_head 48
-    (heads 8) runs K2 and K5 with the attention unfused, conv kernel 33 K2
+    (heads 8) runs all three, K4 on heads padded to 64; conv kernel 33 K2
     and K4 with the conv unfused; the mel-band conformer's defaults all
     three."""
     legs = ((360, 690), (4140, 60))
     for batch, n in legs:
         assert cc.conformer_kernels("cuda", BF16, batch, n, 384, 8, 48, 1536, 768, 31) == {
-            "K2", "K5"}
+            "K2", "K4", "K5"}
         assert cc.conformer_kernels("cuda", BF16, batch, n, 384, 8, 64, 1536, 768, 33) == {
             "K2", "K4"}
         assert cc.conformer_kernels("cuda", BF16, batch, n, 384, 8, 64, 1536, 768, 31) == {
@@ -136,8 +146,106 @@ def test_apollo_choice_admits_only_what_the_wrappers_take(feature_dim):
 
 def test_apollo_choice_at_the_off_grid_widths():
     """The widths that raised before the choice: 384 runs K7 at dim_head 48
-    and K6; 768 and 1024 run K7 at dim_head 96 and 128 with the ICBs
-    unfused; 64 (dim_head 8) runs K6 with the band layer unfused."""
-    want = {64: {"K6"}, 256: {"K6", "K7"}, 384: {"K6", "K7"}, 768: {"K7"}, 1024: {"K7"}}
+    and K6; 768 and 1024 run K7 at dim_head 96 and 128 and K6 at d 768 and
+    1024; 64 (dim_head 8) runs K6 with the band layer unfused."""
+    want = {64: {"K6"}, 256: {"K6", "K7"}, 384: {"K6", "K7"}, 768: {"K6", "K7"},
+            1024: {"K6", "K7"}}
     for feature_dim, kernels in want.items():
         assert apollo.apollo_kernels("cuda", BF16, 4, 1901, 80, feature_dim) == kernels
+
+
+# --------------------------------------------------------------------------
+# the JAX package's gates, asked as on a TPU, against the port's predicates
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def on_tpu(monkeypatch):
+    """The JAX gates with jax.devices reporting a TPU and no kill switch set;
+    nothing under sesa_tpu changes."""
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: [types.SimpleNamespace(platform="tpu")])
+    for knob in ("SESA_NO_FUSED", "SESA_NO_FUSED_CONV", "SESA_INT8_ATTN"):
+        monkeypatch.delenv(knob, raising=False)
+
+
+class _Fake:
+    """A tensor's device, dtype and shape, with no storage."""
+
+    def __init__(self, shape, dtype=BF16, device="cuda"):
+        self.shape, self.dtype, self.device = torch.Size(shape), dtype, torch.device(device)
+        self.ndim = len(shape)
+
+    def numel(self):
+        return int(np.prod(self.shape))
+
+
+# the legs' lengths (62 and 60 bands, 690 frames, Apollo's 1901) and the edges
+# of the gates from 8 to 2048
+SEQS = (1, 7, 8, 9, 60, 62, 63, 64, 65, 129, 255, 256, 257, 690, 1000, 1901, 2048, 2049)
+HEADS = (1, 2, 3, 4, 5, 7, 8, 12, 16)
+DIMS = (64, 96, 128, 192, 384, 512, 640, 768, 1024, 1088)
+BATCHES = (1, 360, 4140)
+
+
+@pytest.mark.parametrize("dim_head", range(8, 129, 8))
+def test_port_takes_every_attention_block_the_jax_gate_fuses(on_tpu, dim_head):
+    """K1 and K4 share the JAX gate ``_use_fused`` (the roformer's block,
+    sesa_tpu/models/roformer_core.py:168 and :305, and the conformer's,
+    conformer_core.py:172-178): every (n, dim_head, heads, d) it fuses in bf16
+    is one both port predicates take, at each sequence count, and the
+    roformer's choice and K1's wrapper with it."""
+    fused = 0
+    for n, heads, d in itertools.product(SEQS, HEADS, DIMS):
+        if not jax_attention._use_fused(n, dim_head, heads, d, dtype=jnp.bfloat16):
+            continue
+        fused += 1
+        for b in BATCHES:
+            assert attention_block_shape_ok(b, n, d, heads, dim_head), (b, n, d, heads, dim_head)
+            assert conformer_attention_shape_ok(b, n, d, heads, dim_head), (b, n, d, heads,
+                                                                           dim_head)
+        assert use_fused_attention(_Fake((BATCHES[-1], n, d)), heads, dim_head)
+        assert cc.fused_conformer_shape_ok(n, dim_head, d)
+    assert fused  # the grid reaches the gate
+
+
+def test_attention_block_wrappers_raise_exactly_where_their_predicates_refuse():
+    """K1 and K4 on meta tensors across the head widths, the padded ones
+    among them: past the shape checks they stop at the device check."""
+    for n, d, heads, dh in itertools.product((1, 62, 690), (64, 96, 384), (1, 3, 8),
+                                             (8, 24, 48, 96, 120, 128, 136)):
+        x = torch.empty((3, n, d), device=META, dtype=BF16)
+        w = lambda *s: torch.empty(s, device=META, dtype=BF16)  # noqa: E731
+        hd = heads * dh
+        assert _takes(fused_attention_block, x, w(d), w(3 * hd, d), w(heads, d), w(heads),
+                      w(d, hd), heads, dh ** -0.5) == attention_block_shape_ok(3, n, d, heads, dh)
+        assert _takes(fused_conformer_attention, x, w(d), w(d), w(3 * hd, d), w(33, dh),
+                      w(d, hd), w(d), heads) == conformer_attention_shape_ok(3, n, d, heads, dh)
+
+
+def test_port_takes_every_whole_sequence_attention_the_jax_gate_fuses(on_tpu):
+    """K3's JAX gate ``_use_pallas`` (sesa_tpu/ops/attention.py:203-221): every
+    (S, D) it sends to the Pallas kernel in bf16 is one the port's gate and
+    wrapper take."""
+    fused = 0
+    for s, d in itertools.product(SEQS, range(1, 136)):
+        if not jax_attention._use_pallas(s, d, dtype=jnp.bfloat16):
+            continue
+        fused += 1
+        t = _Fake((2, 8, s, d))
+        assert use_vmem_attention(t, t, t), (s, d)
+        q = torch.empty((2, 8, s, d), device=META, dtype=BF16)
+        assert _takes(vmem_attention, q, q, q, d ** -0.5), (s, d)
+    assert fused
+
+
+@pytest.mark.parametrize("d", range(64, 1153, 64))
+def test_port_takes_every_apollo_block_the_jax_gate_fuses(on_tpu, d):
+    """K6's JAX gate ``use_fused_conv`` at Apollo's hidden width 4d
+    (sesa_tpu/models/apollo.py:222-229): every (n, d) it fuses in bf16 is one
+    the port's predicate takes at Apollo's kernel of 7 taps, and Apollo's
+    choice at (rows, n frames, 80 bands) takes K6."""
+    for n in SEQS:
+        x = jax.ShapeDtypeStruct((320, n, d), jnp.bfloat16)
+        if not jax_convblock.use_fused_conv(x, 4 * d):
+            continue
+        assert apollo_conv_shape_ok(320 * n, d, 4 * d, 7), (n, d)
+        assert "K6" in apollo.apollo_kernels("cuda", BF16, 4, n, 80, d), (n, d)
