@@ -39,6 +39,16 @@ and prints no result line):
    48 on the mel-band conformer's legs, K6 at d 768 and 1024 (b 320 x n
    1901, k 7), each a timed row with its bound on the real widths, and
    small shapes of each at head widths from 8 to 128 and at d 576 to 1024.
+   Then the shapes that K5, K7 and K8 took last, each a timed row against
+   its plain version with its bound: K5 at 33, 64, 65 and 129 taps on the
+   mel-band conformer's legs; K7 at 8 heads x 16, 24, 25 (rope 24, heads
+   repacked to 32; also timed on heads already padded) and 40 at Apollo's
+   shape (b 7604 x n 80); K8 at (H, P, N, chunk) = (16, 32, 128, 64), (8,
+   64, 256, 64), (8, 64, 128, 32), (8, 64, 128, 176) and (64, 8, 128, 8) at
+   band_rnn's B 684 x L 704, and band_comm's B 8280 x L 64 at chunk 32, in
+   bf16 and f32; and small shapes of each (K5 to 257 taps, K7 at head widths
+   8 to 120 read as they lie or repacked, K8 with L, P and N padded or
+   sliced).
    With ``--only``, phases 1-2 build and check just the kernels named.
 3. flagship: separates a generated 60 s stereo song through
    ``sesa_tpu_torch.cli.main`` with the flagship bs_roformer (dim 512,
@@ -67,15 +77,21 @@ and prints no result line):
    with the kernels and with their plain versions): Apollo at feature_dim
    384, 768 and 1024 (K7 at dim_head 48, 96 and 128, K6 at d 384, 768 and
    1024), the mel-band conformer at dim_head 48 (K2, K5 and K4 on heads
-   padded to 64) and at conv kernel 33 (K2 and K4, the conv unfused), the
+   padded to 64) and at conv kernels 33, 64, 65 and 129 (K2, K4 and K5), Apollo
+   at feature_dim 128, 192 (K6 and K7 at 8 x 16 and 8 x 24) and 200 (K7 alone,
+   8 x 25 on heads padded to 32), the
    four-stream roformer at 8 heads x 48 and x 96 (K3 on its time legs);
-   launches as the choice predicts, parity as in 7. Then the widths of
+   launches as the choice predicts, parity as in 7. Then K8's sizes beside
+   (64, 128, 64) through the public ``ssd`` op, one launch each with the
+   counts set to 0 before. Then the widths of
    larger checkpoints at full depth (``WIDTH_PATHS``), each through
    ``cli.main`` as in 3 and warm, with exact launch counts from the model's
    choice, parity as in 7 and the profile of one warm call: the flagship at
    4 heads x 128 (K1 and K2 72 times a run), the mel-band roformer at 8 x
    48 (K1 and K2 72), the mel-band conformer at 8 x 48 (K2 96, K4 and K5
-   48) and Apollo at feature_dim 768 (K6 90, K7 30).
+   48), Apollo at feature_dim 768 (K6 90, K7 30), the mel-band conformer at
+   33 taps (K2 96, K4 and K5 48) and Apollo at feature_dim 320 (8 x 40: K6
+   90, K7 30).
 9. experimental roformers and bs_mamba2: the same song through ``cli.main``
    with ``bs_roformer_experimental`` at the flagship widths with value
    residual learning (K1 in modes 1 and 2, K2 at depth 0), the same with
@@ -231,7 +247,11 @@ APOLLO_FRAMES = APOLLO_CHUNK // 441 + 1  # 1901 frames per chunk
 WIDTH_PATHS = (("flagship_dh128", "bs_roformer", dict(FLAGSHIP_MODEL, heads=4, dim_head=128)),
                ("melband_dh48", "mel_band_roformer", dict(MELBAND_MODEL, dim_head=48)),
                ("melconf_dh48", "mel_band_conformer", dict(MELCONF_MODEL, dim_head=48)),
-               ("apollo_fd768", "apollo", dict(APOLLO_MODEL, feature_dim=768)))
+               ("apollo_fd768", "apollo", dict(APOLLO_MODEL, feature_dim=768)),
+               # K5 past 32 taps (two register blocks) and K7 at 8 heads x 40
+               # (a head width that is not a multiple of 16)
+               ("melconf_k33", "mel_band_conformer", dict(MELCONF_MODEL, conv_kernel_size=33)),
+               ("apollo_fd320", "apollo", dict(APOLLO_MODEL, feature_dim=320)))
 # the experimental roformers at the flagship widths: value residual learning
 # on one stream, and on four residual streams (hyper-connections)
 VR_MODEL = dict(FLAGSHIP_MODEL, use_value_residual_learning=True)
@@ -465,13 +485,14 @@ K8_LEGS = (("band_rnn", BATCH * 2 * MAMBA_BANDS, -(-FRAMES // 64) * 64),
            ("band_comm", BATCH * 2 * FRAMES, 64))
 
 
-def ssd_inputs(gen, bsz, l, h, dtype, device, a_scale=1.0):
-    """x, a, b, c of K8 from ``gen``: x ~ 0.5 N, a = -|N| * a_scale, b, c ~ 0.3 N."""
+def ssd_inputs(gen, bsz, l, h, dtype, device, a_scale=1.0, p=64, n=128):
+    """x, a, b, c of K8 from ``gen``: x ~ 0.5 N (B, L, H, P), a = -|N| * a_scale,
+    b, c ~ 0.3 N (B, L, 1, N)."""
     import torch
 
-    x = (0.5 * torch.randn((bsz, l, h, 64), generator=gen)).to(device, dtype)
+    x = (0.5 * torch.randn((bsz, l, h, p), generator=gen)).to(device, dtype)
     a = (-a_scale * torch.randn((bsz, l, h), generator=gen).abs()).to(device, dtype)
-    b, c = ((0.3 * torch.randn((bsz, l, 1, 128), generator=gen)).to(device, dtype)
+    b, c = ((0.3 * torch.randn((bsz, l, 1, n), generator=gen)).to(device, dtype)
             for _ in range(2))
     return x, a, b, c
 
@@ -498,12 +519,14 @@ def compare_ssd(name, out, ref):
     return max_err
 
 
-def k8_bound(bsz, l, h, dtype):
-    """K8's bound at chunk 64: what the function needs per sequence row. C·Bᵀ
-    once for the heads together and, per head, its masked product with x, both
-    over the lower triangle of each chunk (Q(Q+1)/2 pairs, the decay mask is 0
-    above it); the two state products only where a state is read (every chunk
-    but the first) or handed on (every chunk but the last), none at one chunk.
+def k8_bound(bsz, l, h, dtype, p=64, n=128, chunk=64):
+    """K8's bound at (P, N, chunk): what the function needs per sequence row,
+    at the asked chunk and the real P and N (not the kernel's padded layout).
+    C·Bᵀ once for the heads together and, per head, its masked product with x,
+    both over the lower triangle of each chunk (Q(Q+1)/2 pairs, the decay mask
+    is 0 above it); the two state products only where a state is read (every
+    chunk but the first) or handed on (every chunk but the last), none at one
+    chunk.
     Each product is priced at the passes its accuracy needs: in f32 three TF32
     passes; in bf16 C·Bᵀ, whose operands are exact, one bf16 pass, and the
     others, one f32 operand times an exact one, the cheaper of two TF32 passes
@@ -511,15 +534,15 @@ def k8_bound(bsz, l, h, dtype):
     (inputs once, the output once)."""
     import torch
 
-    chunks, tri = l // 64, 64 * 65  # 2 FLOP x Q(Q+1)/2 pairs
-    cbt = bsz * chunks * tri * 128
-    rest = bsz * chunks * h * tri * 64 + 2 * bsz * (chunks - 1) * 64 * h * 2 * 128 * 64
+    chunks, tri = l // chunk, chunk * (chunk + 1)  # 2 FLOP x Q(Q+1)/2 pairs
+    cbt = bsz * chunks * tri * n
+    rest = bsz * chunks * h * tri * p + 2 * bsz * (chunks - 1) * chunk * h * 2 * n * p
     bf16 = dtype == torch.bfloat16
     if bf16:
         t_ops = cbt / PEAK_BF16_FLOPS + rest * min(2 / PEAK_TF32_FLOPS, 3 / PEAK_BF16_FLOPS)
     else:
         t_ops = 3 * (cbt + rest) / PEAK_TF32_FLOPS
-    t_bytes = (2 if bf16 else 4) * bsz * l * (2 * h * 64 + h + 2 * 128) / PEAK_BYTES_S
+    t_bytes = (2 if bf16 else 4) * bsz * l * (2 * h * p + h + 2 * n) / PEAK_BYTES_S
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
@@ -797,7 +820,23 @@ K7_SMALL = ((13, 12, 1, 64, None), (13, 33, 3, 32, 8), (13, 130, 1, 64, 64),
             (13, 257, 3, 64, 64), (13, 257, 2, 16, 8), (5, 530, 2, 32, 32),
             (13, 80, 8, 48, 48), (600, 33, 3, 48, 16), (13, 80, 8, 96, 96),
             (13, 80, 3, 96, 32), (13, 80, 4, 80, 80), (13, 80, 8, 112, 112),
-            (13, 50, 2, 128, 128), (1000, 80, 8, 32, 32), (400, 257, 3, 64, 64))
+            (13, 50, 2, 128, 128), (1000, 80, 8, 32, 32), (400, 257, 3, 64, 64),
+            # head widths that are not multiples of 16: 8, 24, 40 and 56 read as
+            # they lie (a partial group of 3 x 24, several boxes along n),
+            # repacked: 25 (rope 24), 1 (no rope), 120 and 2 x 72 (too wide for
+            # whole boxes as they lie)
+            (13, 80, 8, 24, 24), (13, 33, 3, 24, 8), (13, 257, 3, 24, 24),
+            (13, 80, 8, 40, 40), (600, 33, 8, 56, 56), (13, 12, 8, 8, 8),
+            (13, 80, 8, 25, 24), (13, 80, 8, 1, None), (13, 80, 8, 120, 120),
+            (13, 80, 2, 72, 72))
+# K7 at Apollo's shape at other head widths: feature_dim 128, 192, 200 and
+# 320 (8 heads x 16, 24, 25 and 40), each with Apollo's rope 2 (dh // 2) wide
+K7_WIDTHS = (16, 24, 25, 40)
+# K8 beside bs_mamba2's (64, 128, 64): (H, P, N, chunk) at band_rnn's B 684 x
+# L 704 (h·P = 512), and band_comm's B 8280 x L 64 at chunk 32
+K8_SIZES = ((16, 32, 128, 64), (8, 64, 256, 64), (8, 64, 128, 32), (8, 64, 128, 176),
+            (64, 8, 128, 8))
+K8_COMM_CHUNK = 32
 
 
 def _k7_plan_line(b, n, heads, dh, rot):
@@ -892,9 +931,14 @@ K4_SMALL = ((3, 64, 128, 2, 64, 512), (3, 65, 128, 2, 64, 16), (3, 130, 64, 2, 3
             (2, 300, 128, 3, 8, 16), (2, 130, 192, 3, 40, 64), (3, 60, 384, 8, 48, 512),
             (2, 200, 384, 8, 48, 100), (2, 200, 128, 1, 96, 64), (3, 65, 128, 2, 120, 512),
             (2, 130, 64, 1, 32, 64))
-# K5's small shapes (b, n, d, k)
+# K5's small shapes (b, n, d, k): past 32 taps in two, three, five and nine
+# register blocks, odd and even, over one row, one tile and several
 K5_SMALL = ((3, 100, 64, 7), (2, 33, 128, 8), (4, 64, 64, 31), (2, 300, 64, 31),
-            (3, 130, 128, 32), (5, 1, 64, 31))
+            (3, 130, 128, 32), (5, 1, 64, 31), (3, 100, 64, 33), (2, 33, 128, 64),
+            (2, 300, 64, 65), (1, 17, 64, 129), (2, 5, 64, 257), (3, 130, 128, 96))
+# K5 past 32 taps at the mel-band conformer's legs: one odd and one even
+# count in two register blocks, three, and five
+K5_TAPS = (33, 64, 65, 129)
 
 
 def _k4_args(gen, b, n, d, heads, dh, max_pos, device):
@@ -1012,6 +1056,121 @@ def _k6_row(gen, dev, b, n, d, k, key):
     return row
 
 
+def _k5_row(x, p, leg, key):
+    """K5 on x (b, n, d) with the conv params ``p`` against its plain version,
+    timed beside the plain version and the library composite, with the
+    device time by sub-kernel; its bound counts the k taps' FMAs."""
+    from sesa_tpu_torch.ops.convblock import fused_conformer_conv, fused_conformer_conv_plain
+
+    import torch
+
+    b, n, d = x.shape
+    e, k = p["pw2"]["weight"].shape[1], p["dw"]["weight"].shape[-1]
+    tokens = b * n
+    out = fused_conformer_conv(x, p)
+    torch.cuda.synchronize()
+    err = compare(f"K5 {leg} leg (b={b}, n={n}, k={k})", out, fused_conformer_conv_plain(x, p),
+                  x)
+    del out
+    flops = 2 * tokens * (d * 2 * e + e * d) + 2 * tokens * k * e
+    nbytes = 2 * (2 * tokens * d + 3 * d * e + k * e + 4 * e + 3 * d)
+    row = dict(name=f"fused_conformer_conv ({leg} leg, b={b}, n={n}, k={k})",
+               route="cuda", source="sesa_tpu_torch/csrc/convblock.cu",
+               replaces="sesa_tpu/ops/convblock.py:110", max_abs_err=err,
+               ms=time_ms(lambda: fused_conformer_conv(x, p)),
+               plain_ms=time_ms(lambda: fused_conformer_conv_plain(x, p), reps=2, warmup=1),
+               library_ms=time_ms(lambda: k5_library(x, p)),
+               **_bound(flops, nbytes), kernel=key)
+    log_breakdown(row, f"K5 {leg} leg k={k}", lambda: fused_conformer_conv(x, p))
+    return row
+
+
+def _k7_row(gen, dev, b, n, heads, dh, rot, key):
+    """K7 at (b, n, heads x dh) with rope ``rot`` wide against its plain
+    version, timed beside the plain version and the library composite, with
+    its device time by kernel; its bound counts the real dh's bytes. Where
+    the plan repacks (dh not a multiple of 8), ``padded_ms`` times the
+    kernel on heads already padded to the plan's width, as Apollo's band
+    layer hands them over."""
+    import torch
+
+    from sesa_tpu_torch.ops.attention import (fused_rope_attention, fused_rope_attention_plain,
+                                              k7_plan, pad_heads)
+
+    args = _k7_args(gen, b, n, heads, dh, rot, dev)
+    zero = torch.zeros((), device=dev)
+    out = fused_rope_attention(*args)
+    torch.cuda.synchronize()
+    plan_line = _k7_plan_line(b, n, heads, dh, rot)
+    err = compare(f"K7 (b={b}, n={n}, {heads}x{dh}, rope {rot}; {plan_line})", out,
+                  fused_rope_attention_plain(*args), zero)
+    del out
+    torch.cuda.empty_cache()
+    w = rot or 0
+    row = dict(name=f"fused_rope_attention (b={b}, n={n}, {heads} heads x {dh}, rope {w})",
+               route="cuda", source="sesa_tpu_torch/csrc/rope_attention.cu",
+               replaces="sesa_tpu/ops/attention.py:280", max_abs_err=err,
+               ms=time_ms(lambda: fused_rope_attention(*args)),
+               plain_ms=time_ms(lambda: fused_rope_attention_plain(*args), reps=2, warmup=1),
+               library_ms=time_ms(lambda: k7_library(*args)),
+               **_bound(4 * b * heads * n * n * dh, 2 * (b * n * 4 * heads * dh + 2 * n * w)),
+               kernel=key)
+    plan = k7_plan(b, n, heads, dh, w)
+    if plan["repack"]:
+        wide = (pad_heads(args[0], dh, plan["width"]),) + args[1:]
+        row["padded_ms"] = time_ms(lambda: fused_rope_attention(*wide))
+        log(f"  K7 {heads}x{dh}: {row['padded_ms']:.3f} ms on heads padded to {plan['width']} "
+            f"(the band layer's route), {row['ms']:.3f} ms with the wrapper's repack")
+        del wide
+    log_breakdown(row, f"K7 {heads}x{dh}", lambda: fused_rope_attention(*args))
+    del args
+    torch.cuda.empty_cache()
+    return row
+
+
+def _k8_key(leg, h, p, n, chunk, dtype):
+    """The launch-count key of a K8 row off bs_mamba2's sizes."""
+    import torch
+
+    return f"K8:{leg}:{h}x{p}x{n}c{chunk}:{'bf16' if dtype == torch.bfloat16 else 'f32'}"
+
+
+def _k8_row(gen, dev, leg, bsz, l, h, p, n, chunk, dtype, key=None):
+    """K8 at (B, L, H, P), state N and ``chunk`` against the wrapper's plain
+    version, timed beside it and the einsum scan at the asked chunk; the
+    bound counts the real P, N and chunk. ``key`` names its launch count
+    (default: the size's, :func:`_k8_key`)."""
+    import torch
+
+    from sesa_tpu_torch.ops.ssd import k8_plan, ssd_einsum, ssd_fused, ssd_fused_plain
+
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    args = ssd_inputs(gen, bsz, l, h, dtype, dev, p=p, n=n)
+    out = ssd_fused(*args, chunk_size=chunk)
+    torch.cuda.synchronize()
+    ref = ssd_fused_plain(*args, chunk_size=chunk)
+    plan = k8_plan(bsz, l, h, dtype, p, n, chunk)
+    err = compare_ssd(f"K8 {leg} {tag} (B={bsz}, L={l}, H={h}, P={p}, N={n}, chunk {chunk}; "
+                      f"{plan['pseudo_heads']} pseudo-heads of 64, {plan['steps']} steps, "
+                      f"{plan['slices']} slices, {plan['variant']})", out, ref)
+    del out, ref
+    torch.cuda.empty_cache()
+    row = dict(name=f"ssd_fused {tag} ({leg}, B={bsz}, L={l}, H={h}, P={p}, N={n}, "
+                    f"chunk {chunk})",
+               route="cuda", source="sesa_tpu_torch/csrc/ssd.cu",
+               replaces="sesa_tpu/ops/ssd.py:128", max_abs_err=err,
+               ms=time_ms(lambda: ssd_fused(*args, chunk_size=chunk)),
+               plain_ms=time_ms(lambda: ssd_fused_plain(*args, chunk_size=chunk), reps=2,
+                                warmup=1),
+               library_ms=time_ms(lambda: ssd_einsum(*args, chunk_size=chunk), reps=2,
+                                  warmup=1),
+               **k8_bound(bsz, l, h, dtype, p, n, chunk),
+               kernel=key or _k8_key(leg, h, p, n, chunk, dtype))
+    del args
+    torch.cuda.empty_cache()
+    return row
+
+
 def width_rows(gen, dev, want):
     """The kernels at the widths their cores run padded or that widened them,
     each against its plain version at a model path's shape: K1 at 4 heads x
@@ -1087,7 +1246,7 @@ def phase_kernels(only=None):
                                               fused_conformer_conv, fused_conformer_conv_plain)
     from sesa_tpu_torch.ops.ff import fused_ff_residual, fused_ff_residual_plain
     from sesa_tpu_torch.ops.rope import default_freqs, rope_tables
-    from sesa_tpu_torch.ops.ssd import ssd_einsum, ssd_fused, ssd_plain
+    from sesa_tpu_torch.ops.ssd import ssd_fused, ssd_fused_plain, ssd_plain
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
@@ -1247,22 +1406,11 @@ def phase_kernels(only=None):
             log(f"  K4 {leg} leg core route: {k4_plan(b, n, d, heads, dh, sms)['core']['route']}")
             torch.cuda.empty_cache()
 
-            out = fused_conformer_conv(x, conv_p)
-            torch.cuda.synchronize()
-            err = compare(f"K5 {leg} leg (b={b}, n={n})", out,
-                          fused_conformer_conv_plain(x, conv_p), x)
-            del out
-            flops = 2 * tokens * (d * 2 * e + e * d) + 2 * tokens * k * e
-            nbytes = 2 * (2 * tokens * d + 3 * d * e + k * e + 4 * e + 3 * d)
-            rows.append(dict(name=f"fused_conformer_conv ({leg} leg, b={b}, n={n}, k={k})",
-                             route="cuda", source="sesa_tpu_torch/csrc/convblock.cu",
-                             replaces="sesa_tpu/ops/convblock.py:110", max_abs_err=err,
-                             ms=time_ms(lambda: fused_conformer_conv(x, conv_p)),
-                             plain_ms=time_ms(lambda: fused_conformer_conv_plain(x, conv_p),
-                                              reps=2, warmup=1),
-                             library_ms=time_ms(lambda: k5_library(x, conv_p)),
-                             **_bound(flops, nbytes), kernel="K5"))
-            log_breakdown(rows[-1], f"K5 {leg} leg", lambda: fused_conformer_conv(x, conv_p))
+            rows.append(_k5_row(x, conv_p, leg, "K5"))
+            # past 32 taps: two, three and five register blocks
+            for taps in K5_TAPS:
+                rows.append(_k5_row(x, _conv_params(gen, d, e, taps, dev), leg, f"K5k{taps}"))
+                torch.cuda.empty_cache()
             del args, x
             torch.cuda.empty_cache()
 
@@ -1295,27 +1443,10 @@ def phase_kernels(only=None):
         # K7 at Apollo's shape: 4 x 1901 frame sequences of 80 bands, 8 heads x 32
         b, n, heads = APOLLO_BPRIME * APOLLO_FRAMES, APOLLO_BANDS, 8
         dh = APOLLO_MODEL["feature_dim"] // heads
-        args = _k7_args(gen, b, n, heads, dh, dh, dev)
-        out = fused_rope_attention(*args)
-        torch.cuda.synchronize()
-        err = compare(f"K7 (b={b}, n={n}, {heads}x{dh})", out, fused_rope_attention_plain(*args),
-                      zero)
-        del out
-        torch.cuda.empty_cache()
-        rows.append(dict(name=f"fused_rope_attention (b={b}, n={n}, {heads} heads x {dh}, "
-                              f"rope {dh})",
-                         route="cuda", source="sesa_tpu_torch/csrc/rope_attention.cu",
-                         replaces="sesa_tpu/ops/attention.py:280", max_abs_err=err,
-                         ms=time_ms(lambda: fused_rope_attention(*args)),
-                         plain_ms=time_ms(lambda: fused_rope_attention_plain(*args), reps=2,
-                                          warmup=1),
-                         library_ms=time_ms(lambda: k7_library(*args)),
-                         **_bound(4 * b * heads * n * n * dh,
-                                  2 * (b * n * 4 * heads * dh + 2 * n * dh)),
-                         kernel="K7"))
-        log_breakdown(rows[-1], "K7", lambda: fused_rope_attention(*args))
-        del args
-        torch.cuda.empty_cache()
+        rows.append(_k7_row(gen, dev, b, n, heads, dh, dh, "K7"))
+        # the other head widths at Apollo's shape, with Apollo's rope
+        for dh in K7_WIDTHS:
+            rows.append(_k7_row(gen, dev, b, n, heads, dh, 2 * (dh // 2), f"K7dh{dh}"))
 
     # K6 and K7 at small ragged shapes: short and long sequences against the
     # 64-row tile, a 3-tap kernel; K7 at K7_SMALL
@@ -1361,24 +1492,8 @@ def phase_kernels(only=None):
         # K8 at bs_mamba2's two shapes, bf16 (the session's path) and f32 (the
         # rescue's)
         for leg, bsz, l in K8_LEGS:
-            for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-                args = ssd_inputs(gen, bsz, l, MAMBA_HEADS, dtype, dev)
-                out = ssd_fused(*args)
-                torch.cuda.synchronize()
-                ref = ssd_plain(*args)
-                err = compare_ssd(f"K8 {leg} {tag} (B={bsz}, L={l}, H={MAMBA_HEADS})", out, ref)
-                rows.append(dict(name=f"ssd_fused {tag} ({leg}, B={bsz}, L={l}, H={MAMBA_HEADS}, "
-                                      "P=64, N=128, chunk 64"
-                                      + (")" if tag == "bf16" else "; the main path runs bf16)"),
-                                 route="cuda", source="sesa_tpu_torch/csrc/ssd.cu",
-                                 replaces="sesa_tpu/ops/ssd.py:128", max_abs_err=err,
-                                 ms=time_ms(lambda: ssd_fused(*args)),
-                                 plain_ms=time_ms(lambda: ssd_plain(*args), reps=2, warmup=1),
-                                 library_ms=time_ms(lambda: ssd_einsum(*args), reps=2, warmup=1),
-                                 **k8_bound(bsz, l, MAMBA_HEADS, dtype),
-                                 kernel="K8" if dtype == torch.bfloat16 else "K8f32"))
-                del args, out, ref
-                torch.cuda.empty_cache()
+            for dtype, key in ((torch.bfloat16, "K8"), (torch.float32, "K8f32")):
+                rows.append(_k8_row(gen, dev, leg, bsz, l, MAMBA_HEADS, 64, 128, 64, dtype, key))
         # K8 at small shapes: one chunk with one head and with heads beyond one
         # group of the rows kernel's decay scans, three chunks with fast decays,
         # other head counts, a band_comm batch whose last wave is part empty,
@@ -1397,6 +1512,24 @@ def phase_kernels(only=None):
         compare_ssd("K8 impulse (L=192)", out, ssd_plain(x, a, bc, bc))
         if not float(out[0, -1].abs().max()) > 0.1:
             raise RuntimeError("K8 impulse: the state did not reach the last chunk")
+        torch.cuda.synchronize()
+        # the (P, N, chunk) beside (64, 128, 64) that the JAX gate fuses
+        band_rnn, band_comm = K8_LEGS
+        for dtype in (torch.bfloat16, torch.float32):
+            for h, p, n, chunk in K8_SIZES:
+                rows.append(_k8_row(gen, dev, *band_rnn, h, p, n, chunk, dtype))
+            rows.append(_k8_row(gen, dev, *band_comm, MAMBA_HEADS, 64, 128, K8_COMM_CHUNK, dtype))
+        # small shapes of them: L padded (72 at chunk 8, 176 at 176), P 72 and
+        # 16, three slices of N, one chunk at chunk 32, a state carried across
+        # padded heads
+        for bsz, l, h, p, n, chunk in ((3, 72, 4, 8, 128, 8), (2, 176, 2, 64, 128, 176),
+                                       (2, 128, 3, 72, 384, 32), (5, 64, 3, 16, 256, 32),
+                                       (2, 192, 2, 128, 256, 64), (7, 32, 8, 24, 128, 8)):
+            for dtype in (torch.float32, torch.bfloat16):
+                args = ssd_inputs(gen, bsz, l, h, dtype, dev, p=p, n=n)
+                compare_ssd(f"K8 small {dtype} (B={bsz}, L={l}, H={h}, P={p}, N={n}, "
+                            f"chunk {chunk})", ssd_fused(*args, chunk_size=chunk),
+                            ssd_fused_plain(*args, chunk_size=chunk))
         torch.cuda.synchronize()
 
     rows += width_rows(gen, dev, want)
@@ -1534,7 +1667,7 @@ def _plain_swaps(model_type):
     from sesa_tpu_torch.ops.ff import fused_ff_residual_plain
 
     if model_type.startswith("bs_mamba2"):  # ssd() looks ssd_fused up in its module
-        return [(ssd_ops, "ssd_fused", ssd_ops.ssd_plain)]
+        return [(ssd_ops, "ssd_fused", ssd_ops.ssd_fused_plain)]
     if model_type.startswith("bs_roformer_experimental_hc"):  # so does sdpa() with K3
         return [(attention_ops, "vmem_attention", attention_ops.vmem_attention_plain)]
     if model_type.startswith("apollo"):
@@ -1876,19 +2009,35 @@ GATE_PATHS = (("apollo_fd384", "apollo", dict(APOLLO_MODEL, feature_dim=384, lay
                dict(MELCONF_MODEL, depth=1, dim_head=48)),
               ("mel_band_conformer_k33", "mel_band_conformer",
                dict(MELCONF_MODEL, depth=1, conv_kernel_size=33)),
+              ("mel_band_conformer_k64", "mel_band_conformer",
+               dict(MELCONF_MODEL, depth=1, conv_kernel_size=64)),
+              ("mel_band_conformer_k65", "mel_band_conformer",
+               dict(MELCONF_MODEL, depth=1, conv_kernel_size=65)),
+              ("mel_band_conformer_k129", "mel_band_conformer",
+               dict(MELCONF_MODEL, depth=1, conv_kernel_size=129)),
+              ("apollo_fd128", "apollo", dict(APOLLO_MODEL, feature_dim=128, layer=1)),
+              ("apollo_fd192", "apollo", dict(APOLLO_MODEL, feature_dim=192, layer=1)),
+              ("apollo_fd200", "apollo", dict(APOLLO_MODEL, feature_dim=200, layer=1)),
               ("bs_roformer_experimental_hc_dh48", "bs_roformer_experimental",
                dict(HC_MODEL, depth=1, dim_head=48)),
               ("bs_roformer_experimental_hc_dh96", "bs_roformer_experimental",
                dict(HC_MODEL, depth=1, dim_head=96)))
 # the kernels each of them must take: Apollo at feature_dim 384, 768 and 1024
-# both (K7 at dim_head 48, 96 and 128, K6 at d 384, 768 and 1024); the
-# conformer at dim_head 48 all three (K4 on heads padded to 64), at 33 taps
-# K2 and K4 with the conv unfused; the four-stream roformer at dim_head 48
-# and 96 K3 on its time legs (690 frames; the freq legs' 62 bands are below
-# K3's gate)
+# both (K7 at dim_head 48, 96 and 128, K6 at d 384, 768 and 1024), at 128 and
+# 192 both (K7 at 8 x 16 and 8 x 24), at 200 K7 alone (8 x 25 on heads padded
+# to 32, rope 24; K6 refuses d % 64); the conformer at dim_head 48 all three
+# (K4 on heads padded to 64), at 33, 64, 65 and 129 taps all three (K5 in two,
+# two, three and five register blocks of taps); the four-stream roformer at
+# dim_head 48 and 96 K3 on its time legs (690 frames; the freq legs' 62 bands
+# are below K3's gate)
 GATE_KERNELS = {"apollo_fd384": {"K6", "K7"}, "apollo_fd768": {"K6", "K7"},
                 "apollo_fd1024": {"K6", "K7"}, "mel_band_conformer_dh48": {"K2", "K4", "K5"},
-                "mel_band_conformer_k33": {"K2", "K4"},
+                "mel_band_conformer_k33": {"K2", "K4", "K5"},
+                "mel_band_conformer_k64": {"K2", "K4", "K5"},
+                "mel_band_conformer_k65": {"K2", "K4", "K5"},
+                "mel_band_conformer_k129": {"K2", "K4", "K5"},
+                "apollo_fd128": {"K6", "K7"}, "apollo_fd192": {"K6", "K7"},
+                "apollo_fd200": {"K7"},
                 "bs_roformer_experimental_hc_dh48": {"K3"},
                 "bs_roformer_experimental_hc_dh96": {"K3"}}
 
@@ -1977,12 +2126,14 @@ def phase_widths(song, calls):
             n_calls = _model_calls(APOLLO_CHUNK, APOLLO_BATCH)
         else:
             dim, heads = model_cfg["dim"], model_cfg.get("heads", 8)
-            dh = model_cfg["dim_head"]
+            dh = model_cfg.get("dim_head", 64)
             bands = BANDS if model_type == "bs_roformer" else MEL_BANDS
             legs = ((BATCH * bands, FRAMES), (BATCH * FRAMES, bands))
             if model_type == "mel_band_conformer":
                 kinds = {cc.conformer_kernels("cuda", torch.bfloat16, b, n, dim, heads, dh,
-                                              4 * dim, 2 * dim, 31) for b, n in legs}
+                                              4 * dim, 2 * dim,
+                                              model_cfg.get("conv_kernel_size", 31))
+                         for b, n in legs}
                 blocks = 2 * model_cfg["depth"]
                 per_call = {"K2": 2 * blocks, "K4": blocks, "K5": blocks}
             else:  # the roformer's choice: use_fused_attention on a bf16 CUDA x, K2 likewise
@@ -2014,6 +2165,46 @@ def phase_widths(song, calls):
         del session
         torch.cuda.empty_cache()
     return out
+
+
+def phase_ssd_op():
+    """K8's sizes beside bs_mamba2's (64, 128, 64), which no model of the repo
+    runs, through the public op a user calls, ``sesa_tpu_torch.ops.ssd.ssd``
+    (the counterpart of sesa_tpu's ``ssd``): each (H, P, N, chunk) of
+    K8_SIZES at band_rnn's shape and band_comm's at chunk 32, in bf16 and
+    f32, once, with the launch counts set to 0 before and read after (one
+    launch of K8 each, by dtype), and each output against the wrapper's
+    plain version. Returns the launches by row key."""
+    import torch
+
+    from sesa_tpu_torch.ops.ssd import ssd, ssd_fused_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(11)
+    band_rnn, band_comm = K8_LEGS
+    cases = [(band_rnn, h, p, n, chunk) for h, p, n, chunk in K8_SIZES]
+    cases.append((band_comm, MAMBA_HEADS, 64, 128, K8_COMM_CHUNK))
+    launches = {}
+    for (leg, bsz, l), h, p, n, chunk in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = ssd_inputs(gen, bsz, l, h, dtype, dev, p=p, n=n)
+            reset_counts()
+            with torch.inference_mode():
+                out = ssd(*args, chunk_size=chunk)
+            torch.cuda.synchronize()
+            got = read_counts()
+            key = _k8_key(leg, h, p, n, chunk, dtype)
+            tag = key.rsplit(":", 1)[1]
+            by_dtype = counters()["K8"].launches_by_dtype[tag]
+            if got != expect(K8=1) or by_dtype != 1:
+                raise RuntimeError(f"ssd op {key}: launches {got}, {by_dtype} in {tag}; "
+                                   f"expected {expect(K8=1)}")
+            compare_ssd(f"ssd op {leg} {key}", out, ssd_fused_plain(*args, chunk_size=chunk))
+            launches[key] = got["K8"]
+            del args, out
+            torch.cuda.empty_cache()
+    log(f"[ssd op] K8 launches by size: {launches}")
+    return launches
 
 
 def phase_new_paths(song, calls):
@@ -3386,6 +3577,7 @@ def main(argv=None) -> int:
         raise RuntimeError(f"apollo parity: launches {got} in one model call, expected {per_call}")
     out["melband"] = phase_melband(song)
     out["gates"] = phase_gates(song)
+    out["ssd_op"] = phase_ssd_op()
     out["profile"] = {mt: phase_profile(mt, s, song) for mt, s in sessions.items()}
     # the sessions above stay loaded for the second chain: the widths' models
     # load one at a time beside them
@@ -3443,7 +3635,20 @@ def main(argv=None) -> int:
                      "K6d768": widths["apollo_fd768"]["launches"]["K6"],
                      "K3dh48": gates["bs_roformer_experimental_hc_dh48"]["K3"],
                      "K3dh96": gates["bs_roformer_experimental_hc_dh96"]["K3"],
-                     "K6d1024": gates["apollo_fd1024"]["K6"]})
+                     "K6d1024": gates["apollo_fd1024"]["K6"],
+                     # K5 past 32 taps and K7 at the other head widths: the
+                     # conformer at 33 taps and Apollo at 8 x 40 through cli.main,
+                     # the rest from their GATE_PATHS model call
+                     "K5k33": widths["melconf_k33"]["launches"]["K5"],
+                     "K5k64": gates["mel_band_conformer_k64"]["K5"],
+                     "K5k65": gates["mel_band_conformer_k65"]["K5"],
+                     "K5k129": gates["mel_band_conformer_k129"]["K5"],
+                     "K7dh16": gates["apollo_fd128"]["K7"],
+                     "K7dh24": gates["apollo_fd192"]["K7"],
+                     "K7dh25": gates["apollo_fd200"]["K7"],
+                     "K7dh40": widths["apollo_fd320"]["launches"]["K7"]})
+    # K8's other sizes: their launches through the public ssd op
+    launches.update(out["ssd_op"])
     kernels = [dict(name=r["name"], route=r["route"], source=r["source"],
                     replaces=r["replaces"], launches=launches[r["kernel"]],
                     max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],

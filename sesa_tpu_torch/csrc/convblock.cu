@@ -35,7 +35,13 @@
 //            a channel pair's taps in registers and slides them over its
 //            warp's 16 consecutive rows (47 shared loads for 16 x 32 taps);
 //            f32 sums in tap order, * scale + shift, swish in f32, bf16
-//            store.
+//            store. Any number of taps: a kernel of k > 32 taps runs in
+//            blocks of 32 taps, each one more step of the item with its
+//            own box of the same rows + 31 rows, shifted 32 rows on, and
+//            its own taps in the same registers; the sums carry across the
+//            blocks, so the taps are still summed in tap order (the Pallas
+//            kernel takes any k; this keeps the box within TMA's 256 rows and
+//            the staging within static shared memory at every k).
 //   3. down: the persistent GEMM with W2 (WS_RESID: + b2, bf16, + x).
 // The GLU and conv activations cross device memory once each way (4 x 0.38 GB
 // at the main path's shape, ~0.46 ms of traffic); keeping them on chip needs
@@ -50,10 +56,10 @@
 namespace sesa {
 
 constexpr int DW_CH = 64;     // channels per block: a channel pair per lane
-constexpr int DW_KMAX = 32;   // taps held in registers (taps >= k are zero)
+constexpr int DW_KB = 32;     // taps of a block held in registers (taps >= k are zero)
 constexpr int DW_RPT = 16;    // consecutive rows per warp
 constexpr int DW_WARPS = 8;   // warps of the largest tile: 128 rows
-constexpr int DW_SROWS = DW_WARPS * DW_RPT + DW_KMAX - 1;  // staged rows, halo included
+constexpr int DW_SROWS = DW_WARPS * DW_RPT + DW_KB - 1;  // staged rows, halo included
 
 // x * sigmoid(x) with ex2 and rcp on the special-function unit and no range
 // fix-ups (x -> -inf: 1 / inf = 0): two of its instructions a value, the
@@ -65,11 +71,14 @@ __device__ __forceinline__ float swish_sfu(float x) {
 // A persistent grid of blocks of 16 rows a warp (rows = 16 * warps); block b
 // takes a contiguous run of the work items (channel slice, sequence, row
 // tile), in that order, so that its items share their taps and neighbouring
-// tiles' halos meet in L2. Two staging buffers: one thread loads the next
-// item's rows by TMA while the block sums the current one. The tensor map is
+// tiles' halos meet in L2. An item is one step for each block of 32 taps
+// (kb = ceil(k / 32) steps). Two staging buffers: one thread loads the next
+// step's rows by TMA while the block sums the current one. The tensor map is
 // (e, n, batch), so the rows outside [0, n) of a sequence, the padding,
-// arrive as TMA's zero fill: staged row r of an item is sequence row
-// i0 - pad_l + r.
+// arrive as TMA's zero fill: staged row r of tap block j of an item is
+// sequence row i0 - pad_l + 32 j + r. ONE: k <= 32, one step an item, the
+// tap-block loop compiled away (as the kernel was before it took more taps).
+template <bool ONE>
 __global__ void __launch_bounds__(DW_WARPS * 32, 2)
 dwconv_bn_swish_kernel(const __grid_constant__ CUtensorMap tg, const bf16* __restrict__ taps,
                        const bf16* __restrict__ scale, const bf16* __restrict__ shift,
@@ -78,10 +87,11 @@ dwconv_bn_swish_kernel(const __grid_constant__ CUtensorMap tg, const bf16* __res
   __shared__ __align__(128) bf16 s[2][DW_SROWS][DW_CH];
   __shared__ uint64_t full[2];
   const int rows = blockDim.x / 32 * DW_RPT, tiles = (n + rows - 1) / rows;
+  const int kb = ONE ? 1 : (k + DW_KB - 1) / DW_KB;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int per = (items + gridDim.x - 1) / gridDim.x;
   const int first = blockIdx.x * per, last = min(items, first + per);
-  const uint32_t box_bytes = (rows + DW_KMAX - 1) * DW_CH * 2;
+  const uint32_t box_bytes = (rows + DW_KB - 1) * DW_CH * 2;
 
   if (threadIdx.x == 0) {
     mbar_init(full, 1);
@@ -91,68 +101,80 @@ dwconv_bn_swish_kernel(const __grid_constant__ CUtensorMap tg, const bf16* __res
   __syncthreads();
   // an item's row tile, sequence and channel slice, stepped in order
   int tile = first % tiles, seq = first / tiles % batch, slice = first / (tiles * batch);
-  auto load = [&](int buf, int t, int q, int c) {
+  auto load = [&](int buf, int t, int q, int c, int j) {
     mbar_expect_tx(full + buf, box_bytes);
-    tma_load_3d(&s[buf][0][0], &tg, full + buf, c * DW_CH, t * rows - pad_l, q);
+    tma_load_3d(&s[buf][0][0], &tg, full + buf, c * DW_CH, t * rows - pad_l + j * DW_KB, q);
   };
-  if (threadIdx.x == 0 && first < last) load(0, tile, seq, slice);
-  float2 tp[DW_KMAX], sc = make_float2(0.f, 0.f), sh = make_float2(0.f, 0.f);
-  int c_taps = -1;  // the channel slice whose taps tp holds
-  for (int item = first, it = 0; item < last; ++item, ++it) {
-    const int buf = it & 1;
-    if (threadIdx.x == 0 && item + 1 < last) {
-      int t = tile + 1, q = seq, c = slice;
-      if (t == tiles) {
-        t = 0;
-        if (++q == batch) q = 0, ++c;
-      }
-      load(buf ^ 1, t, q, c);
-    }
-    const int c0 = slice * DW_CH, i0 = tile * rows;
+  if (threadIdx.x == 0 && first < last) load(0, tile, seq, slice, 0);
+  float2 tp[DW_KB], sc = make_float2(0.f, 0.f), sh = make_float2(0.f, 0.f);
+  float2 acc[DW_RPT];
+  int c_taps = -1;  // the (channel slice, tap block) whose taps tp holds
+  int it = 0;       // the block's steps so far: its buffer and phase
+  for (int item = first; item < last; ++item) {
+    const int c0 = slice * DW_CH, i0 = tile * rows, rbase = warp * DW_RPT;
     const size_t seq0 = (size_t)seq * n;
-    if (c0 != c_taps) {
-      c_taps = c0;
+    for (int j = 0; j < kb; ++j, ++it) {
+      const int buf = it & 1;
+      if (threadIdx.x == 0) {  // the next step: this item's next tap block, or the next item's first
+        if (j + 1 < kb) {
+          load(buf ^ 1, tile, seq, slice, j + 1);
+        } else if (item + 1 < last) {
+          int t = tile + 1, q = seq, c = slice;
+          if (t == tiles) {
+            t = 0;
+            if (++q == batch) q = 0, ++c;
+          }
+          load(buf ^ 1, t, q, c, 0);
+        }
+      }
+      if (slice * kb + j != c_taps) {
+        c_taps = slice * kb + j;
 #pragma unroll
-      for (int t = 0; t < DW_KMAX; ++t)
-        tp[t] = t < k ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                            taps + (size_t)t * e + c0 + 2 * lane))
+        for (int t = 0; t < DW_KB; ++t)
+          tp[t] = j * DW_KB + t < k
+                      ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                            taps + (size_t)(j * DW_KB + t) * e + c0 + 2 * lane))
                       : make_float2(0.f, 0.f);
-      sc = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(scale + c0 + 2 * lane));
-      sh = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(shift + c0 + 2 * lane));
-    }
-    mbar_wait(full + buf, (it >> 1) & 1);
-    const int rbase = warp * DW_RPT;
-    if (i0 + rbase < n) {
-      // out[i] = sum_t taps[t] * h[i + t - pad_l] = sum_t taps[t] * s[i - i0 + t],
-      // summed in tap order as the TPU kernel; taps >= k are zero, so the
-      // staged rows past the k - 1 rows of halo only need to be finite
-      float2 acc[DW_RPT];
+        sc = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(scale + c0 + 2 * lane));
+        sh = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(shift + c0 + 2 * lane));
+      }
+      if (j == 0) {
 #pragma unroll
-      for (int r = 0; r < DW_RPT; ++r) acc[r] = make_float2(0.f, 0.f);
+        for (int r = 0; r < DW_RPT; ++r) acc[r] = make_float2(0.f, 0.f);
+      }
+      mbar_wait(full + buf, (it >> 1) & 1);
+      if (i0 + rbase < n) {
+        // out[i] = sum_t taps[t] * h[i + t - pad_l]; tap block j adds
+        // sum_{t < 32} taps[32 j + t] * s[i - i0 + t] over its staged rows,
+        // summed in tap order as the TPU kernel; taps >= k are zero, so the
+        // staged rows past the block's halo only need to be finite
 #pragma unroll
-      for (int j = 0; j < DW_RPT + DW_KMAX - 1; ++j) {
-        const float2 v = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&s[buf][rbase + j][2 * lane]));
+        for (int jr = 0; jr < DW_RPT + DW_KB - 1; ++jr) {
+          const float2 v = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&s[buf][rbase + jr][2 * lane]));
 #pragma unroll
-        for (int r = 0; r < DW_RPT; ++r) {
-          const int t = j - r;
-          if (t >= 0 && t < DW_KMAX) {
-            acc[r].x = fmaf(tp[t].x, v.x, acc[r].x);
-            acc[r].y = fmaf(tp[t].y, v.y, acc[r].y);
+          for (int r = 0; r < DW_RPT; ++r) {
+            const int t = jr - r;
+            if (t >= 0 && t < DW_KB) {
+              acc[r].x = fmaf(tp[t].x, v.x, acc[r].x);
+              acc[r].y = fmaf(tp[t].y, v.y, acc[r].y);
+            }
+          }
+        }
+        if (j + 1 == kb) {
+#pragma unroll
+          for (int r = 0; r < DW_RPT; ++r) {
+            const int i = i0 + rbase + r;
+            if (i < n) {  // no `break`: the loop must stay unrolled (acc in registers)
+              const float v0 = acc[r].x * sc.x + sh.x, v1 = acc[r].y * sc.y + sh.y;
+              *reinterpret_cast<uint32_t*>(y + (seq0 + i) * e + c0 + 2 * lane) =
+                  pack_bf16x2(swish_sfu(v0), swish_sfu(v1));
+            }
           }
         }
       }
-#pragma unroll
-      for (int r = 0; r < DW_RPT; ++r) {
-        const int i = i0 + rbase + r;
-        if (i < n) {  // no `break`: the loop must stay unrolled (acc in registers)
-          const float v0 = acc[r].x * sc.x + sh.x, v1 = acc[r].y * sc.y + sh.y;
-          *reinterpret_cast<uint32_t*>(y + (seq0 + i) * e + c0 + 2 * lane) =
-              pack_bf16x2(swish_sfu(v0), swish_sfu(v1));
-        }
-      }
+      __syncthreads();  // every warp has read this buffer before it is loaded again
     }
-    __syncthreads();  // every warp has read this buffer before it is loaded again
     if (++tile == tiles) {
       tile = 0;
       if (++seq == batch) seq = 0, ++slice;
@@ -201,23 +223,29 @@ int sesa_conv_up(const void* x, const void* gamma, const void* beta, void* xn, c
 }
 
 // y = bf16(swish(dwconv(glu) * scale + shift)) per sequence of n rows;
-// taps (k, e), k <= 32; rows, grid: the plan's tile rows and persistent
-// blocks (k5_plan)
+// taps (k, e), any k >= 1 (in blocks of 32); rows, grid: the plan's tile rows
+// and persistent blocks (k5_plan). The work items, and their steps (an item
+// a tap block), are counted in int; the grid is persistent, so no count of
+// sequences is limited by a grid dimension
 int sesa_conv_dw(const void* glu, const void* taps, const void* scale, const void* shift,
                  void* y, int batch, int n, int e, int k, int rows, int grid, void* stream) {
   const int sms = sm_count();
   const long long items = (long long)batch * ((n + rows - 1) / rows) * (e / DW_CH);
-  if (k < 1 || k > DW_KMAX || e % DW_CH || n < 1 || batch < 1 || sms < 1 ||
-      rows != dw_tile_rows(n) || grid != dw_grid(batch, n, e, sms) || items > 0x7fffffffLL)
+  const long long steps = items * ((k + DW_KB - 1LL) / DW_KB);
+  if (k < 1 || e % DW_CH || n < 1 || batch < 1 || sms < 1 || rows != dw_tile_rows(n) ||
+      grid != dw_grid(batch, n, e, sms) || steps > 0x7fffffffLL ||
+      (long long)n + k > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  // (e, n, batch): the rows of one item and its halo are one box
+  // (e, n, batch): the rows of one step, an item's tile and the halo of its
+  // tap block, are one box
   const uint64_t dims[3] = {(uint64_t)e, (uint64_t)n, (uint64_t)batch};
   const uint64_t strides[2] = {(uint64_t)e * 2, (uint64_t)n * e * 2};
-  const uint32_t box[3] = {(uint32_t)DW_CH, (uint32_t)(rows + DW_KMAX - 1), 1};
+  const uint32_t box[3] = {(uint32_t)DW_CH, (uint32_t)(rows + DW_KB - 1), 1};
   CUtensorMap tg;
   const int rc = make_tmap_bf16(&tg, glu, 3, dims, strides, box, 0);
   if (rc != 0) return rc;
-  dwconv_bn_swish_kernel<<<grid, rows / DW_RPT * 32, 0, (cudaStream_t)stream>>>(
+  auto kernel = k <= DW_KB ? dwconv_bn_swish_kernel<true> : dwconv_bn_swish_kernel<false>;
+  kernel<<<grid, rows / DW_RPT * 32, 0, (cudaStream_t)stream>>>(
       tg, (const bf16*)taps, (const bf16*)scale, (const bf16*)shift, (bf16*)y, batch, n, e, k,
       k / 2, (int)items);
   return (int)cudaGetLastError();

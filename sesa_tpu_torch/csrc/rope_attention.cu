@@ -45,6 +45,19 @@
 //     ex2.approx, p rounded to bf16 before p . v, V by ldmatrix.trans; the
 //     finished tile overwrites its own q rows in the stage (no other task
 //     reads them), which the producer then stores.
+// Head widths. The kernel is built for a head width W, a multiple of 8 up to
+// 128, and runs its products at DH = ceil(W / 16) * 16 (the mma.sync
+// k-step): the slabs hold the real packed columns (head h from column h * W,
+// 16-byte aligned), and where W % 16 = 8 the last 8 columns of a head's last
+// 16-column step are another head's (or past the slab): the q fragment's
+// half there is zeroed, so q . k^T is exact, the key and value addresses of
+// that half are clamped into the head (finite values whose products are
+// dropped), and only W output columns are stored. All of it is decided at
+// compile time, so a width that is a multiple of 16 compiles to the kernel
+// as it was before other widths were taken.
+// A head width that is not a multiple of 8 has rows that are not 16-byte
+// aligned; the host repacks it to the next multiple of 8 (ops/attention.py
+// k7_plan, fused_rope_attention), or the caller pads its weights.
 // The host plans group, boxes, stages, the tables' place, grid and shared
 // memory (ops/attention.py k7_plan); the entry point refuses a plan that does
 // not match the layout here.
@@ -125,14 +138,14 @@ __device__ __forceinline__ uint32_t rope_pair(uint32_t x, uint32_t c, uint32_t s
 }
 
 // The rope, in place, of the item staged at `st`: rows < n of its q and k
-// slabs, the leading rot_w columns of each of its gh heads. A quarter-warp
+// slabs, the leading rot_w columns of each of its gh heads of W columns. A quarter-warp
 // takes 8 consecutive rows of one 16-byte column chunk of the rotary width
 // (8 rows: the swizzle puts their chunks in 8 distinct bank groups), reads
 // that (row, chunk) of cos and sin once and rotates it in q and k of every
 // head of the item; the `nr` rope warps take the row blocks in turn. cos and
 // sin come from shared memory where the plan stages them (through a generic
 // pointer, else from device memory).
-template <int DH>
+template <int W>
 __device__ __forceinline__ void ra_rope_item(unsigned char* st, uint32_t slab, int rows, int n,
                                              int gh, const bf16* cos_t, const bf16* sin_t,
                                              int pitch, int rot_w, int rw, int nr, int lane) {
@@ -156,7 +169,7 @@ __device__ __forceinline__ void ra_rope_item(unsigned char* st, uint32_t slab, i
       }
       for (int comp = 0; comp < 2; ++comp)
         for (int h = 0; h < gh; ++h) {
-          uint4* p = reinterpret_cast<uint4*>(st + comp * slab + ra_swz(r, h * DH + d0, rows));
+          uint4* p = reinterpret_cast<uint4*>(st + comp * slab + ra_swz(r, h * W + d0, rows));
           uint4 v = *p;
           uint32_t* x = reinterpret_cast<uint32_t*>(&v);
 #pragma unroll
@@ -169,26 +182,36 @@ __device__ __forceinline__ void ra_rope_item(unsigned char* st, uint32_t slab, i
 }
 
 // One (head, 16-query tile) task of the item staged at `st` (shared address
-// `st_s`): its head's columns start at `hc` in each slab of `slab` bytes.
-template <int DH>
+// `st_s`): its head's W columns start at `hc` in each slab of `slab` bytes.
+template <int W>
 __device__ __forceinline__ void ra_task(unsigned char* st, uint32_t st_s, uint32_t slab, int rows,
                                         int n, int hc, int q0, float scale_log2, int lane) {
+  constexpr int DH = (W + 15) / 16 * 16;
+  // W % 16 = 8: the upper 8 columns of the last 16-column step belong to
+  // another head; their addresses are clamped to the step's lower 8, and
+  // q's half there is zeroed
+  constexpr bool HALF = W != DH;
   const int g = lane >> 2, t = lane & 3;
   // ldmatrix.x4 lane addressing, as the attention cores of K1 and K4
   const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
   const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 8;
+  auto col = [&](int kk, int c) {
+    return hc + kk * 16 + (HALF && kk == DH / 16 - 1 ? 0 : c);
+  };
 
   uint32_t qf[DH / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-    ldsm_x4(qf[kk], st_s + ra_swz(q0 + a_row, hc + kk * 16 + a_col, rows));
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    ldsm_x4(qf[kk], st_s + ra_swz(q0 + a_row, col(kk, a_col), rows));
+    if (HALF && kk == DH / 16 - 1) qf[kk][2] = qf[kk][3] = 0u;  // A's k columns 8-15
+  }
   // every step starts on a multiple of 16 rows, so row % 8 = lane % 8 and
   // each lane's swizzled column offsets are fixed: the step adds 128 a row
   uint32_t koff[DH / 16], voff[DH / 16];
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk) {
-    koff[kk] = st_s + slab + ra_swz(b_row, hc + kk * 16 + b_col, rows);
-    voff[kk] = st_s + 2 * slab + ra_swz(a_row, hc + kk * 16 + a_col, rows);
+    koff[kk] = st_s + slab + ra_swz(b_row, col(kk, b_col), rows);
+    voff[kk] = st_s + 2 * slab + ra_swz(a_row, col(kk, a_col), rows);
   }
   float o[DH / 8][4];
 #pragma unroll
@@ -279,23 +302,24 @@ __device__ __forceinline__ void ra_task(unsigned char* st, uint32_t st_s, uint32
     const float inv_l = 1.0f / l;
     const int row = q0 + g + 8 * r;
 #pragma unroll
-    for (int i = 0; i < DH / 8; ++i)
+    for (int i = 0; i < W / 8; ++i)  // the columns past W are another head's q
       *reinterpret_cast<uint32_t*>(st + ra_swz(row, hc + i * 8, rows) + 4 * t) =
           pack_bf16x2(o[i][2 * r] * inv_l, o[i][2 * r + 1] * inv_l);
   }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(RaCfg<DH>::THREADS, 1)
+template <int W>
+__global__ void __launch_bounds__(RaCfg<(W + 15) / 16 * 16>::THREADS, 1)
 rope_attn_kernel(const __grid_constant__ CUtensorMap tin, const __grid_constant__ CUtensorMap tout,
                  const bf16* cos_t, const bf16* sin_t, int n,
                  int heads, int group, int rot_w, int nbox, int box_rows, int stages, int table,
                  int items, float scale_log2) {
-  constexpr int ROPE = RaCfg<DH>::ROPE, ATTN = RaCfg<DH>::ATTN;
+  using Cfg = RaCfg<(W + 15) / 16 * 16>;
+  constexpr int ROPE = Cfg::ROPE, ATTN = Cfg::ATTN;
   extern __shared__ unsigned char ra_raw[];
   unsigned char* smem = ra_raw + ((1024 - (smem_u32(ra_raw) & 1023)) & 1023);
-  const int rows = nbox * box_rows, boxes = group * DH / RA_BOX_COLS, width = group * DH;
-  const int hd = heads * DH, groups = (heads + group - 1) / group;
+  const int rows = nbox * box_rows, boxes = group * W / RA_BOX_COLS, width = group * W;
+  const int hd = heads * W, groups = (heads + group - 1) / group;
   const uint32_t slab = (uint32_t)boxes * rows * 128, stage_bytes = 3 * slab;
   unsigned char* tab = smem + (size_t)stages * stage_bytes;
   uint64_t* full = reinterpret_cast<uint64_t*>(tab + table);
@@ -381,9 +405,9 @@ rope_attn_kernel(const __grid_constant__ CUtensorMap tin, const __grid_constant_
     for (int item = blockIdx.x; item < items; item += gridDim.x) {
       mbar_wait(full + s, phase);
       if (rot_w > 0)
-        ra_rope_item<DH>(smem + (size_t)s * stage_bytes, slab, rows, n,
-                         min(group, heads - item % groups * group), cos_t, sin_t, pitch, rot_w,
-                         warp - 1, ROPE, lane);
+        ra_rope_item<W>(smem + (size_t)s * stage_bytes, slab, rows, n,
+                        min(group, heads - item % groups * group), cos_t, sin_t, pitch, rot_w,
+                        warp - 1, ROPE, lane);
       mbar_arrive(roped + s);
       if (++s == stages) {
         s = 0;
@@ -401,8 +425,8 @@ rope_attn_kernel(const __grid_constant__ CUtensorMap tin, const __grid_constant_
     const int tasks = min(group, heads - item % groups * group) * qtiles;
     mbar_wait(roped + s, phase);
     for (int task = (aw - rot + ATTN) % ATTN; task < tasks; task += ATTN)
-      ra_task<DH>(smem + (size_t)s * stage_bytes, smem_s + s * stage_bytes, slab, rows, n,
-                  task / qtiles * DH, task % qtiles * 16, scale_log2, lane);
+      ra_task<W>(smem + (size_t)s * stage_bytes, smem_s + s * stage_bytes, slab, rows, n,
+                 task / qtiles * W, task % qtiles * 16, scale_log2, lane);
     rot = (rot + tasks) % ATTN;
     fence_proxy_async();  // the output rows, to the producer's TMA store
     mbar_arrive(done + s);
@@ -417,20 +441,20 @@ rope_attn_kernel(const __grid_constant__ CUtensorMap tin, const __grid_constant_
 
 using namespace sesa;
 
-template <int DH>
+template <int W>
 static int launch_rope_attn(const void* qkv, const void* cos_t, const void* sin_t, void* out,
                             int batch, int n, int heads, int group, int rot_w, int nbox,
                             int box_rows, int stages, int table, int grid, int smem,
                             float scale_log2, cudaStream_t s) {
   const int n16 = (n + 15) & ~15, rows = nbox * box_rows;
   const long long items = (long long)batch * ((heads + group - 1) / group);
-  if (group < 1 || group * DH % RA_BOX_COLS || nbox < 1 || box_rows < 8 || box_rows > 256 ||
+  if (group < 1 || group * W % RA_BOX_COLS || nbox < 1 || box_rows < 8 || box_rows > 256 ||
       box_rows % 8 || rows < n16 || (nbox - 1) * box_rows >= n16 || stages < 1 ||
       (table != 0 && table != ra_table_bytes(n, rot_w)) ||
-      smem != ra_smem_bytes(group * DH / RA_BOX_COLS, rows, stages, table) || smem > RA_SMEM_MAX ||
+      smem != ra_smem_bytes(group * W / RA_BOX_COLS, rows, stages, table) || smem > RA_SMEM_MAX ||
       items > INT_MAX || grid < 1 || grid > items)
     return (int)cudaErrorInvalidValue;
-  const uint64_t hd = (uint64_t)heads * DH;
+  const uint64_t hd = (uint64_t)heads * W;
   // (3 h dh, n, b) in and (h dh, n, b) out: rows past n are outside the map
   const uint64_t din[3] = {3 * hd, (uint64_t)n, (uint64_t)batch};
   const uint64_t sin_b[2] = {3 * hd * 2, 3 * hd * 2 * n};
@@ -443,9 +467,9 @@ static int launch_rope_attn(const void* qkv, const void* cos_t, const void* sin_
   rc = make_tmap_bf16(&tout, out, 3, dout, sout_b, box, 128);
   if (rc != 0) return rc;
   const cudaError_t e =
-      cudaFuncSetAttribute(rope_attn_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(rope_attn_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  rope_attn_kernel<DH><<<grid, RaCfg<DH>::THREADS, smem, s>>>(
+  rope_attn_kernel<W><<<grid, RaCfg<(W + 15) / 16 * 16>::THREADS, smem, s>>>(
       tin, tout, (const bf16*)cos_t, (const bf16*)sin_t, n, heads, group, rot_w, nbox, box_rows,
       stages, table, (int)items, scale_log2);
   return (int)cudaGetLastError();
@@ -455,9 +479,10 @@ extern "C" {
 
 // out (batch, n, heads * dim_head) = softmax(rope(q) . rope(k)^T * scale) . v
 // per (sequence, head) of the packed, component-major qkv (batch, n,
-// 3 * heads * dim_head), dim_head a multiple of 16 up to 128; cos_t/sin_t
-// (n, rot_width) or null (rot_width 0). group, nbox, box_rows, stages, table,
-// grid, smem: the plan of ops/attention.py k7_plan
+// 3 * heads * dim_head), dim_head a multiple of 8 up to 128 (its products
+// at the next multiple of 16); cos_t/sin_t (n, rot_width) or null
+// (rot_width 0). group, nbox, box_rows, stages, table, grid, smem: the plan
+// of ops/attention.py k7_plan
 int sesa_rope_attn(const void* qkv, const void* cos_t, const void* sin_t, void* out, int batch,
                    int n, int heads, int dim_head, int group, int rot_width, int nbox,
                    int box_rows, int stages, int table, int grid, int smem, float scale,
@@ -470,13 +495,21 @@ int sesa_rope_attn(const void* qkv, const void* cos_t, const void* sin_t, void* 
   int (*launch)(const void*, const void*, const void*, void*, int, int, int, int, int, int, int,
                 int, int, int, int, float, cudaStream_t) = nullptr;
   switch (dim_head) {
+    case 8: launch = &launch_rope_attn<8>; break;
     case 16: launch = &launch_rope_attn<16>; break;
+    case 24: launch = &launch_rope_attn<24>; break;
     case 32: launch = &launch_rope_attn<32>; break;
+    case 40: launch = &launch_rope_attn<40>; break;
     case 48: launch = &launch_rope_attn<48>; break;
+    case 56: launch = &launch_rope_attn<56>; break;
     case 64: launch = &launch_rope_attn<64>; break;
+    case 72: launch = &launch_rope_attn<72>; break;
     case 80: launch = &launch_rope_attn<80>; break;
+    case 88: launch = &launch_rope_attn<88>; break;
     case 96: launch = &launch_rope_attn<96>; break;
+    case 104: launch = &launch_rope_attn<104>; break;
     case 112: launch = &launch_rope_attn<112>; break;
+    case 120: launch = &launch_rope_attn<120>; break;
     case 128: launch = &launch_rope_attn<128>; break;
     default: return (int)cudaErrorInvalidValue;
   }

@@ -29,6 +29,22 @@
 // product) the bytes bound it: 1.37 GB in bf16 (0.41 ms), 2.73 GB in f32
 // (0.82 ms). chip_smoke.py k8_bound counts the same.
 //
+// Shapes. The kernels are built for (P, N, Q) = (64, 128, 64), Mamba-2's
+// sizes in TS-BS-Mamba2; the wrapper (ops/ssd.py ssd_fused, k8_plan) takes
+// every (P, N, chunk) the Pallas kernel's gate fuses (P % 8, N % 128,
+// chunk % 8) exactly around them, since every column p of x has its own
+// state rows and the scan's result does not depend on the chunk:
+// * P: x zero-padded per head to whole 64-column pseudo-heads, each with
+//   its head's decays, and y sliced back;
+// * chunk: L zero-padded (x = a = b = c = 0, an exact no-op for the steps
+//   before it) to a multiple of 64 and scanned in chunks of 64;
+// * N: one launch per 128-column slice of B and C (both products over N,
+//   C . B^T and C . state^T, split into their slices' sums, each slice with
+//   its own state); each launch adds its slice's f32 y to an f32 sum
+//   (`part`: first, middle, last), and the last rounds it to the output
+//   dtype once. The 64 x 128 f32 state a block keeps in registers stays as
+//   it is: the f32 carried kernel already takes 236 of its 255 registers.
+//
 // Design. Two kernels behind one entry point; the wrapper's plan
 // (ops/ssd.py k8_plan) picks one from L and passes its grid and shared
 // memory, which the kernel checks.
@@ -124,6 +140,27 @@ __device__ __forceinline__ void st2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void st2(bf16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(a, b);
+}
+// y's element pair at offset o. Without SUM the launch is the only slice
+// (y = v); with SUM, by its part of the sum over N slices: 1 the first
+// (ysum = v), 2 a middle one (ysum += v), 3 the last (y = ysum + v, rounded
+// once); ysum is an f32 buffer of y's shape
+template <bool SUM, typename T>
+__device__ __forceinline__ void put_y(T* y, float* ysum, long long o, int part, float v0,
+                                      float v1) {
+  if (SUM) {
+    float2* q = reinterpret_cast<float2*>(ysum + o);
+    if (part >= 2) {
+      const float2 prev = *q;
+      v0 += prev.x;
+      v1 += prev.y;
+    }
+    if (part != 3) {
+      *q = make_float2(v0, v1);
+      return;
+    }
+  }
+  st2(y + o, v0, v1);
 }
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -380,11 +417,11 @@ __device__ __forceinline__ float decay(const float* acum, float acum_l, int l, i
 
 // one block per (batch, head); b_sb, b_sl, c_sb, c_sl: batch and row strides
 // of b and c in elements; 8 warps as 4 row tiles (wm) x 2 halves (wn)
-template <typename T>
+template <typename T, bool SUM>
 __global__ void __launch_bounds__(SS_THREADS, 3 - SsType<T>::STAGES)
 ssd_carried(const T* __restrict__ x, const T* __restrict__ a, const T* __restrict__ bm,
-            const T* __restrict__ cm, T* __restrict__ y, long long b_sb, long long b_sl,
-            long long c_sb, long long c_sl, int L, int H) {
+            const T* __restrict__ cm, T* __restrict__ y, float* __restrict__ ysum, int part,
+            long long b_sb, long long b_sl, long long c_sb, long long c_sl, int L, int H) {
   using S = SsType<T>;
   constexpr bool EX = S::EXACT;
   constexpr int LDX = S::LDX, LDN = S::LDN, TILE = ss_tile_elems<T>(), ST = S::STAGES;
@@ -593,7 +630,7 @@ ssd_carried(const T* __restrict__ x, const T* __restrict__ a, const T* __restric
             v0 += ex[l] * (y0[0] + y1[0]);
             v1 += ex[l] * (y0[SS_LDY] + y1[SS_LDY]);
           }
-          st2(y + yoff * SS_P + ((long long)c * SS_Q + l) * row + p, v0, v1);
+          put_y<SUM>(y, ysum, yoff * SS_P + ((long long)c * SS_Q + l) * row + p, part, v0, v1);
         }
     };
     if (wn == 0) store(IntTag<0>{}); else store(IntTag<4>{});
@@ -601,11 +638,11 @@ ssd_carried(const T* __restrict__ x, const T* __restrict__ a, const T* __restric
 }
 
 // L = 64: one block per batch row, looping over the heads
-template <typename T>
+template <typename T, bool SUM>
 __global__ void __launch_bounds__(SS_THREADS, 2)
 ssd_rows(const T* __restrict__ x, const T* __restrict__ a, const T* __restrict__ bm,
-         const T* __restrict__ cm, T* __restrict__ y, long long b_sb, long long b_sl,
-         long long c_sb, long long c_sl, int H) {
+         const T* __restrict__ cm, T* __restrict__ y, float* __restrict__ ysum, int part,
+         long long b_sb, long long b_sl, long long c_sb, long long c_sl, int H) {
   using S = SsType<T>;
   constexpr int LDX = S::LDX, LDN = S::LDN;
   extern __shared__ __align__(16) unsigned char ss_raw[];
@@ -619,7 +656,6 @@ ssd_rows(const T* __restrict__ x, const T* __restrict__ a, const T* __restrict__
   const int wm = warp >> 1, wn = warp & 1, m0 = 16 * wm;
   const long long row = (long long)H * SS_P;
   const T* xg = x + bi * SS_Q * row;
-  T* yg = y + bi * SS_Q * row;
   const T* ag = a + bi * SS_Q * H;
 
   stage_tile64<SS_N>(sb, LDN, bm + bi * b_sb, b_sl);
@@ -668,7 +704,8 @@ ssd_rows(const T* __restrict__ x, const T* __restrict__ a, const T* __restrict__
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const int l = m0 + g + 8 * hf;
-        st2(yg + l * row + h * SS_P + 32 * wn + 8 * i + 2 * t, ya[i][2 * hf], ya[i][2 * hf + 1]);
+        put_y<SUM>(y, ysum, bi * SS_Q * row + l * row + h * SS_P + 32 * wn + 8 * i + 2 * t,
+                   part, ya[i][2 * hf], ya[i][2 * hf + 1]);
       }
     __syncthreads();  // every warp is done with head h's x and decays
   }
@@ -680,10 +717,11 @@ using namespace sesa;
 
 template <typename T>
 static int launch_ssd(const void* x, const void* a, const void* b, const void* c, void* y,
-                      long long b_sb, long long b_sl, long long c_sb, long long c_sl,
-                      int batch, int L, int H, int rows, int smem, long long grid,
-                      cudaStream_t s) {
-  if (batch < 1 || H < 1 || L < SS_Q || L % SS_Q || (rows && L != SS_Q))
+                      void* ysum, int part, long long b_sb, long long b_sl, long long c_sb,
+                      long long c_sl, int batch, int L, int H, int rows, int smem,
+                      long long grid, cudaStream_t s) {
+  if (batch < 1 || H < 1 || L < SS_Q || L % SS_Q || (rows && L != SS_Q) || part < 0 ||
+      part > 3 || (part != 0 && (ysum == nullptr || ysum == y)))
     return (int)cudaErrorInvalidValue;
   const long long want_grid = rows ? (long long)batch : (long long)batch * H;
   const int want_smem = rows ? ss_rows_smem<T>() : ss_carried_smem<T>();
@@ -691,13 +729,15 @@ static int launch_ssd(const void* x, const void* a, const void* b, const void* c
     return (int)cudaErrorInvalidValue;
   const T *xt = (const T*)x, *at = (const T*)a, *bt = (const T*)b, *ct = (const T*)c;
   if (rows) {
-    cudaFuncSetAttribute(ssd_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    ssd_rows<T><<<(unsigned)grid, SS_THREADS, smem, s>>>(xt, at, bt, ct, (T*)y, b_sb, b_sl,
-                                                          c_sb, c_sl, H);
+    auto kernel = part ? ssd_rows<T, true> : ssd_rows<T, false>;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    kernel<<<(unsigned)grid, SS_THREADS, smem, s>>>(xt, at, bt, ct, (T*)y, (float*)ysum, part,
+                                                     b_sb, b_sl, c_sb, c_sl, H);
   } else {
-    cudaFuncSetAttribute(ssd_carried<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    ssd_carried<T><<<(unsigned)grid, SS_THREADS, smem, s>>>(xt, at, bt, ct, (T*)y, b_sb, b_sl,
-                                                             c_sb, c_sl, L, H);
+    auto kernel = part ? ssd_carried<T, true> : ssd_carried<T, false>;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    kernel<<<(unsigned)grid, SS_THREADS, smem, s>>>(xt, at, bt, ct, (T*)y, (float*)ysum, part,
+                                                     b_sb, b_sl, c_sb, c_sl, L, H);
   }
   return (int)cudaGetLastError();
 }
@@ -705,20 +745,24 @@ static int launch_ssd(const void* x, const void* a, const void* b, const void* c
 extern "C" {
 
 // y (B, L, H, 64) from x (B, L, H, 64), a (B, L, H), both contiguous, and
-// b, c (B, L, 128) with the given batch and row strides in elements; all
-// f32, or all bf16 when is_bf16; L a multiple of 64. rows, smem and grid
-// are the wrapper's plan (ops/ssd.py k8_plan): the one-chunk kernel (rows =
-// 1, L = 64, a block per batch row) or the carried one (a block per batch
-// row and head); a plan that does not match the kernel's is refused
-int sesa_ssd(const void* x, const void* a, const void* b, const void* c, void* y,
-             long long b_sb, long long b_sl, long long c_sb, long long c_sl, int batch, int L,
-             int H, int is_bf16, int rows, int smem, long long grid, void* stream) {
+// b, c (B, L, 128), a 128-column slice of the state's columns, with the
+// given batch and row strides in elements; all f32, or all bf16 when
+// is_bf16; L a multiple of 64. part: this slice's place in the f32 sum
+// ysum (B, L, H, 64) over the slices (put_y; 0: one slice, ysum unused).
+// rows, smem and grid are the wrapper's plan (ops/ssd.py k8_plan): the
+// one-chunk kernel (rows = 1, L = 64, a block per batch row) or the carried
+// one (a block per batch row and head); a plan that does not match the
+// kernel's is refused
+int sesa_ssd(const void* x, const void* a, const void* b, const void* c, void* y, void* ysum,
+             int part, long long b_sb, long long b_sl, long long c_sb, long long c_sl,
+             int batch, int L, int H, int is_bf16, int rows, int smem, long long grid,
+             void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return launch_ssd<bf16>(x, a, b, c, y, b_sb, b_sl, c_sb, c_sl, batch, L, H, rows, smem,
-                            grid, s);
-  return launch_ssd<float>(x, a, b, c, y, b_sb, b_sl, c_sb, c_sl, batch, L, H, rows, smem,
-                           grid, s);
+    return launch_ssd<bf16>(x, a, b, c, y, ysum, part, b_sb, b_sl, c_sb, c_sl, batch, L, H,
+                            rows, smem, grid, s);
+  return launch_ssd<float>(x, a, b, c, y, ysum, part, b_sb, b_sl, c_sb, c_sl, batch, L, H,
+                           rows, smem, grid, s);
 }
 
 }  // extern "C"

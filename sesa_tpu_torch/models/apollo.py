@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from sesa_tpu_torch.models.layers import kaiming_uniform
-from sesa_tpu_torch.ops.attention import fused_rope_attention, k7_plan, sdpa
+from sesa_tpu_torch.ops.attention import fused_rope_attention, k7_plan, padded_block_weights, sdpa
 from sesa_tpu_torch.ops.convblock import apollo_conv_shape_ok, fused_apollo_conv
 from sesa_tpu_torch.ops.stft import hann_window, istft_ri, stft_ri
 from sesa_tpu_torch.tree import tree_map
@@ -173,19 +173,32 @@ def _roformer_apply_folded(p, feat, num_head=NUM_HEAD):
     residual add after the out projection.
 
     ``p["qkv_w_cm"]`` is the component-major qkv weight of :func:`prepare`;
-    without it the rows are permuted here."""
+    without it the rows are permuted here. Where K7's plan runs the heads at
+    a width above dh (:func:`k7_plan` ``repack``: dh not a multiple of 8, or
+    8 heads too wide for whole boxes), W_qkv's rows and W_o's columns are
+    zero-padded per head to that width (``padded_block_weights``, kept while
+    the weights live), so the projection writes the padded heads and the
+    kernel takes them as they lie; the zero columns add nothing to q·kᵀ and
+    give zero output columns, which meet W_o's zero columns. The rope is
+    ``_apollo_rope``'s, 2·(dh // 2) wide (an odd dh leaves its last column
+    unrotated), and the scale the real dh's."""
     b, s, t, n = feat.shape
     dh = n // num_head
     wq = p.get("qkv_w_cm")
     if wq is None:
         wq = p["qkv_w"][_qkv_head_block_perm(n, num_head).to(feat.device)]
+    wo = p["out_w"]
+    plan = k7_plan(b * t, s, num_head, dh, 2 * (dh // 2))
+    width = dh if plan is None else plan["width"]
+    if width != dh:
+        wq, wo, _ = padded_block_weights(wq, wo, dh, width)
     xn = _rms_norm_last(feat, p["input_norm"]).transpose(1, 2).contiguous()  # (B', T, S, N)
-    qkv = (xn @ wq.T).reshape(b * t, s, 3 * n)
+    qkv = (xn @ wq.T).reshape(b * t, s, 3 * num_head * width)
     del xn
     cos, sin = _rope_tables(dh, s, feat)
     out = fused_rope_attention(qkv, num_head, dh ** -0.5, rope=(cos, sin))
     del qkv
-    out = (out @ p["out_w"].T).reshape(b, t, s, n)
+    out = (out @ wo.T).reshape(b, t, s, n)
     out = torch.add(feat, out.transpose(1, 2), out=torch.empty_like(feat))
     return _roformer_mlp(p, out)
 
@@ -199,7 +212,9 @@ def apollo_kernels(device_type: str, dtype, rows: int, frames: int, bands: int,
 
     Only bf16 takes kernels. On CUDA, K7 takes the band layers where
     :func:`k7_plan` plans (rows · frames) sequences of ``bands`` at 8 heads
-    × N / 8 with full rope, else the band layer runs :func:`_roformer_apply`;
+    × N / 8 with the model's rope, 2·(N / 8 // 2) wide (every N that is a
+    multiple of 8 at Apollo's 80 bands), else the band layer runs
+    :func:`_roformer_apply`;
     K6 takes the ICBs where :func:`apollo_conv_shape_ok` accepts (rows ·
     bands · frames) tokens of N with hidden 4N, else they run
     :func:`_conv_act_norm_apply` (sesa_tpu/models/apollo.py:222-230). On the
@@ -210,7 +225,7 @@ def apollo_kernels(device_type: str, dtype, rows: int, frames: int, bands: int,
         return frozenset({"K6", "K7"})
     dh = feature_dim // NUM_HEAD
     take = {"K7": feature_dim % NUM_HEAD == 0
-            and k7_plan(rows * frames, bands, NUM_HEAD, dh, dh) is not None,
+            and k7_plan(rows * frames, bands, NUM_HEAD, dh, 2 * (dh // 2)) is not None,
             "K6": apollo_conv_shape_ok(rows * bands * frames, feature_dim, 4 * feature_dim,
                                        kernel)}
     return frozenset(name for name, ok in take.items() if ok)

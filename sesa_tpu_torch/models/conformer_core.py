@@ -168,7 +168,7 @@ def conformer_kernels(device_type: str, dtype, batch: int, n: int, dim: int, hea
         return frozenset()
     take = {"K2": ff_shape_ok(batch * n, dim, hidden),
             "K4": conformer_attention_shape_ok(batch, n, dim, heads, dim_head),
-            "K5": conformer_conv_shape_ok(batch, dim, e, k)}
+            "K5": conformer_conv_shape_ok(batch, n, dim, e, k)}
     return frozenset(name for name, ok in take.items() if ok)
 
 

@@ -69,7 +69,7 @@ SIGNATURES = {
         "sesa_vmem_attn": [_P] * 4 + [_I] + [_L] * 16 + [_I] * 4 + [_F, _P],
     },
     "ssd": {
-        "sesa_ssd": [_P] * 5 + [_L] * 4 + [_I] * 6 + [_L, _P],
+        "sesa_ssd": [_P] * 6 + [_I] + [_L] * 4 + [_I] * 6 + [_L, _P],
     },
 }
 

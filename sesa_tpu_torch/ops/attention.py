@@ -742,11 +742,70 @@ def _k7_warps(dh: int):
     return (4 if dh <= 32 else 3 if dh <= 64 else 2), (11 if dh <= 32 else 8 if dh <= 64 else 5)
 
 
+def k7_widths(dh: int):
+    """The packed head widths K7 may run a head of ``dh`` (1 to 128) at, in
+    the order :func:`k7_plan` tries them: dh itself where it is a multiple
+    of 8 (rows of 16-byte chunks, read as they lie), else dh rounded up to
+    one; then the next multiple of 16, whose heads fill whole boxes in
+    fewer heads (8 heads of 120 need 15 boxes a stage, 1 head of 128 two)."""
+    w8, w16 = -(-dh // 8) * 8, -(-dh // 16) * 16
+    return (w8,) if w8 == w16 else (w8, w16)
+
+
+def _k7_plan_at(b: int, n: int, heads: int, width: int, rot: int, sms: int):
+    """:func:`k7_plan` at a packed head width that is a multiple of 8."""
+    n16 = -(-n // 16) * 16
+    nbox = -(-n16 // _K7_BOX_ROWS)
+    box_rows = -(-(-(-n16 // nbox)) // 8) * 8  # ⌈⌈n16 / nbox⌉ / 8⌉ · 8
+    rows = nbox * box_rows
+    g0 = _K7_BOX_COLS // math.gcd(width, _K7_BOX_COLS)  # fewest heads of whole boxes
+    widest = max(1, 2 * _K7_BOX_COLS // (g0 * width)) if heads > g0 else 1
+
+    # the cos and sin tables staged in rows of an odd number of 16-byte
+    # chunks, so that 8 consecutive rows of a chunk lie in 8 bank groups
+    staged = 2 * n * (-(-rot * 2 // 32) * 32 + 16) if rot else 0
+
+    def stages_of(group, table):  # ring stages that fit: q, k, v slabs and 3 mbarriers each
+        stage_bytes = 3 * (group * width // _K7_BOX_COLS) * rows * 128
+        return min(_K7_MAX_STAGES, (_SMEM_LIMIT - 1024 - table) // (stage_bytes + 24))
+
+    # the tables in shared memory where they fit, then the widest group with
+    # two stages, else the widest with one
+    fits = [(stages_of(g, table), g, table) for table in ((staged, 0) if staged else (0,))
+            for least in (2, 1) for g in range(widest * g0, 0, -g0)
+            if stages_of(g, table) >= least]
+    if not fits:
+        return None
+    stages, group, table = fits[0]
+    boxes = group * width // _K7_BOX_COLS
+    stage_bytes = 3 * boxes * rows * 128
+    groups = -(-heads // group)
+    items = b * groups
+    if items > 2 ** 31 - 1:
+        return None
+    slab = stages * boxes * rows * 128
+    buffers = dict(q=slab, k=slab, v=slab, barriers=24 * stages, table=table, slack=1024)
+    inst = -(-width // 16) * 16
+    rope_warps, attn_warps = _k7_warps(inst)
+    return dict(width=width, inst=inst, group=group, groups=groups, boxes=boxes, nbox=nbox,
+                box_rows=box_rows, rows=rows, stages=stages, stage_bytes=stage_bytes,
+                table=table, items=items, grid=min(items, sms), rope_warps=rope_warps,
+                attn_warps=attn_warps, threads=32 * (1 + rope_warps + attn_warps),
+                buffers=buffers, smem=sum(buffers.values()))
+
+
 def k7_plan(b: int, n: int, heads: int, dh: int, rot: int, sms: int = 132):
     """The host side of kernel K7 for ``b`` sequences of ``n`` tokens, ``heads``
     × ``dh``, a rotary width ``rot`` (0: no rope), on a card of ``sms`` SMs;
     None for a shape the kernel cannot take.
 
+    - ``width``, the packed head width the kernel runs (:func:`k7_widths`:
+      the first that fits), ``repack`` = width ≠ dh (the wrapper then copies
+      q, k and v to heads of ``width`` columns, zeros past dh, and the
+      output back), and ``inst`` = width rounded up to 16, the width of the
+      kernel's products (``rope_attn_kernel<width>`` runs its heads in
+      16-column mma steps, the half of the last past width zeroed in q, and
+      takes its warps by ``inst``);
     - ``group`` heads per item: their q, k and v columns are ``boxes`` whole
       64-column TMA boxes (the fewest heads that fill whole boxes, widened to
       128 columns where that takes several heads; the widest such group
@@ -766,51 +825,18 @@ def k7_plan(b: int, n: int, heads: int, dh: int, rot: int, sms: int = 132):
     - ``buffers``, the dynamic shared memory by buffer, and their sum
       ``smem`` (``csrc/rope_attention.cu`` ``ra_smem_bytes``).
 
-    None where dim_head is not a multiple of 16 in [16, 128], the rotary
-    width is odd or wider than dim_head, or one stage does not fit in a
-    block's shared memory (n beyond about 600 at 64 columns a group).
-    ``csrc/rope_attention.cu`` refuses a plan that does not match its
-    layout."""
-    if b < 1 or n < 1 or heads < 1 or dh % 16 or not 16 <= dh <= 128 or rot < 0 or rot % 2 \
-            or rot > dh:
+    Every dim_head from 1 to 128 (the JAX gate ``_use_fused_band_attn`` fuses
+    any). None where the rotary width is odd or wider than dim_head, or one
+    stage does not fit in a block's shared memory at any of the widths (n
+    beyond about 600 at 64 columns a group). ``csrc/rope_attention.cu``
+    refuses a plan that does not match its layout."""
+    if b < 1 or n < 1 or heads < 1 or not 1 <= dh <= 128 or rot < 0 or rot % 2 or rot > dh:
         return None
-    n16 = -(-n // 16) * 16
-    nbox = -(-n16 // _K7_BOX_ROWS)
-    box_rows = -(-(-(-n16 // nbox)) // 8) * 8  # ⌈⌈n16 / nbox⌉ / 8⌉ · 8
-    rows = nbox * box_rows
-    g0 = _K7_BOX_COLS // math.gcd(dh, _K7_BOX_COLS)  # fewest heads of whole boxes
-    widest = max(1, 2 * _K7_BOX_COLS // (g0 * dh)) if heads > g0 else 1
-
-    # the cos and sin tables staged in rows of an odd number of 16-byte
-    # chunks, so that 8 consecutive rows of a chunk lie in 8 bank groups
-    staged = 2 * n * (-(-rot * 2 // 32) * 32 + 16) if rot else 0
-
-    def stages_of(group, table):  # ring stages that fit: q, k, v slabs and 3 mbarriers each
-        stage_bytes = 3 * (group * dh // _K7_BOX_COLS) * rows * 128
-        return min(_K7_MAX_STAGES, (_SMEM_LIMIT - 1024 - table) // (stage_bytes + 24))
-
-    # the tables in shared memory where they fit, then the widest group with
-    # two stages, else the widest with one
-    fits = [(stages_of(g, table), g, table) for table in ((staged, 0) if staged else (0,))
-            for least in (2, 1) for g in range(widest * g0, 0, -g0)
-            if stages_of(g, table) >= least]
-    if not fits:
-        return None
-    stages, group, table = fits[0]
-    boxes = group * dh // _K7_BOX_COLS
-    stage_bytes = 3 * boxes * rows * 128
-    groups = -(-heads // group)
-    items = b * groups
-    if items > 2 ** 31 - 1:
-        return None
-    slab = stages * boxes * rows * 128
-    buffers = dict(q=slab, k=slab, v=slab, barriers=24 * stages, table=table, slack=1024)
-    rope_warps, attn_warps = _k7_warps(dh)
-    return dict(group=group, groups=groups, boxes=boxes, nbox=nbox, box_rows=box_rows, rows=rows,
-                stages=stages, stage_bytes=stage_bytes, table=table, items=items,
-                grid=min(items, sms), rope_warps=rope_warps, attn_warps=attn_warps,
-                threads=32 * (1 + rope_warps + attn_warps), buffers=buffers,
-                smem=sum(buffers.values()))
+    for width in k7_widths(dh):
+        plan = _k7_plan_at(b, n, heads, width, rot, sms)
+        if plan is not None:
+            return dict(plan, repack=width != dh)
+    return None
 
 
 def fused_rope_attention(qkv, heads, scale, rope=None):
@@ -818,10 +844,16 @@ def fused_rope_attention(qkv, heads, scale, rope=None):
 
     ``rope`` is the interleaved-convention (cos, sin) table pair of shape
     (n, w) with w ≤ dh (partial rotary rotates only the leading w dims);
-    ``None`` skips it. CPU tensors run :func:`fused_rope_attention_plain`.
+    ``None`` skips it. ``scale`` multiplies q·kᵀ (the caller's, e.g. the
+    real dh ** -0.5). CPU tensors run :func:`fused_rope_attention_plain`.
     CUDA tensors must be bf16 and contiguous, of a shape :func:`k7_plan`
-    takes (dim_head a multiple of 16 up to 128, an even w); anything else
-    raises. Each call adds one to ``fused_rope_attention.launches``.
+    takes (any dim_head up to 128, an even w); anything else raises. A plan
+    that runs the heads wider than dh (``repack``: dh not a multiple of 8,
+    or 8 heads of 72, 88, 104 or 120 at Apollo's 80 bands) copies q, k and v
+    to heads of the plan's width, zero-padded, and the output back: two
+    more passes over the qkv bytes, which a caller avoids by padding its
+    projection per head (Apollo's band layer). Each call adds one to
+    ``fused_rope_attention.launches``.
     """
     if qkv.device.type == "cpu":
         return fused_rope_attention_plain(qkv, heads, scale, rope)
@@ -832,8 +864,8 @@ def fused_rope_attention(qkv, heads, scale, rope=None):
     if packed != 3 * heads * dh or k7_plan(b, n, heads, dh, w) is None:
         raise ValueError(f"fused_rope_attention: unsupported {b} sequences of {n}, packed width "
                          f"{packed} for {heads} heads, rotary width {w} (the kernel takes "
-                         "dim_head a multiple of 16 up to 128, an even rotary width up to "
-                         "dim_head, and sequences whose q, k and v fit in shared memory)")
+                         "dim_head up to 128, an even rotary width up to dim_head, and "
+                         "sequences whose q, k and v fit in shared memory)")
     _build.check_tensor("fused_rope_attention", "qkv", qkv, (b, n, packed), torch.bfloat16)
     cos_p = sin_p = None
     if rope is not None:
@@ -842,17 +874,20 @@ def fused_rope_attention(qkv, heads, scale, rope=None):
         cos_p, sin_p = rope[0].data_ptr(), rope[1].data_ptr()
     plan = k7_plan(b, n, heads, dh, w,
                    torch.cuda.get_device_properties(qkv.device).multi_processor_count)
+    width = plan["width"]
+    if plan["repack"]:
+        qkv = pad_heads(qkv, dh, width)
 
     lib = _build.load("rope_attention")
-    out = torch.empty((b, n, heads * dh), dtype=qkv.dtype, device=qkv.device)
+    out = torch.empty((b, n, heads * width), dtype=qkv.dtype, device=qkv.device)
     _build.check(lib.sesa_rope_attn(qkv.data_ptr(), cos_p, sin_p, out.data_ptr(), b, n, heads,
-                                    dh, plan["group"], w, plan["nbox"], plan["box_rows"],
+                                    width, plan["group"], w, plan["nbox"], plan["box_rows"],
                                     plan["stages"], plan["table"], plan["grid"], plan["smem"],
                                     float(scale),
                                     torch.cuda.current_stream(qkv.device).cuda_stream),
                  "sesa_rope_attn")
     fused_rope_attention.launches += 1
-    return out
+    return unpad_heads(out, dh, width) if plan["repack"] else out
 
 
 fused_rope_attention.launches = 0

@@ -69,28 +69,34 @@ def fused_conformer_conv_plain(x, p):
 
 
 # K5's depthwise stencil (csrc/convblock.cu): 16 rows a warp, at most 8 warps
-# a block, 64 channels a block, taps in registers up to 32, a persistent grid
-# of 16 warps an SM; two TMA staging buffers of (tile + 31 rows of halo) x 64
-# channels in bf16, static shared memory
-_DW_ROWS_PER_WARP, _DW_MAX_WARPS, _DW_CH, _DW_KMAX = 16, 8, 64, 32
+# a block, 64 channels a block, the taps in registers in blocks of 32 (an
+# item takes one step a block), a persistent grid of 16 warps an SM; two TMA
+# staging buffers of (tile + 31 rows of halo) x 64 channels in bf16, static
+# shared memory
+_DW_ROWS_PER_WARP, _DW_MAX_WARPS, _DW_CH, _DW_KB = 16, 8, 64, 32
 _DW_WARPS_PER_SM = 16
-_DW_SMEM = 2 * (_DW_ROWS_PER_WARP * _DW_MAX_WARPS + _DW_KMAX - 1) * _DW_CH * 2
+_DW_SMEM = 2 * (_DW_ROWS_PER_WARP * _DW_MAX_WARPS + _DW_KB - 1) * _DW_CH * 2
+# the int counts of the chain: the GEMMs' token count and the stencil's steps
+_INT_MAX = 2 ** 31 - 1
 
 
-def k5_plan(b: int, n: int, d: int, e: int, sms: int) -> dict:
+def k5_plan(b: int, n: int, d: int, e: int, sms: int, k: int) -> dict:
     """The host side of kernel K5: what each of its launches gets.
 
-    For ``b`` sequences of ``n`` tokens of width ``d`` and conv width ``e``
-    on a card of ``sms`` SMs: ``up`` and ``down``, the persistent GEMMs
-    (``csrc/gemm_ws.cuh``) over (b·n, 2e) at depth d (the GLU epilogue
+    For ``b`` sequences of ``n`` tokens of width ``d``, conv width ``e`` and
+    ``k`` taps on a card of ``sms`` SMs: ``up`` and ``down``, the persistent
+    GEMMs (``csrc/gemm_ws.cuh``) over (b·n, 2e) at depth d (the GLU epilogue
     stores e columns) and (b·n, d) at depth e, each with its ``tiles``,
     ``grid`` (:func:`ff_gemm_schedule`) and ``smem``; ``dw``, the depthwise
     stencil: its tile ``rows`` (16 a warp, as many warps as n needs up to 8:
     one whole sequence when n ≤ 128), ``threads``, its work ``items`` (row
-    tiles × e / 64 channel slices × b), the persistent ``grid`` (16 warps
-    an SM, never more blocks than items; block i takes the contiguous run of
-    ⌈items / grid⌉ items from i·⌈items / grid⌉) and static ``smem``.
-    ``csrc/convblock.cu`` refuses a plan that does not match its layouts."""
+    tiles × e / 64 channel slices × b), ``tap_blocks`` = ⌈k / 32⌉ and
+    ``steps`` = items × tap_blocks (an item is one step a block of 32 taps,
+    each staging ``box_rows`` = rows + 31 rows from row i0 − k // 2 + 32 j),
+    the persistent ``grid`` (16 warps an SM, never more blocks than items;
+    block i takes the contiguous run of ⌈items / grid⌉ items from
+    i·⌈items / grid⌉) and static ``smem``. ``csrc/convblock.cu`` refuses a
+    plan that does not match its layouts."""
     tokens = b * n
     plan = {}
     for name, cols, depth in (("up", 2 * e, d), ("down", d, e)):
@@ -99,16 +105,26 @@ def k5_plan(b: int, n: int, d: int, e: int, sms: int) -> dict:
     warps = min(_DW_MAX_WARPS, -(-n // _DW_ROWS_PER_WARP))
     rows = _DW_ROWS_PER_WARP * warps
     items = b * -(-n // rows) * (e // _DW_CH)
-    plan["dw"] = dict(rows=rows, threads=32 * warps, items=items,
+    tap_blocks = -(-k // _DW_KB)
+    plan["dw"] = dict(rows=rows, threads=32 * warps, items=items, tap_blocks=tap_blocks,
+                      steps=items * tap_blocks, box_rows=rows + _DW_KB - 1,
                       grid=min(items, sms * (_DW_WARPS_PER_SM // warps)), smem=_DW_SMEM)
     return plan
 
 
-def conformer_conv_shape_ok(b: int, d: int, e: int, k: int) -> bool:
-    """The shapes kernel K5 takes: d and e multiples of 64, 1 to 32 taps
-    (held in registers), at most 65535 sequences. :func:`fused_conformer_conv`
-    raises on a CUDA tensor exactly where this is false."""
-    return d % 64 == 0 and e % 64 == 0 and 1 <= k <= _DW_KMAX and 1 <= b <= 65535
+def conformer_conv_shape_ok(b: int, n: int, d: int, e: int, k: int) -> bool:
+    """The shapes kernel K5 takes: d and e multiples of 64 and any number of
+    taps k ≥ 1 (in register blocks of 32), for ``b`` sequences of ``n``
+    tokens whose counts fit the chain's int arithmetic: b·n tokens for the
+    GEMMs and the stencil's steps (:func:`k5_plan`). No launch limits b
+    itself: the stencil's grid is persistent and its tensor map's batch dim
+    is 64-bit. :func:`fused_conformer_conv` raises on a CUDA tensor exactly
+    where this is false."""
+    if not (d % 64 == 0 and e % 64 == 0 and k >= 1 and b >= 1 and n >= 1):
+        return False
+    rows = _DW_ROWS_PER_WARP * min(_DW_MAX_WARPS, -(-n // _DW_ROWS_PER_WARP))
+    steps = b * -(-n // rows) * (e // _DW_CH) * -(-k // _DW_KB)
+    return b * n <= _INT_MAX and steps <= _INT_MAX and n + k <= _INT_MAX
 
 
 def fused_conformer_conv(x, p):
@@ -116,9 +132,9 @@ def fused_conformer_conv(x, p):
     kernel K5.
 
     CPU tensors run :func:`fused_conformer_conv_plain`. CUDA tensors must be
-    bf16 and of a shape :func:`conformer_conv_shape_ok` takes; anything else
-    raises. :func:`k5_plan` plans the launches. Each call adds one to
-    ``fused_conformer_conv.launches``.
+    bf16 and of a shape :func:`conformer_conv_shape_ok` takes (any number of
+    taps); anything else raises. :func:`k5_plan` plans the launches. Each
+    call adds one to ``fused_conformer_conv.launches``.
     """
     if x.device.type == "cpu":
         return fused_conformer_conv_plain(x, p)
@@ -126,10 +142,10 @@ def fused_conformer_conv(x, p):
     b, n, d = x.shape
     w1, b1, taps, scale, shift, w2, b2 = conv_weights(p, x.dtype)
     e, k = w2.shape[1], taps.shape[0]
-    if not conformer_conv_shape_ok(b, d, e, k) or w1.shape != (2 * e, d):
-        raise ValueError(f"fused_conformer_conv: unsupported {b} sequences, d={d}, e={e}, "
-                         f"kernel={k} (the kernel takes d and e multiples of 64, at most 32 taps "
-                         "and 65535 sequences)")
+    if not conformer_conv_shape_ok(b, n, d, e, k) or w1.shape != (2 * e, d):
+        raise ValueError(f"fused_conformer_conv: unsupported {b} sequences of {n}, d={d}, e={e}, "
+                         f"kernel={k} (the kernel takes d and e multiples of 64, any number of "
+                         "taps, and token and step counts within int)")
     # interleave the a and g rows of W1 (a0, g0, a1, g1, ...): each thread of
     # the GEMM epilogue then holds one (a, g) pair
     w1i = w1.reshape(2, e, d).transpose(0, 1).reshape(2 * e, d).contiguous()
@@ -142,7 +158,8 @@ def fused_conformer_conv(x, p):
                            ("scale", scale, (e,)), ("shift", shift, (e,)),
                            ("w2", w2, (d, e)), ("b2", b2, (d,))):
         _build.check_tensor("fused_conformer_conv", name, t, shape, torch.bfloat16)
-    plan = k5_plan(b, n, d, e, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    plan = k5_plan(b, n, d, e, torch.cuda.get_device_properties(x.device).multi_processor_count,
+                   k)
 
     lib = _build.load("convblock")
     stream = torch.cuda.current_stream(x.device).cuda_stream

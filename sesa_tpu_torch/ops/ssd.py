@@ -9,18 +9,24 @@ einsums, the path of the CPU and of every shape the kernel's gate refuses,
 and ``ssd_fused`` is kernel K8
 (``csrc/ssd.cu``): one pass that keeps the (P, N) state of a (batch, head)
 pair on chip across the chunks, or, for one-chunk sequences, computes C·Bᵀ
-once for a batch row's heads; ``k8_plan`` is its launch plan. ``ssd_plain``
-repeats the kernel's arithmetic chunk by chunk in PyTorch.
+once for a batch row's heads; ``k8_plan`` is its launch plan. The kernel is
+built for (P, N, chunk) = (64, 128, 64) and the wrapper takes every (P, N,
+chunk) the JAX gate fuses around it: P zero-padded to 64-column
+pseudo-heads, L to whole chunks of 64, and N in slices of 128 summed in f32.
+``ssd_plain`` repeats the kernel's arithmetic chunk by chunk in PyTorch, and
+``ssd_fused_plain`` the whole wrapper's.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from sesa_tpu_torch.ops import _build
 
-# the one (head_dim P, state N, chunk Q) the kernel is built for: Mamba-2's
-# sizes in TS-BS-Mamba2
+# the (head_dim P, state N, chunk Q) the kernel is built for: Mamba-2's
+# sizes in TS-BS-Mamba2; other sizes are run as pseudo-heads of 64 columns,
+# slices of 128 state columns and chunks of 64
 _K8_SIZES = (64, 128, 64)
 # shared memory a block may opt into on the H100
 _SMEM_BLOCK_MAX = 232448
@@ -41,11 +47,14 @@ def segsum(x: torch.Tensor) -> torch.Tensor:
 def use_fused_ssd(x, a, b, c, chunk_size) -> bool:
     """The gate of kernel K8, on device, dtype and shape only: CUDA tensors of
     one dtype (f32 or bf16), B and C shared by the heads (G = 1), L a
-    multiple of the chunk, and (P, N, chunk) = (64, 128, 64)."""
+    multiple of the chunk, P a multiple of 8, N of 128 and the chunk of 8:
+    every shape the JAX gate ``use_pallas_ssd`` fuses
+    (sesa_tpu/ops/ssd.py:190-210)."""
     return (x.device.type == "cuda" and x.dtype in (torch.float32, torch.bfloat16)
-            and x.dtype == a.dtype == b.dtype == c.dtype
-            and b.shape[-2] == 1 and x.shape[1] % chunk_size == 0 and x.shape[1] > 0
-            and (x.shape[-1], b.shape[-1], chunk_size) == _K8_SIZES)
+            and x.dtype == a.dtype == b.dtype == c.dtype and b.shape[-2] == 1
+            and chunk_size > 0 and chunk_size % 8 == 0 and x.shape[1] % chunk_size == 0
+            and x.shape[1] > 0 and x.shape[-1] > 0 and x.shape[-1] % 8 == 0
+            and b.shape[-1] > 0 and b.shape[-1] % 128 == 0)
 
 
 def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -135,67 +144,129 @@ def ssd_plain(x, a, b, c, chunk_size: int = 64):
     return out
 
 
-def k8_plan(bsz: int, l: int, h: int, dtype) -> dict:
-    """The host side of kernel K8: which of its two kernels runs and how.
+def k8_plan(bsz: int, l: int, h: int, dtype, p: int = 64, n: int = 128,
+            chunk: int = 64) -> dict:
+    """The host side of kernel K8: how the wrapper lays (B, L, H, P) with
+    state N and ``chunk`` out for the kernel's (64, 128, 64), and which of
+    its two kernels runs and how.
 
-    L = 64 (one chunk: no state) takes "rows", which gives each block one
-    batch row, whose heads it walks computing C·Bᵀ once; any longer L takes
-    "carried", which gives each block one (batch row, head) pair, whose
-    chunks it walks with the state in registers. Returns the variant, the
-    heads per block, the grid, the dynamic shared memory in bytes (the sizes
-    ``csrc/ssd.cu`` lays out, which it checks) and the blocks per SM that the
-    kernel's launch bounds plan for (two, but one carried block in f32),
-    which the shared memory must let fit."""
-    rows = l == _K8_SIZES[2]
-    p, n, q = _K8_SIZES
+    The layout: ``head_cols`` = P rounded up to 64 (x zero-padded per head),
+    ``pseudo_heads`` = H · head_cols / 64 heads of 64 columns, each with its
+    head's decays; ``steps`` = L rounded up to 64 (x, a, b and c
+    zero-padded: an exact no-op for the steps before), scanned in chunks of
+    64 whatever ``chunk`` (the scan's result does not depend on it);
+    ``slices`` = N / 128 launches, one per 128 state columns, their f32 y
+    summed in an f32 buffer of ``scratch`` bytes (0 for one slice) and
+    rounded once.
+
+    The kernel: ``steps`` = 64 (one chunk: no state) takes "rows", which
+    gives each block one batch row, whose heads it walks computing C·Bᵀ
+    once; longer takes "carried", which gives each block one (batch row,
+    pseudo-head) pair, whose chunks it walks with the state in registers.
+    Returns the variant, the heads per block, the grid, the dynamic shared
+    memory in bytes (the sizes ``csrc/ssd.cu`` lays out, which it checks)
+    and the blocks per SM that the kernel's launch bounds plan for (two, but
+    one carried block in f32), which the shared memory must let fit."""
+    kp, kn, q = _K8_SIZES
+    head_cols = -(-p // kp) * kp
+    heads_run = h * head_cols // kp
+    steps = -(-l // q) * q
+    slices = -(-n // kn)
+    rows = steps == q
     el = 2 if dtype == torch.bfloat16 else 4
-    ldx, ldn, ldy = (p + 8 if el == 2 else p + 4), n + 8, q + 8
+    ldx, ldn, ldy = (kp + 8 if el == 2 else kp + 4), kn + 8, q + 8
     x_tile, bc_tile = q * ldx * el, q * ldn * el
     if rows:
         # B, C, two stages of x, the decay sums of a group of heads
         smem = 2 * bc_tile + 2 * x_tile + _K8_HEAD_GROUP * q * 4
-        heads, grid = h, bsz
+        heads, grid = heads_run, bsz
     else:
         # x, B and C (two stages in f32, which copies the next chunk's while
         # this one's run; one in bf16, which fits two blocks per SM instead);
         # the two halves of C·stateᵀ and one of the decayed C·Bᵀ·X; two
         # stages of three decay vectors
         stages = 1 if el == 2 else 2
-        smem = stages * (x_tile + 2 * bc_tile) + 3 * p * ldy * 4 + 2 * 3 * q * 4
-        heads, grid = 1, bsz * h
+        smem = stages * (x_tile + 2 * bc_tile) + 3 * kp * ldy * 4 + 2 * 3 * q * 4
+        heads, grid = 1, bsz * heads_run
+    scratch = 0 if slices == 1 else bsz * steps * heads_run * kp * 4
     return dict(variant="rows" if rows else "carried", heads_per_block=heads, grid=grid,
-                smem=smem, blocks_per_sm=2 if rows or el == 2 else 1)
+                smem=smem, blocks_per_sm=2 if rows or el == 2 else 1, head_cols=head_cols,
+                pseudo_heads=heads_run, steps=steps, chunk=q, slices=slices, scratch=scratch)
+
+
+def _k8_layout(x, a, b, c, plan):
+    """x, a, b, c laid out as :func:`k8_plan` says: P padded per head to
+    ``head_cols`` and viewed as ``pseudo_heads`` of 64 columns (a repeated
+    for each), L padded with zeros to ``steps``. x and a come out
+    contiguous; b and c as they were where L needs no padding."""
+    bsz, l, h, p = x.shape
+    cols, steps = plan["head_cols"], plan["steps"]
+    if cols != p:
+        x = F.pad(x, (0, cols - p))
+    if steps != l:
+        x = F.pad(x, (0, 0, 0, 0, 0, steps - l))
+        a = F.pad(a, (0, 0, 0, steps - l))
+        b, c = (F.pad(t, (0, 0, 0, 0, 0, steps - l)) for t in (b, c))
+    x = x.contiguous().reshape(bsz, steps, plan["pseudo_heads"], _K8_SIZES[0])
+    if cols > _K8_SIZES[0]:
+        a = a.repeat_interleave(cols // _K8_SIZES[0], dim=2)
+    return x, a.contiguous(), b, c
+
+
+def _k8_unlayout(y, shape, plan):
+    """The kernel's (B, steps, pseudo_heads, 64) y as the caller's (B, L, H,
+    P), contiguous."""
+    bsz, l, h, p = shape
+    y = y.reshape(bsz, plan["steps"], h, plan["head_cols"])
+    if plan["steps"] != l or plan["head_cols"] != p:
+        y = y[:, :l, :, :p].contiguous()
+    return y
+
+
+def ssd_fused_plain(x, a, b, c, chunk_size: int = 64):
+    """Plain PyTorch K8 as the wrapper runs it: the layout of :func:`k8_plan`
+    (64-column pseudo-heads, L padded to chunks of 64) around
+    :func:`ssd_plain` at chunk 64, with all N at once (the kernel sums its
+    128-column slices in f32: another association of the same f32 sums)."""
+    bsz, l, h, p = x.shape
+    plan = k8_plan(bsz, l, h, x.dtype, p, b.shape[-1], chunk_size)
+    y = ssd_plain(*_k8_layout(x, a, b, c, plan), chunk_size=plan["chunk"])
+    return _k8_unlayout(y, x.shape, plan)
 
 
 def ssd_fused(x, a, b, c, chunk_size: int = 64):
     """Chunked SSD scan, same contract as :func:`ssd` with G = 1: kernel K8.
 
-    CPU tensors run :func:`ssd_plain`. CUDA tensors must be f32 or bf16 (all
-    four of one dtype) with G = 1, L a multiple of the chunk and
-    (P, N, chunk) = (64, 128, 64); anything else raises. x and a are read
-    contiguous; b and c are read where they lie when their rows are
-    contiguous and 16-byte aligned (they reach the scan as column slices of
-    the conv output), else copied. :func:`k8_plan` picks the kernel. Each
-    call adds one to ``ssd_fused.launches`` and to
+    CPU tensors run :func:`ssd_fused_plain`. CUDA tensors must be f32 or
+    bf16 (all four of one dtype) with G = 1, L a multiple of the chunk, P a
+    multiple of 8, N of 128 and the chunk of 8 (:func:`use_fused_ssd`);
+    anything else raises. :func:`k8_plan` lays the shape out for the
+    kernel's (64, 128, 64) and picks the kernel; the kernel runs once per
+    128 state columns. x and a are read contiguous (copies where P or L are
+    padded); b and c are read where they lie when their rows are contiguous
+    and 16-byte aligned (they reach the scan as column slices of the conv
+    output), else copied. Each call adds one to ``ssd_fused.launches`` and to
     ``ssd_fused.launches_by_dtype``.
     """
     if x.device.type == "cpu":
-        return ssd_plain(x, a, b, c, chunk_size)
+        return ssd_fused_plain(x, a, b, c, chunk_size)
     _build.refuse_autograd("ssd_fused (K8)", x, a, b, c)
     if not use_fused_ssd(x, a, b, c, chunk_size):
         raise ValueError(f"ssd_fused: unsupported x {x.dtype} {tuple(x.shape)}, a "
                          f"{a.dtype} {tuple(a.shape)}, b {b.dtype} {tuple(b.shape)}, chunk "
                          f"{chunk_size} (the kernel takes f32 or bf16, G = 1, L a multiple of "
-                         f"the chunk and (P, N, chunk) = {_K8_SIZES})")
+                         "the chunk, P a multiple of 8, N of 128 and the chunk of 8)")
     bsz, l, h, p = x.shape
     n = b.shape[-1]
     if tuple(a.shape) != (bsz, l, h) or tuple(b.shape) != (bsz, l, 1, n) or b.shape != c.shape:
         raise ValueError(f"ssd_fused: a {tuple(a.shape)}, b {tuple(b.shape)}, c "
                          f"{tuple(c.shape)} do not fit x {tuple(x.shape)}")
-    plan = k8_plan(bsz, l, h, x.dtype)
+    plan = k8_plan(bsz, l, h, x.dtype, p, n, chunk_size)
     if plan["grid"] > 2 ** 31 - 1 or plan["smem"] > _SMEM_BLOCK_MAX:
-        raise ValueError(f"ssd_fused: batch {bsz} x heads {h} exceed one launch ({plan})")
-    x, a = x.contiguous(), a.contiguous()
+        raise ValueError(f"ssd_fused: batch {bsz} x heads {plan['pseudo_heads']} exceed one "
+                         f"launch ({plan})")
+    shape = x.shape
+    x, a, b, c = _k8_layout(x, a, b, c, plan)
     per16 = 16 // x.element_size()
 
     def rows(t):
@@ -207,15 +278,23 @@ def ssd_fused(x, a, b, c, chunk_size: int = 64):
     for name, t in (("x", x), ("a", a)):
         _build.check_tensor("ssd_fused", name, t, t.shape, x.dtype)
     y = torch.empty_like(x)
+    slices, bf16 = plan["slices"], x.dtype == torch.bfloat16
+    ysum = torch.empty(y.shape, dtype=torch.float32, device=y.device) if slices > 1 else None
     lib = _build.load("ssd")
-    _build.check(lib.sesa_ssd(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                              y.data_ptr(), b.stride(0), b.stride(1), c.stride(0), c.stride(1),
-                              bsz, l, h, int(x.dtype == torch.bfloat16),
-                              int(plan["variant"] == "rows"), plan["smem"], plan["grid"],
-                              torch.cuda.current_stream(x.device).cuda_stream), "sesa_ssd")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    step = _K8_SIZES[1] * x.element_size()  # bytes of a slice's 128 columns
+    for s in range(slices):
+        part = 0 if slices == 1 else 1 if s == 0 else 3 if s == slices - 1 else 2
+        _build.check(lib.sesa_ssd(x.data_ptr(), a.data_ptr(), b.data_ptr() + s * step,
+                                  c.data_ptr() + s * step, y.data_ptr(),
+                                  None if ysum is None else ysum.data_ptr(), part,
+                                  b.stride(0), b.stride(1), c.stride(0), c.stride(1), bsz,
+                                  plan["steps"], plan["pseudo_heads"], int(bf16),
+                                  int(plan["variant"] == "rows"), plan["smem"], plan["grid"],
+                                  stream), "sesa_ssd")
     ssd_fused.launches += 1
-    ssd_fused.launches_by_dtype["bf16" if x.dtype == torch.bfloat16 else "f32"] += 1
-    return y
+    ssd_fused.launches_by_dtype["bf16" if bf16 else "f32"] += 1
+    return _k8_unlayout(y, shape, plan)
 
 
 ssd_fused.launches = 0

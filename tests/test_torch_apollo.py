@@ -548,15 +548,25 @@ def test_k7_plan_fits_shared_memory(n):
 
 
 def test_k7_plan_refuses_exactly_what_the_kernel_cannot_take():
-    """None for dim_head off the multiples of 16 in [16, 128], an odd rotary
-    width or one wider than dim_head, and no sequences or tokens; a plan
-    otherwise at Apollo's n. The plan's constants are the kernel's
+    """None for dim_head outside [1, 128], an odd rotary width or one wider
+    than dim_head, and no sequences or tokens; a plan otherwise at Apollo's
+    n, at the first packed width of ``k7_widths`` that fits (dim_head
+    itself at multiples of 16 and of 8 up to 56, repacked otherwise) and
+    the instance of the next multiple of 16.
+    The plan's constants are the kernel's
     (csrc/rope_attention.cu): 64-column boxes, the rope and attention warps by
     dim_head, the shared-memory formula, the instantiated dim_heads."""
-    for dh in range(8, 145, 8):
+    for dh in range(1, 145):
         for rot in (0, 2, 7, 16, dh, dh + 2):
-            ok = dh % 16 == 0 and 16 <= dh <= 128 and rot % 2 == 0 and rot <= dh
-            assert (k7_plan(3, 80, 2, dh, rot) is not None) == ok, (dh, rot)
+            ok = 1 <= dh <= 128 and rot % 2 == 0 and rot <= dh
+            plan = k7_plan(3, 80, 2, dh, rot)
+            assert (plan is not None) == ok, (dh, rot)
+            if plan is not None:
+                assert plan["width"] in attn_ops.k7_widths(dh)
+                assert plan["repack"] == (plan["width"] != dh)
+                assert plan["inst"] == -(-plan["width"] // 16) * 16
+                if dh % 16 == 0 or dh % 8 == 0 and dh <= 56:  # whole boxes fit as they lie
+                    assert plan["width"] == dh
     assert k7_plan(0, 80, 2, 32, 32) is None and k7_plan(3, 0, 2, 32, 32) is None
     src = open(os.path.join(os.path.dirname(apollo.__file__), "..", "csrc",
                             "rope_attention.cu")).read()
@@ -569,4 +579,4 @@ def test_k7_plan_refuses_exactly_what_the_kernel_cannot_take():
     assert "(((rot_w * 2 + 31) & ~31) + 16) / 2" in src
     assert "2LL * n * ra_table_pitch(rot_w) * 2" in src
     assert [int(v) for v in re.findall(r"case (\d+): launch = &launch_rope_attn<\1>", src)] == \
-        list(range(16, 129, 16))
+        list(range(8, 129, 8))

@@ -246,7 +246,7 @@ def test_k5_plan(b, n, d, e):
     tile of 16 rows a warp (one whole sequence up to 128 rows), its work items
     and persistent grid of 16 warps an SM, each block a contiguous run of
     items; every launch within a block's shared memory."""
-    plan = k5_plan(b, n, d, e, 132)
+    plan = k5_plan(b, n, d, e, 132, 31)
     for name, cols, depth in (("up", 2 * e, d), ("down", d, e)):
         g = plan[name]
         assert g["tiles"] == -(-b * n // 128) * -(-cols // 128)
@@ -260,6 +260,7 @@ def test_k5_plan(b, n, d, e):
     assert dw["rows"] % 16 == 0 and 16 <= dw["rows"] <= 128 and dw["threads"] == 2 * dw["rows"]
     assert dw["rows"] >= min(n, 128) and dw["rows"] - 16 < max(n, 16)
     assert dw["items"] == -(-n // dw["rows"]) * (e // 64) * b
+    assert dw["tap_blocks"] == 1 and dw["steps"] == dw["items"] and dw["box_rows"] == dw["rows"] + 31
     assert dw["grid"] == min(dw["items"], 132 * (16 // (dw["rows"] // 16)))
     assert dw["smem"] <= 48 * 1024  # static shared memory
     # each block's contiguous run of items: every item once
@@ -272,31 +273,35 @@ def test_k5_plan(b, n, d, e):
     assert int(re.search(r"DW_WARPS = (\d+);", src).group(1)) == 8
 
 
-@pytest.mark.parametrize("n,k", [(300, 31), (60, 31), (33, 8), (130, 32), (1, 31), (5, 2)])
+@pytest.mark.parametrize("n,k", [(300, 31), (60, 31), (33, 8), (130, 32), (1, 31), (5, 2),
+                                 (60, 33), (130, 64), (100, 65), (60, 129), (690, 161)])
 def test_k5_stencil_tiles_replay(n, k):
     """The stencil's tiles replayed in numpy as csrc/convblock.cu stages and
-    sums them (staged row r of a tile is sequence row i0 - k // 2 + r, TMA's
-    zeros outside [0, n), 32 taps of which those >= k are zero, summed in tap
-    order) give the depthwise convolution with the lucidrains padding, for
-    odd and even k."""
+    sums them (each tile one step a block of 32 taps: staged row r of tap
+    block j is sequence row i0 - k // 2 + 32 j + r, TMA's zeros outside
+    [0, n), the block's 32 taps of which those >= k are zero, the sums
+    carried across the blocks in tap order) give the depthwise convolution
+    with the lucidrains padding, for odd and even k, at and past 32 taps."""
     rng = np.random.default_rng(n * 40 + k)
     h = rng.standard_normal((n, 4)).astype(np.float32)
     taps = rng.standard_normal((k, 4)).astype(np.float32)
-    rows = k5_plan(1, n, 64, 64, 132)["dw"]["rows"]
-    taps32 = np.zeros((32, 4), np.float32)
-    taps32[:k] = taps
+    dw = k5_plan(1, n, 64, 64, 132, k)["dw"]
+    rows, blocks = dw["rows"], dw["tap_blocks"]
+    assert blocks == -(-k // 32) and dw["box_rows"] == rows + 31 <= 256
+    padded = np.zeros((32 * blocks, 4), np.float32)
+    padded[:k] = taps
     got = np.zeros_like(h)
     for i0 in range(0, n, rows):
-        staged = np.zeros((rows + 31, 4), np.float32)
-        for r in range(rows + 31):
-            pos = i0 - k // 2 + r
-            if 0 <= pos < n:
-                staged[r] = h[pos]
-        for i in range(i0, min(i0 + rows, n)):
-            acc = np.zeros(4, np.float32)
-            for t in range(32):
-                acc = acc + taps32[t] * staged[i - i0 + t]
-            got[i] = acc
+        acc = np.zeros((rows, 4), np.float32)
+        for j in range(blocks):
+            staged = np.zeros((rows + 31, 4), np.float32)
+            for r in range(rows + 31):
+                pos = i0 - k // 2 + 32 * j + r
+                if 0 <= pos < n:
+                    staged[r] = h[pos]
+            for t in range(32):  # every row of the tile at once, tap by tap
+                acc = acc + padded[32 * j + t] * staged[t:t + rows]
+        got[i0:i0 + rows] = acc[:min(rows, n - i0)]
     before, after = conv_pad(k)
     hp = np.pad(h, ((before, after), (0, 0)))
     want = sum(hp[t:t + n] * taps[t] for t in range(k))

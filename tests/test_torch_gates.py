@@ -4,8 +4,9 @@ grids of shapes. Every kernel a choice admits is one whose wrapper takes the
 shape, and each wrapper raises on a non-CPU tensor exactly where its shape
 predicate refuses: meta tensors carry the shapes into the wrappers, which
 then stop at the device check that follows the shape checks. And the gates
-of the JAX package's kernels K1, K3, K4 and K6, asked as on a TPU: every
-shape they send to a Pallas kernel is one the port's kernel takes."""
+of the JAX package's kernels K1 and K3 to K8, asked as on a TPU: every shape
+they send to a Pallas kernel is one the port's kernel takes (K5 at any
+number of taps, K7 at every Apollo width, K8 at every (P, N, chunk))."""
 
 import itertools
 import types
@@ -17,6 +18,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from sesa_tpu.models import apollo as jax_apollo
 from sesa_tpu.ops import attention as jax_attention
 from sesa_tpu.ops import convblock as jax_convblock
 from sesa_tpu_torch.models import apollo
@@ -66,7 +68,7 @@ def test_conformer_choice_admits_only_what_the_wrappers_take(dim_head):
         got = cc.conformer_kernels("cuda", BF16, batch, n, dim, heads, dim_head, hidden, e, k)
         want = {"K2": ff_shape_ok(batch * n, dim, hidden),
                 "K4": conformer_attention_shape_ok(batch, n, dim, heads, dim_head),
-                "K5": conformer_conv_shape_ok(batch, dim, e, k)}
+                "K5": conformer_conv_shape_ok(batch, n, dim, e, k)}
         assert got <= {name for name, ok in want.items() if ok}
         if cc.fused_conformer_shape_ok(n, dim_head, dim):
             assert got == {name for name, ok in want.items() if ok}
@@ -79,15 +81,15 @@ def test_conformer_choice_admits_only_what_the_wrappers_take(dim_head):
 
 def test_conformer_choice_at_the_off_grid_shapes():
     """The shapes that raised before the per-kernel choice: dim_head 48
-    (heads 8) runs all three, K4 on heads padded to 64; conv kernel 33 K2
-    and K4 with the conv unfused; the mel-band conformer's defaults all
-    three."""
+    (heads 8) runs all three, K4 on heads padded to 64; conv kernel 33 all
+    three (K5 in two blocks of taps, unfused before K5 took any number of
+    taps); the mel-band conformer's defaults all three."""
     legs = ((360, 690), (4140, 60))
     for batch, n in legs:
         assert cc.conformer_kernels("cuda", BF16, batch, n, 384, 8, 48, 1536, 768, 31) == {
             "K2", "K4", "K5"}
         assert cc.conformer_kernels("cuda", BF16, batch, n, 384, 8, 64, 1536, 768, 33) == {
-            "K2", "K4"}
+            "K2", "K4", "K5"}
         assert cc.conformer_kernels("cuda", BF16, batch, n, 384, 8, 64, 1536, 768, 31) == {
             "K2", "K4", "K5"}
 
@@ -112,7 +114,8 @@ def test_conformer_wrappers_raise_exactly_where_their_predicates_refuse(dim_head
                 "dw": {"weight": w(e, 1, k), "bias": w(e)},
                 "bn": {"weight": w(e), "bias": w(e), "running_mean": w(e), "running_var": w(e)},
                 "pw2": {"weight": w(dim, e, 1), "bias": w(dim)}}
-        assert _takes(fused_conformer_conv, x, conv) == conformer_conv_shape_ok(batch, dim, e, k)
+        assert _takes(fused_conformer_conv, x, conv) == conformer_conv_shape_ok(batch, n, dim, e,
+                                                                                k)
 
 
 # Apollo's widths: NUM_HEAD 8, so dim_head = feature_dim / 8
@@ -147,9 +150,12 @@ def test_apollo_choice_admits_only_what_the_wrappers_take(feature_dim):
 def test_apollo_choice_at_the_off_grid_widths():
     """The widths that raised before the choice: 384 runs K7 at dim_head 48
     and K6; 768 and 1024 run K7 at dim_head 96 and 128 and K6 at d 768 and
-    1024; 64 (dim_head 8) runs K6 with the band layer unfused."""
-    want = {64: {"K6"}, 256: {"K6", "K7"}, 384: {"K6", "K7"}, 768: {"K6", "K7"},
-            1024: {"K6", "K7"}}
+    1024; 64 (dim_head 8, unfused before K7 took every head width) both, K7
+    at heads of 8 run at the 16-wide instance; 200 (dim_head 25, rope 24) K7
+    on heads padded to 32 with K6 refused (d % 64); 320 (dim_head 40)
+    both."""
+    want = {64: {"K6", "K7"}, 200: {"K7"}, 256: {"K6", "K7"}, 320: {"K6", "K7"},
+            384: {"K6", "K7"}, 768: {"K6", "K7"}, 1024: {"K6", "K7"}}
     for feature_dim, kernels in want.items():
         assert apollo.apollo_kernels("cuda", BF16, 4, 1901, 80, feature_dim) == kernels
 
@@ -249,3 +255,95 @@ def test_port_takes_every_apollo_block_the_jax_gate_fuses(on_tpu, d):
             continue
         assert apollo_conv_shape_ok(320 * n, d, 4 * d, 7), (n, d)
         assert "K6" in apollo.apollo_kernels("cuda", BF16, 4, n, 80, d), (n, d)
+
+
+# the conformer conv's taps: every count to 33, and past 32 in one, two, four
+# and eight register blocks
+CONV_TAPS = tuple(range(1, 34)) + (64, 65, 129, 257)
+
+
+@pytest.mark.parametrize("k", CONV_TAPS)
+def test_port_takes_every_conformer_conv_the_jax_gate_fuses(on_tpu, k):
+    """K5's JAX gate ``use_fused_conv`` at the conformer's conv width 2e
+    (sesa_tpu/ops/convblock.py:250-265, called at
+    sesa_tpu/models/conformer_core.py:211 inside the fused block): every
+    (b, n, d, e) it fuses in bf16 at k taps is one the port's predicate and
+    K5's wrapper (on meta tensors) take, and where the JAX block gate fuses
+    too the conformer's choice runs K5."""
+    fused = 0
+    for n, d, e in itertools.product(SEQS, (128, 256, 384, 512, 1024),
+                                     (128, 256, 384, 768, 1536, 2048, 2176)):
+        if not jax_convblock.use_fused_conv(jax.ShapeDtypeStruct((3, n, d), jnp.bfloat16), 2 * e):
+            continue
+        fused += 1
+        heads = d // 64
+        block = (jax_attention._use_fused(n, 64, heads, d, dtype=jnp.bfloat16)
+                 and 4 * d <= 4096)  # use_fused_ff at the conformer's hidden 4d
+        for b in BATCHES:
+            assert conformer_conv_shape_ok(b, n, d, e, k), (b, n, d, e, k)
+            if block:
+                assert "K5" in cc.conformer_kernels("cuda", BF16, b, n, d, heads, 64, 4 * d, e,
+                                                    k), (b, n, d, e, k)
+        if n in (1, 60, 690, 2048):  # the wrapper on meta tensors at a few lengths
+            w = lambda *s: torch.empty(s, device=META, dtype=BF16)  # noqa: E731
+            conv = {"norm": {"weight": w(d), "bias": w(d)},
+                    "pw1": {"weight": w(2 * e, d, 1), "bias": w(2 * e)},
+                    "dw": {"weight": w(e, 1, k), "bias": w(e)},
+                    "bn": {"weight": w(e), "bias": w(e), "running_mean": w(e),
+                           "running_var": w(e)},
+                    "pw2": {"weight": w(d, e, 1), "bias": w(d)}}
+            assert _takes(fused_conformer_conv, torch.empty((BATCHES[-1], n, d), device=META,
+                                                            dtype=BF16), conv), (n, d, e, k)
+    assert fused
+
+
+@pytest.mark.parametrize("feature_dim", range(8, 1025, 8))
+def test_port_takes_every_band_attention_the_jax_gate_fuses(on_tpu, feature_dim):
+    """K7's JAX gate ``_use_fused_band_attn`` (sesa_tpu/models/apollo.py:179-187)
+    reads only the dtype: in bf16 it fuses Apollo's band layer at every
+    feature_dim, 8 heads × feature_dim / 8 over the 80 bands with the rope
+    of ``_apollo_rope``, 2·(dh // 2) wide. Apollo's choice takes K7 there at
+    the CLI's chunks and at a short input, and K7's wrapper takes the packed
+    qkv on meta tensors, at dh itself and at the width the band layer pads
+    it to."""
+    assert jax_apollo._use_fused_band_attn(jnp.bfloat16)
+    dh, heads = feature_dim // apollo.NUM_HEAD, apollo.NUM_HEAD
+    rot = 2 * (dh // 2)
+    for rows, frames in ((4, 1901), (2, 33)):
+        assert "K7" in apollo.apollo_kernels("cuda", BF16, rows, frames, 80, feature_dim)
+        plan = k7_plan(rows * frames, 80, heads, dh, rot)
+        rope = tuple(torch.empty((80, rot), device=META, dtype=BF16) for _ in range(2))
+        for width in {dh, plan["width"]}:
+            qkv = torch.empty((rows * frames, 80, 3 * heads * width), device=META, dtype=BF16)
+            assert _takes(fused_rope_attention, qkv, heads, dh ** -0.5, rope), (dh, width)
+
+
+@pytest.mark.parametrize("p", (8, 16, 24, 32, 64, 72, 128))
+def test_port_takes_every_ssd_the_jax_gate_fuses(on_tpu, p):
+    """K8's JAX gate ``use_pallas_ssd`` (sesa_tpu/ops/ssd.py:190-210, reached
+    through the public ``ssd``): every (P, N, chunk, L) it sends to
+    ``ssd_pallas`` is one the port's gate takes on CUDA stand-ins, in bf16
+    and f32, with a plan that fits one launch (at band_rnn's and band_comm's
+    batches); both refuse an L off the chunk and G = 2."""
+    from sesa_tpu.ops.ssd import use_pallas_ssd
+    from sesa_tpu_torch.ops import ssd as ssd_ops
+
+    fused = 0
+    for n, chunk in itertools.product((128, 256, 384), (8, 32, 64, 176, 256)):
+        for l in (chunk, 704, 2 * chunk + 8, 3 * chunk):
+            g = types.SimpleNamespace(shape=(2, l, 1, n))
+            jx = types.SimpleNamespace(shape=(2, l, 4, p))
+            for dtype in (BF16, torch.float32):
+                x, a = _Fake((2, l, 4, p), dtype), _Fake((2, l, 4), dtype)
+                b = _Fake((2, l, 1, n), dtype)
+                takes = ssd_ops.use_fused_ssd(x, a, b, b, chunk)
+                assert takes == use_pallas_ssd(jx, g, chunk), (p, n, chunk, l, dtype)
+                fused += takes
+                if takes:
+                    for bsz, h in ((684, 512 // p), (8280, 8)):
+                        plan = ssd_ops.k8_plan(bsz, l, h, dtype, p, n, chunk)
+                        assert plan["grid"] <= 2 ** 31 - 1
+                        assert plan["smem"] <= ssd_ops._SMEM_BLOCK_MAX
+            assert not ssd_ops.use_fused_ssd(_Fake((2, l, 4, p)), _Fake((2, l, 4)),
+                                             _Fake((2, l, 2, n)), _Fake((2, l, 2, n)), chunk)
+    assert fused

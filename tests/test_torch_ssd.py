@@ -122,16 +122,20 @@ def test_gate_is_on_device_dtype_and_shape():
     ({}, True),
     ({"dtype": torch.bfloat16}, True),
     ({"l": 100}, False),          # not a multiple of the chunk
-    ({"p": 32}, False),           # head dim the kernel is not built for
-    ({"n": 64}, False),           # state size the kernel is not built for
+    ({"p": 12}, False),           # head dim off the JAX gate's multiples of 8
+    ({"n": 64}, False),           # state size off the JAX gate's multiples of 128
     ({"g": 2}, False),            # B and C per group
-    ({"chunk": 32}, False),
+    ({"chunk": 12}, False),       # chunk off the JAX gate's multiples of 8
     ({"dtype": torch.float16}, False),
     ({"mixed": True}, False),     # a in another dtype than x
+    # the sizes the wrapper lays out around the kernel's (64, 128, 64)
+    ({"p": 32}, True), ({"p": 8}, True), ({"p": 72}, True), ({"n": 256}, True),
+    ({"chunk": 32}, True), ({"chunk": 8}, True), ({"l": 176, "chunk": 176}, True),
 ])
 def test_gate_shapes(change, takes):
     """The gate's shape and dtype rules, asked of tensors that claim to be on
-    a CUDA device (no storage is touched)."""
+    a CUDA device (no storage is touched): the JAX gate's P % 8, N % 128 and
+    chunk % 8, in f32 or bf16."""
     l, p, n, g = change.get("l", 128), change.get("p", 64), change.get("n", 128), change.get("g", 1)
     dt = change.get("dtype", torch.float32)
 
