@@ -4,6 +4,7 @@ one NVIDIA GPU, in turns.
     git archive <commit> | tar -x -C chip_parent    # the base tree (gitignored)
     python3 chip_ab.py --base chip_parent --pairs 4
     python3 chip_ab.py --base chip_parent --pairs 3 --kernels K1,K6
+    python3 chip_ab.py --base chip_parent --pairs 2 --kernels CLI
 
 Each turn is a subprocess that imports ``sesa_tpu_torch`` from one tree
 (``--base`` or this checkout), builds that tree's libraries of the kernels
@@ -24,7 +25,10 @@ backend, LayerNorm + cuBLAS + SDPA with the Shaw bias as a mask, the cuDNN
 conv composites, rope in torch ops + SDPA, the einsum scan ``ssd_einsum``).
 K1's, K4's, K5's, K6's and K7's rows also give device time by kernel
 (torch.profiler) in each tree's first turn. Turns run base, new, new, base,
-base, new, ... so that drift of the card falls on both trees. Prints each
+base, new, ... so that drift of the card falls on both trees. ``--kernels
+CLI`` times two main paths end to end instead (``cli_paths``: the flagship
+and the mel-band conformer through each tree's ``cli.main``, their warm
+real-time factor and one model call's device busy time). Prints each
 turn, the median and range of each kernel by tree, and last the card's name
 and power limit; writes everything to chiprun_out/chip_ab.json.
 """
@@ -45,7 +49,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # the rows of each kernel in the summary, each with its library yardstick
 ROWS = {"K1": ["K1_time", "K1_freq", "K1m2_time"], "K2": ["K2", "K2ln"], "K3": ["K3"],
         "K4": ["K4_time", "K4_freq"], "K5": ["K5_time", "K5_freq"], "K6": ["K6"], "K7": ["K7"],
-        "K8": [f"K8_{leg}_{tag}" for leg in ("band_rnn", "band_comm") for tag in ("bf16", "f32")]}
+        "K8": [f"K8_{leg}_{tag}" for leg in ("band_rnn", "band_comm") for tag in ("bf16", "f32")],
+        # not a kernel: two main paths end to end (cli_paths), with no yardstick
+        "CLI": [f"{path}_{metric}" for path in ("flagship", "melconf")
+                for metric in ("rtf_warm", "warm_s", "busy_ms", "idle_share")]}
+# the libraries each entry of ROWS builds
+BUILDS = {"CLI": ["K1", "K2", "K4", "K5"]}
 
 
 def worker(tree: str, kernels, breakdown: bool) -> None:
@@ -61,7 +70,7 @@ def worker(tree: str, kernels, breakdown: bool) -> None:
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    _build.build_all([cs.LIBRARIES[k] for k in kernels])
+    _build.build_all(sorted({cs.LIBRARIES[b] for k in kernels for b in BUILDS.get(k, [k])}))
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(6)
     res = {"tree": tree}
@@ -81,7 +90,63 @@ def worker(tree: str, kernels, breakdown: bool) -> None:
         k3(cs, gen, dev, res, tree)
     if "K8" in kernels:
         k8(cs, dev, res, tree)
+    if "CLI" in kernels:
+        cli_paths(cs, res)
     print("AB " + json.dumps(res), flush=True)
+
+
+def cli_paths(cs, res):
+    """The flagship (bs_roformer) and the mel-band conformer through the
+    tree's cli.main on chip_smoke.py's 60 s song in bf16, as chip_smoke's
+    drive_cli configures them; then three warm separations on the session
+    (rtf_warm and warm_s from the fastest: demix, its segments and copies
+    included) and one model call traced by chip_smoke.phase_profile (device
+    busy time, the kernels' sum, and the idle share of the traced span)."""
+    import tempfile
+    import time
+
+    import torch
+
+    from sesa_tpu_torch import cli
+    from sesa_tpu_torch.audio_io import write_audio
+
+    song = cs._song(cs.SONG_S)
+    for key, model_type, model_cfg in (("flagship", "bs_roformer", cs.FLAGSHIP_MODEL),
+                                       ("melconf", "mel_band_conformer", cs.MELCONF_MODEL)):
+        sessions = []
+        with tempfile.TemporaryDirectory() as work:
+            os.makedirs(os.path.join(work, "in"))
+            write_audio(os.path.join(work, "in", "song.wav"), song, cs.SR)
+            cfg = {"audio": {"chunk_size": cs.CHUNK, "num_channels": 2, "sample_rate": cs.SR},
+                   "model": model_cfg,
+                   "inference": {"num_overlap": cs.OVERLAP, "batch_size": cs.BATCH,
+                                 "normalize": False},
+                   "training": {"instruments": ["vocals", "other"],
+                                "target_instrument": "vocals"}}
+            with open(os.path.join(work, "config.json"), "w") as f:
+                json.dump(cfg, f)
+            rc = cli.main(["--model_type", model_type, "--config_path",
+                           os.path.join(work, "config.json"), "--input_folder",
+                           os.path.join(work, "in"), "--store_dir", os.path.join(work, "out"),
+                           "--compute_dtype", "bf16"], session_out=sessions)
+        if rc != 0:
+            raise RuntimeError(f"{model_type}: cli.main returned {rc}")
+        session = sessions[0]
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            session.separate(song)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        if session.rescues:
+            raise RuntimeError(f"{model_type}: {session.rescues} bf16 -> f32 rescues")
+        prof = cs.phase_profile(model_type, session, song)
+        res.update({f"{key}_warm_s": min(walls), f"{key}_rtf_warm": cs.SONG_S / min(walls),
+                    f"{key}_busy_ms": prof["device_busy_ms"],
+                    f"{key}_idle_share": prof["idle_share"]})
+        del session, sessions
+        torch.cuda.empty_cache()
 
 
 def k1(cs, dev, res, tree, breakdown):
@@ -287,7 +352,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--base", help="the base tree (e.g. the parent commit, unpacked)")
     parser.add_argument("--pairs", type=int, default=4)
-    parser.add_argument("--kernels", type=lambda v: v.split(","), default=list(ROWS),
+    parser.add_argument("--kernels", type=lambda v: v.split(","),
+                        default=[k for k in ROWS if k != "CLI"],
                         help=f"a subset of {list(ROWS)}")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     parser.add_argument("--breakdown", action="store_true", help=argparse.SUPPRESS)
@@ -326,13 +392,17 @@ def main() -> int:
         mine = [t for t in turns if t["tree"] == tree]
         summary[name] = {k: dict(median=statistics.median(t[k] for t in mine),
                                  lo=min(t[k] for t in mine), hi=max(t[k] for t in mine))
-                         for r in rows for k in (r, r + "_library")}
+                         for r in rows for k in (r, r + "_library") if k in mine[0]}
+
+    def cell(v, unit):
+        return f"{v['median']:.4f} [{v['lo']:.4f}-{v['hi']:.4f}]{unit}"
+
     for k in rows:
-        b, nw = summary["base"][k], summary["new"][k]
-        lib = summary["new"][k + "_library"]
-        print(f"{k}: base {b['median']:.3f} [{b['lo']:.3f}-{b['hi']:.3f}] ms, "
-              f"new {nw['median']:.3f} [{nw['lo']:.3f}-{nw['hi']:.3f}] ms, "
-              f"library {lib['median']:.3f} [{lib['lo']:.3f}-{lib['hi']:.3f}] ms")
+        unit = "" if k.startswith(("flagship_", "melconf_")) else " ms"
+        line = f"{k}: base {cell(summary['base'][k], unit)}, new {cell(summary['new'][k], unit)}"
+        if k + "_library" in summary["new"]:
+            line += f", library {cell(summary['new'][k + '_library'], unit)}"
+        print(line)
     for t in turns:
         for k in rows:
             for ms, n, name in t.get(k + "_parts", []):

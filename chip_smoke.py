@@ -100,8 +100,9 @@ and prints no result line):
    mask and 4 map repeats, 4 stems; K8 48 times per model call); checks as
    in 3, then model parity as in 7. bs_mamba2 then runs once more with
    ``--compute_dtype f32`` (what a bf16 -> f32 rescue reruns), which launches
-   K8's f32 form, with model parity in f32; K8's launches are counted by
-   dtype.
+   K8's f32 form, with model parity in f32, its depth cut to 2 mask and 1 map
+   repeats (``MAMBA_F32_MODEL``: K8 12 times per call); K8's launches are
+   counted by dtype.
 10. profile: device time by kernel over one warm model call of the flagship,
    the mel-band conformer, apollo, the value-residual and four-stream
    roformers, bs_mamba2, scnet and scnet_tran
@@ -197,6 +198,25 @@ and prints no result line):
    launched, and ``ssd_fused`` under ``no_grad`` launches once; the UI:
    ``sesa_tpu_torch.gui`` imports (``GRADIO_AVAILABLE``) and ``python -m
    sesa_tpu_torch.main --help`` exits 0.
+19. the modules of the last slice, each in its place among the phases
+   above: I8 (``sdpa_int8``) in the kernels phase at the flagship's legs,
+   with small shapes, f32 through the plain version and a NaN kept to its
+   row; ``phase_jobs`` after the first chain, on its loaded flagship and
+   mel-band conformer sessions (one ``upload_mix``, two ``demix_start``
+   back to back under PyTorch's sync debug mode with the card still busy
+   when they return, ``collect_device(stems=)`` into
+   ``ensemble_phase_fix_device`` equal to the demix chain, int16 within
+   max / 32767, f32 ``collect`` equal to ``demix``); ``phase_int8`` after it
+   (the flagship through ``cli.main`` with ``SESA_INT8_ATTN=1``: I8 72, K1
+   0, K2 72, 0 rescues, >= 25 dB against f32 beside the bf16 run's SNR);
+   ``phase_export`` after phase 14 (mdx23c at the InstVocHQ widths, one
+   block a scale, exported with ``torch.export`` in f32, loaded, a batch of
+   8 against the direct apply; bs_mamba2's trace, one block a stage, refused
+   by K8's wrapper naming K8), then ``istft_repeats`` (istft_ri twice on
+   the card at hops 512 and 441 into n_fft 2048: the same bits);
+   ``phase_mesh`` after training (a world-size-1 NCCL group, ``make_mesh(1)``,
+   the flagship's ``demix(mesh)`` and a mesh session equal to ``demix``, one
+   ``Trainer(mesh)`` SGD step at full width against ``Trainer()``'s).
 
 Prints the ``kernels`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
@@ -261,6 +281,9 @@ HC_STREAMS = HC_MODEL["num_residual_streams"]
 MAMBA_MODEL = dict(sr=44100, win=2048, stride=512, feature_dim=128, num_repeat_mask=8,
                    num_repeat_map=4, num_output=4)
 MAMBA_BANDS, MAMBA_HEADS, MAMBA_STEMS = 57, 8, ["vocals", "drums", "bass", "other"]
+# its f32 run (K8's f32 form, a rescue's path) at the same widths, depth cut
+# to two mask BSNets and one map BSNet for the script's time
+MAMBA_F32_MODEL = dict(MAMBA_MODEL, num_repeat_mask=2, num_repeat_map=1)
 CHUNK, OVERLAP, BATCH, SR, SONG_S = 352800, 2, 6, 44100, 60
 FRAMES, BANDS, MEL_BANDS = CHUNK // 512 + 1, 62, 60  # 690 frames; 62 / 60 bands
 TOKENS = BATCH * FRAMES * BANDS  # 256,680 tokens per flagship model call
@@ -291,6 +314,8 @@ MDX_MODEL = dict(num_subbands=4, num_scales=5, scale=[2, 2], num_blocks_per_scal
                  num_channels=128, growth=128, bottleneck_factor=4, norm="InstanceNorm",
                  act="gelu")
 MDX_STEMS = ["vocals", "other"]
+# phase_export's mdx23c: the InstVocHQ widths at one block a scale
+EXPORT_MDX_MODEL = dict(MDX_MODEL, num_blocks_per_scale=1)
 # bench.py bench_htdemucs, the htdemucs_ft shape: 48 channels, depth 4, nfft
 # 4096, 5 cross-transformer layers at bottom_channels 512, 8 heads; demucs
 # mode, chunks of segment x samplerate; hdemucs and legacy demucs at the JAX
@@ -377,6 +402,18 @@ TRAIN_MAMBA_MODEL = dict(MAMBA_MODEL, num_repeat_mask=1, num_repeat_map=1, num_o
 # one bf16 ulp. Bounds: max |kernel - plain| <= 5% of max |plain|, and the
 # rms error <= 5% of the rms of the branch (out - x) the kernel adds.
 KERNEL_MAX_REL, KERNEL_BRANCH_RMS_REL = 0.05, 0.05
+# the spin queued ahead of phase_jobs' dispatch, in cycles (about 1 s at the
+# H100's 1.98 GHz boost clock; measured each run)
+JOBS_SPIN_CYCLES = 2_000_000_000
+# the int8 flagship's stems against an f32 run of the same weights: int8
+# codes (7 bits a row) on top of the bf16 session's rounding
+INT8_SNR_FLOOR_DB = 25.0
+# an exported f32 program against the direct f32 apply on the card: the
+# same ops, up to cuDNN's choice of algorithm
+EXPORT_REL = 1e-4
+# Trainer(mesh) at world size 1 against Trainer(): the same products, the
+# tensor-parallel branches through DTensor (f32 sums in another order)
+MESH_TRAIN_REL = 1e-5
 # K8 against its plain version: f32 sums in another order (and 3xTF32
 # products) in f32; in bf16 the output rounding on top
 SSD_F32_ATOL, SSD_F32_RTOL, SSD_BF16_REL = 2e-4, 1e-3, 0.05
@@ -486,14 +523,16 @@ K8_LEGS = (("band_rnn", BATCH * 2 * MAMBA_BANDS, -(-FRAMES // 64) * 64),
 
 
 def ssd_inputs(gen, bsz, l, h, dtype, device, a_scale=1.0, p=64, n=128):
-    """x, a, b, c of K8 from ``gen``: x ~ 0.5 N (B, L, H, P), a = -|N| * a_scale,
-    b, c ~ 0.3 N (B, L, 1, N)."""
+    """x, a, b, c of K8 from ``gen``, drawn where ``gen`` lies: x ~ 0.5 N
+    (B, L, H, P), a = -|N| * a_scale, b, c ~ 0.3 N (B, L, 1, N)."""
     import torch
 
-    x = (0.5 * torch.randn((bsz, l, h, p), generator=gen)).to(device, dtype)
-    a = (-a_scale * torch.randn((bsz, l, h), generator=gen).abs()).to(device, dtype)
-    b, c = ((0.3 * torch.randn((bsz, l, 1, n), generator=gen)).to(device, dtype)
-            for _ in range(2))
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=gen.device)
+
+    x = (0.5 * randn((bsz, l, h, p))).to(device, dtype)
+    a = (-a_scale * randn((bsz, l, h)).abs()).to(device, dtype)
+    b, c = ((0.3 * randn((bsz, l, 1, n))).to(device, dtype) for _ in range(2))
     return x, a, b, c
 
 
@@ -550,14 +589,15 @@ def k8_bound(bsz, l, h, dtype, p=64, n=128, chunk=64):
 def counters():
     """The launch counter of every kernel wrapper, by kernel."""
     from sesa_tpu_torch.ops.attention import (fused_attention_block, fused_conformer_attention,
-                                              fused_rope_attention, vmem_attention)
+                                              fused_rope_attention, sdpa_int8, vmem_attention)
     from sesa_tpu_torch.ops.convblock import fused_apollo_conv, fused_conformer_conv
     from sesa_tpu_torch.ops.ff import fused_ff_residual
     from sesa_tpu_torch.ops.ssd import ssd_fused
 
     return {"K1": fused_attention_block, "K2": fused_ff_residual, "K3": vmem_attention,
             "K4": fused_conformer_attention, "K5": fused_conformer_conv,
-            "K6": fused_apollo_conv, "K7": fused_rope_attention, "K8": ssd_fused}
+            "K6": fused_apollo_conv, "K7": fused_rope_attention, "K8": ssd_fused,
+            "I8": sdpa_int8}
 
 
 def reset_counts():
@@ -734,7 +774,8 @@ def k7_library(qkv, heads, scale, rope):
 
 # the library that holds each kernel (--only builds just those)
 LIBRARIES = {"K1": "attention", "K2": "ff", "K3": "vmem_attention", "K4": "conformer_attention",
-             "K5": "convblock", "K6": "apollo_conv", "K7": "rope_attention", "K8": "ssd"}
+             "K5": "convblock", "K6": "apollo_conv", "K7": "rope_attention", "K8": "ssd",
+             "I8": "int8_attention"}
 
 
 def phase_build(names=None):
@@ -996,6 +1037,72 @@ def _k3_row(q, k, v, key):
                 plain_ms=time_ms(lambda: vmem_attention_plain(q, k, v, scale), reps=2, warmup=1),
                 **k3_library(q, k, v, scale),
                 **_bound(4 * b * heads * n * n * dh, 2 * 4 * b * heads * n * dh), kernel=key)
+
+
+# I8's bound: the int8 product at the int8 tensor-core peak plus the bf16 P . V
+PEAK_INT8_OPS = 1979e12
+
+
+def _i8_row(q, k, v, leg, key="I8"):
+    """I8 on q, k, v (b, h, n, D) against its plain version, timed beside the
+    plain version and SDPA's fastest backend on the same bf16 tensors. The
+    bound: q, k, v read and o written once, against the int8 product at the
+    int8 peak plus P . V at the bf16 peak."""
+    import torch
+
+    from sesa_tpu_torch.ops.attention import sdpa_int8, sdpa_int8_plain
+
+    b, heads, n, dh = q.shape
+    bh = b * heads
+    out = sdpa_int8(q, k, v)
+    torch.cuda.synchronize()
+    err = compare(f"I8 {leg} leg (BH={bh}, n={n}, D={dh})", out, sdpa_int8_plain(q, k, v),
+                  torch.zeros((), device=q.device))
+    del out
+    torch.cuda.empty_cache()
+    t_ops = 2 * bh * n * n * dh / PEAK_INT8_OPS + 2 * bh * n * n * dh / PEAK_BF16_FLOPS
+    t_bytes = 4 * 2 * bh * n * dh / PEAK_BYTES_S
+    row = dict(name=f"sdpa_int8 ({leg} leg, BH={bh}, n={n}, D={dh}, strided views)",
+                route="cuda", source="sesa_tpu_torch/csrc/int8_attention.cu",
+                replaces="none (beside K3; sesa_tpu/ops/attention.py:62 sdpa_int8 is plain JAX)",
+                max_abs_err=err, ms=time_ms(lambda: sdpa_int8(q, k, v)),
+                plain_ms=time_ms(lambda: sdpa_int8_plain(q, k, v), reps=2, warmup=1),
+                **k3_library(q, k, v, dh ** -0.5),
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes", kernel=key)
+    log_breakdown(row, f"I8 {leg} leg", lambda: sdpa_int8(q, k, v))
+    return row
+
+
+def i8_small(gen, dev):
+    """I8 at small shapes against its plain version: every core width (D 8 to
+    128, D 100 padded for V), n from 1 to past two tiles, views and
+    contiguous tensors, 3-D input; f32 runs the plain version (no launch); a
+    NaN in one query row reaches that row's output only."""
+    import torch
+
+    from sesa_tpu_torch.ops.attention import sdpa_int8, sdpa_int8_plain
+
+    zero = torch.zeros((), device=dev)
+    for d in (8, 24, 32, 40, 64, 96, 100, 128):
+        for n in (1, 7, 64, 65, 130):
+            q, k, v = _k3_views(gen, dev, 3, n, 2, d)
+            compare(f"I8 small (b=3, h=2, n={n}, D={d}, views)", sdpa_int8(q, k, v),
+                    sdpa_int8_plain(q, k, v), zero)
+    q, k, v = (torch.randn((5, 77, 64), generator=gen).to(dev, torch.bfloat16) for _ in range(3))
+    compare("I8 small 3-D contiguous (5, 77, 64)", sdpa_int8(q, k, v), sdpa_int8_plain(q, k, v),
+            zero)
+    before = sdpa_int8.launches
+    out = sdpa_int8(q.float(), k.float(), v.float())
+    if sdpa_int8.launches != before or out.dtype != torch.float32:
+        raise RuntimeError("I8: f32 inputs must run the plain version")
+    q = q.clone()
+    q[2, 5, 3] = float("nan")
+    out = sdpa_int8(q, k, v).float()
+    torch.cuda.synchronize()
+    bad = ~out.isfinite().all(-1)
+    if not bool(bad[2, 5]) or int(bad.sum()) != 1:
+        raise RuntimeError(f"I8: a NaN query gave {int(bad.sum())} non-finite rows")
 
 
 def _k4_row(args, label, key):
@@ -1532,6 +1639,17 @@ def phase_kernels(only=None):
                             ssd_fused_plain(*args, chunk_size=chunk))
         torch.cuda.synchronize()
 
+    if want("I8"):
+        # I8 at the flagship's legs (time: 372 x 8 sequences of 690 frames;
+        # freq: 4140 x 8 of 62 bands), on the views the roformer hands it
+        heads, dh = FLAGSHIP_MODEL["heads"], FLAGSHIP_MODEL["dim_head"]
+        for leg, b, n in (("time", BATCH * BANDS, FRAMES), ("freq", BATCH * FRAMES, BANDS)):
+            q, k, v = _k3_views(gen, dev, b, n, heads, dh)
+            rows.append(_i8_row(q, k, v, leg))
+            del q, k, v
+        i8_small(gen, dev)
+        torch.cuda.synchronize()
+
     rows += width_rows(gen, dev, want)
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} ms by "
@@ -2000,6 +2118,288 @@ def phase_chain(sessions, song, expected, first="bs_roformer", label="chain"):
     return res
 
 
+def phase_jobs(sessions, song, expected):
+    """demix's job API on the loaded flagship and mel-band conformer sessions:
+    one upload_mix of the song, both models' demix_start back to back (the
+    compute stream must still be busy when the second returns: dispatch
+    does not wait for the card: no synchronising call under PyTorch's sync
+    debug mode, the card still busy when it returns), collect_device(stems=) into
+    ensemble_phase_fix_device against the same chain through demix; then an
+    int16 job within max / 32767 of the exact stems and an f32 job's collect
+    bit-equal to demix."""
+    import numpy as np
+    import torch
+
+    from sesa_tpu_torch.postprocess import ensemble_phase_fix_device
+    from sesa_tpu_torch.runtime import demix, demix_start, upload_mix
+
+    fl, mc = sessions["bs_roformer"], sessions["mel_band_conformer"]
+    fns = [(s._model_apply(s.compute_dtype), s) for s in (fl, mc)]
+    # a spin queued ahead of the jobs keeps the card busy past a dispatch that
+    # does not wait for it; PyTorch's sync debug mode raises on the
+    # synchronising calls it knows (.item(), pageable copies, torch.istft's
+    # window check) made while dispatching. A dispatch may still block once
+    # the launch queue is full: that is the queue's depth, not a wait
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(JOBS_SPIN_CYCLES)
+    end.record()
+    torch.cuda.synchronize()
+    spin_s = start.elapsed_time(end) / 1e3
+    reset_counts()
+    torch.cuda._sleep(JOBS_SPIN_CYCLES)
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mix_dev = upload_mix(song)
+        jobs = [demix_start(fn, s.params, mix_dev, s.spec, transport="device") for fn, s in fns]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    dispatch_s = time.perf_counter() - t0
+    busy = not torch.cuda.current_stream().query()
+    fixed = ensemble_phase_fix_device(mix_dev, [j.collect_device(stems=[0])[0] for j in jobs],
+                                      SR, "avg_wave")
+    torch.cuda.synchronize()
+    jobs_s = time.perf_counter() - t0
+    launches = read_counts()
+    mix = torch.from_numpy(song).cuda()
+    ref = ensemble_phase_fix_device(
+        mix, [demix(fn, s.params, mix, s.spec, transport="device", stems=[0])[0]
+              for fn, s in fns], SR, "avg_wave")
+    chain_err = float((fixed - ref).abs().max())
+    fn = fns[0][0]
+    exact = demix(fn, fl.params, song, fl.spec)
+    q16 = demix_start(fn, fl.params, mix_dev, fl.spec, transport="int16").collect()
+    int16_err, floor = float(np.abs(q16 - exact).max()), float(np.abs(exact).max()) / 32767
+    f32_equal = bool(np.array_equal(demix_start(fn, fl.params, song, fl.spec).collect(), exact))
+    res = dict(launches=launches, spin_s=spin_s, dispatch_s=dispatch_s,
+               stream_busy_after_dispatch=busy,
+               jobs_to_phase_fix_s=jobs_s, chain_vs_demix_max_abs_err=chain_err,
+               chain_equal=chain_err == 0.0, int16_max_abs_err=int16_err,
+               int16_floor=floor, f32_collect_equal=f32_equal, card=gpu_line())
+    log(f"[jobs] {json.dumps(res)}")
+    if launches != expected:
+        raise RuntimeError(f"jobs: launches {launches}, expected {expected}")
+    if not busy:
+        raise RuntimeError(f"jobs: the card was idle when the second demix_start returned "
+                           f"({dispatch_s:.3f} s behind a {spin_s:.3f} s spin)")
+    if not chain_err <= 1e-5 * float(ref.abs().max()):
+        raise RuntimeError(f"jobs: collect_device chain is {chain_err:.4g} from the demix chain")
+    if not int16_err <= floor * 1.01 or not f32_equal:
+        raise RuntimeError(f"jobs: int16 {int16_err:.4g} (floor {floor:.4g}), f32 collect "
+                           f"equal {f32_equal}")
+    return res
+
+
+def phase_int8(song, calls, layers, bf16_session):
+    """The flagship through cli.main with SESA_INT8_ATTN=1 (popped after):
+    I8 in every attention layer, K1 refused, K2 on every feed-forward, no
+    rescue; its stems against an f32 run of the same weights without int8
+    (>= INT8_SNR_FLOOR_DB), printed beside the bf16 session's SNR."""
+    import numpy as np
+    import torch
+
+    from sesa_tpu_torch.runtime.session import InferenceSession
+
+    os.environ["SESA_INT8_ATTN"] = "1"
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            res, session = drive_cli(work, "bs_roformer", FLAGSHIP_MODEL, song,
+                                     expect(I8=layers * calls, K2=layers * calls),
+                                     k1_modes=[0, 0, 0])
+        int8 = session.separate(song)["vocals"]
+    finally:
+        os.environ.pop("SESA_INT8_ATTN", None)
+    f32 = InferenceSession(session.model_type, session.config, session.params, session.spec,
+                           session.device, compute_dtype=None).separate(song)["vocals"]
+    bf16 = bf16_session.separate(song)["vocals"]
+    int8, f32, bf16 = (torch.from_numpy(np.ascontiguousarray(a)) for a in (int8, f32, bf16))
+    res.update(snr_int8_vs_f32_db=snr_db(int8, f32), snr_bf16_vs_f32_db=snr_db(bf16, f32),
+               finite=bool(torch.isfinite(int8).all()), card=gpu_line())
+    log(f"  int8 flagship: {res['snr_int8_vs_f32_db']:.1f} dB against f32 "
+        f"(bf16 without int8: {res['snr_bf16_vs_f32_db']:.1f} dB), I8 launches "
+        f"{res['launches']['I8']}, K1 {res['launches']['K1']}")
+    if not res["snr_int8_vs_f32_db"] >= INT8_SNR_FLOOR_DB:
+        raise RuntimeError(f"int8 flagship: {res['snr_int8_vs_f32_db']:.1f} dB against f32, "
+                           f"below {INT8_SNR_FLOOR_DB}")
+    return res
+
+
+def phase_export():
+    """mdx23c at bench.py's InstVocHQ widths (depth cut to one block a scale,
+    EXPORT_MDX_MODEL: the trace's time follows the op count) exported in f32
+    on the card (convert.export: torch.export with the parameter tree as an
+    input), loaded, and one batch run on the card against the direct f32
+    apply (within EXPORT_REL of max |apply|); bs_mamba2's export must raise
+    naming K8."""
+    import torch
+
+    from sesa_tpu_torch.configs import AttrDict
+    from sesa_tpu_torch.convert.export import export_model, load_exported
+    from sesa_tpu_torch.models import bs_mamba2, mdx23c
+
+    cfg = AttrDict({"audio": dict(MDX_AUDIO, chunk_size=MDX_CHUNK), "model": EXPORT_MDX_MODEL,
+                    "training": {"instruments": MDX_STEMS, "target_instrument": None}})
+    params = tree_to_cuda(mdx23c.init(torch.Generator().manual_seed(0), cfg))
+    t0 = time.perf_counter()
+    blob = export_model("mdx23c", cfg, params, chunk_size=MDX_CHUNK, batch_size=MDX_BATCH)
+    export_s = time.perf_counter() - t0
+    fn = load_exported(blob)
+    x = (0.1 * torch.randn((MDX_BATCH, 2, MDX_CHUNK), generator=torch.Generator()
+                           .manual_seed(3))).cuda()
+    got = fn(params, x)
+    with torch.inference_mode():
+        ref = mdx23c.apply(params, cfg, x)
+    torch.cuda.synchronize()
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    # bs_mamba2 at the reference's widths, one block a stage (the trace stops
+    # at the first scan): its f32 forward on the card reaches K8, whose
+    # wrapper refuses the trace naming it (ops._build.refuse_export)
+    mcfg = AttrDict({"model": dict(MAMBA_MODEL, num_repeat_mask=1, num_repeat_map=1)})
+    mparams = tree_to_cuda(bs_mamba2.init(torch.Generator().manual_seed(0), mcfg))
+    k8_before = read_counts()["K8"]
+    try:
+        export_model("bs_mamba2", mcfg, mparams, chunk_size=CHUNK)
+        refusal = ""
+    except ValueError as e:
+        refusal = str(e)
+    if read_counts()["K8"] != k8_before:
+        raise RuntimeError("export: K8 launched during bs_mamba2's trace")
+    del mparams
+    res = dict(model_type="mdx23c", model=EXPORT_MDX_MODEL, batch=[MDX_BATCH, 2, MDX_CHUNK],
+               bytes=len(blob),
+               export_s=export_s, max_abs_err=err, ref_max=scale, equal=err == 0.0,
+               bs_mamba2_refusal=refusal[:120], card=gpu_line())
+    log(f"[export] {json.dumps(res)}")
+    if not err <= EXPORT_REL * scale or "ssd_fused (K8)" not in refusal:
+        raise RuntimeError(f"export: {res}")
+    del got, ref, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def istft_repeats():
+    """istft_ri on the card gives the same bits on a repeat, both for a hop
+    that divides n_fft (slice-adds) and one that does not (the folded
+    overlap-add): a (16, 1025, 800) spectrum at n_fft 2048, hops 512 and
+    441."""
+    import torch
+
+    from sesa_tpu_torch.ops.stft import hann_window, istft_ri
+
+    gen = torch.Generator().manual_seed(9)
+    spec = torch.randn((16, 1025, 800, 2), generator=gen).cuda()
+    w = hann_window(2048).cuda()
+    out = {}
+    for hop in (512, 441):
+        a, b = istft_ri(spec, 2048, hop, w), istft_ri(spec, 2048, hop, w)
+        out[f"hop{hop}_equal"] = bool(torch.equal(a, b))
+    log(f"[istft repeats] {json.dumps(out)}")
+    if not all(out.values()):
+        raise RuntimeError(f"istft repeats: {out}")
+    return out
+
+
+def tree_to_cuda(tree):
+    from sesa_tpu_torch.tree import tree_map
+
+    return tree_map(lambda t: t.cuda(), tree)
+
+
+def phase_mesh(song, calls, layers):
+    """parallel/ on one card: a world-size-1 NCCL group on 127.0.0.1,
+    make_mesh(1), the flagship's demix(mesh) bit-equal to demix, a session
+    created with the mesh (launches as the flagship's), one Trainer(mesh)
+    step at the flagship's full width against Trainer()'s step from the
+    same parameters and batch (SGD; loss within MESH_TRAIN_REL, every
+    parameter within MESH_TRAIN_REL of its largest value), each trainer's
+    first and second steps timed; the group is destroyed after."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sesa_tpu_torch.parallel import make_mesh
+    from sesa_tpu_torch.runtime import demix
+    from sesa_tpu_torch.runtime.session import InferenceSession
+    from sesa_tpu_torch.train import Trainer, _flatten
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    out = {}
+    try:
+        mesh = make_mesh(1)
+        out["mesh"] = dict(shape=list(mesh.mesh.shape), names=list(mesh.mesh_dim_names))
+        with tempfile.TemporaryDirectory() as work:
+            cfg_path = os.path.join(work, "config.json")
+            with open(cfg_path, "w") as f:
+                json.dump({"audio": {"chunk_size": CHUNK, "num_channels": 2, "sample_rate": SR},
+                           "model": FLAGSHIP_MODEL,
+                           "inference": {"num_overlap": OVERLAP, "batch_size": BATCH},
+                           "training": {"instruments": ["vocals", "other"],
+                                        "target_instrument": "vocals"}}, f)
+            session = InferenceSession.create("bs_roformer", cfg_path, seed=0, mesh=mesh)
+        fn = session._model_apply(session.compute_dtype)
+        plain = demix(fn, session.params, song, session.spec)
+        meshed = demix(fn, session.params, song, session.spec, mesh=mesh)
+        reset_counts()
+        stems = session.separate(song)["vocals"]
+        torch.cuda.synchronize()
+        launches = read_counts()
+        out["demix_equal"] = bool(np.array_equal(plain, meshed))
+        out["session"] = dict(launches=launches, equal_to_demix=bool(
+            np.array_equal(stems, plain[0])), rescues=session.rescues)
+        del session, fn
+        torch.cuda.empty_cache()
+
+        tcfg = {"model": FLAGSHIP_MODEL, "audio": {"chunk_size": TRAIN_CHUNK, "sample_rate": SR},
+                "training": {"instruments": ["vocals", "other"], "target_instrument": "vocals"}}
+        item = _train_item(TRAIN_CHUNK / SR)
+        sgd = {"optimizer": {"name": "SGD", "kwargs": {"lr": 1e-3}}}
+        steps = {}
+        for label, kw in (("single", {}), ("mesh", {"mesh": mesh})):
+            trainer = Trainer("bs_roformer", tcfg, optimizer=sgd, seed=0, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = trainer.train_batch(item)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            params = {k: (v.full_tensor() if hasattr(v, "full_tensor") else v).detach().clone()
+                      for k, v in _flatten(trainer.params).items()}
+            # a second step, warm: the first pays each trainer's set-up
+            t0 = time.perf_counter()
+            trainer.train_batch(item)
+            torch.cuda.synchronize()
+            steps[label] = (loss, params, ms, 1e3 * (time.perf_counter() - t0))
+            del trainer
+            torch.cuda.empty_cache()
+        (l1, p1, ms1, warm1), (l2, p2, ms2, warm2) = steps["single"], steps["mesh"]
+        rel = max(float((p1[k] - p2[k]).abs().max() / (p1[k].abs().max() + 1e-12)) for k in p1)
+        out["trainer"] = dict(loss_single=l1, loss_mesh=l2, ms_single=ms1, ms_mesh=ms2,
+                              warm_ms_single=warm1, warm_ms_mesh=warm2,
+                              param_rel_err=rel, leaves=len(p1),
+                              leaves_equal=sum(bool(torch.equal(p1[k], p2[k])) for k in p1))
+        del steps, p1, p2
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    out["card"] = gpu_line()
+    log(f"[mesh] {json.dumps(out)}")
+    want = expect(K1=layers * calls, K2=layers * calls)
+    tr = out["trainer"]
+    if not out["demix_equal"] or not out["session"]["equal_to_demix"] \
+            or out["session"]["launches"] != want or out["mesh"]["shape"] != [1, 1]:
+        raise RuntimeError(f"mesh: {out}")
+    if not abs(tr["loss_mesh"] - tr["loss_single"]) <= MESH_TRAIN_REL * abs(tr["loss_single"]) \
+            or not tr["param_rel_err"] <= MESH_TRAIN_REL:
+        raise RuntimeError(f"mesh trainer: {tr}")
+    return out
+
+
 # shapes off the main paths that exercise the per-kernel choices, depth 1
 # each: (label, model type, model config)
 GATE_PATHS = (("apollo_fd384", "apollo", dict(APOLLO_MODEL, feature_dim=384, layer=1)),
@@ -2180,7 +2580,8 @@ def phase_ssd_op():
     from sesa_tpu_torch.ops.ssd import ssd, ssd_fused_plain
 
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(11)
+    # inputs drawn on the card: a CPU draw of band_rnn's x (246M values) takes seconds
+    gen = torch.Generator(device=dev).manual_seed(11)
     band_rnn, band_comm = K8_LEGS
     cases = [(band_rnn, h, p, n, chunk) for h, p, n, chunk in K8_SIZES]
     cases.append((band_comm, MAMBA_HEADS, 64, 128, K8_COMM_CHUNK))
@@ -2217,6 +2618,7 @@ def phase_new_paths(song, calls):
 
     depth = FLAGSHIP_MODEL["depth"]
     bsnets = MAMBA_MODEL["num_repeat_mask"] + MAMBA_MODEL["num_repeat_map"]
+    f32_bsnets = MAMBA_F32_MODEL["num_repeat_mask"] + MAMBA_F32_MODEL["num_repeat_map"]
     paths = [
         # value residual, one stream: K1 on both legs of every depth layer,
         # mode 1 with the residual at depth 0, mode 2 without after it; K2
@@ -2231,9 +2633,10 @@ def phase_new_paths(song, calls):
         # per BSNet two ResMambas (band_rnn, band_comm) of two directions
         ("bs_mamba2", "bs_mamba2", MAMBA_MODEL, expect(K8=4 * bsnets * calls),
          dict(instruments=MAMBA_STEMS), expect(K8=4 * bsnets)),
-        # the same in f32, what a bf16 -> f32 rescue reruns: K8's f32 form
-        ("bs_mamba2_f32", "bs_mamba2", MAMBA_MODEL, expect(K8=4 * bsnets * calls),
-         dict(instruments=MAMBA_STEMS, compute_dtype="f32"), expect(K8=4 * bsnets)),
+        # the same in f32, what a bf16 -> f32 rescue reruns: K8's f32 form,
+        # at MAMBA_F32_MODEL's cut depth (three BSNets of twelve)
+        ("bs_mamba2_f32", "bs_mamba2", MAMBA_F32_MODEL, expect(K8=4 * f32_bsnets * calls),
+         dict(instruments=MAMBA_STEMS, compute_dtype="f32"), expect(K8=4 * f32_bsnets)),
     ]
     out = {"runs": {}, "parity": [], "profile": {}}
     for key, model_type, model_cfg, expected, kw, per_call in paths:
@@ -3538,7 +3941,18 @@ def main(argv=None) -> int:
     if only is not None and only & {"K4", "K5"}:
         only = only | {"K4", "K5"}
     phase_build(None if only is None else sorted({LIBRARIES[k] for k in only}))
-    out = dict(card=card, kernel_rows=phase_kernels(only))
+    phase_s = {}
+
+    def timed(phase, fn, /, *args, **kwargs):
+        """``fn(*args, **kwargs)``, its wall seconds kept as ``phase_s[phase]``."""
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            phase_s[phase] = time.perf_counter() - t
+            log(f"[phase] {phase}: {phase_s[phase]:.1f} s")
+
+    out = dict(card=card, phase_s=phase_s, kernel_rows=timed("kernels", phase_kernels, only))
     if args.kernels_only:
         os.makedirs("chiprun_out", exist_ok=True)
         with open(os.path.join("chiprun_out", "chip_smoke_kernels.json"), "w") as f:
@@ -3551,41 +3965,46 @@ def main(argv=None) -> int:
     layers = FLAGSHIP_MODEL["depth"] * (FLAGSHIP_MODEL["time_transformer_depth"]
                                         + FLAGSHIP_MODEL["freq_transformer_depth"])
     with tempfile.TemporaryDirectory() as work:
-        out["flagship"], sessions["bs_roformer"] = drive_cli(
-            work, "bs_roformer", FLAGSHIP_MODEL, song,
+        out["flagship"], sessions["bs_roformer"] = timed(
+            "flagship", drive_cli, work, "bs_roformer", FLAGSHIP_MODEL, song,
             expect(K1=layers * calls, K2=layers * calls), k1_modes=[layers * calls, 0, 0])
     blocks = MELCONF_MODEL["depth"] * (MELCONF_MODEL["time_conformer_depth"]
                                        + MELCONF_MODEL["freq_conformer_depth"])
     with tempfile.TemporaryDirectory() as work:
-        out["melconf"], sessions["mel_band_conformer"] = drive_cli(
-            work, "mel_band_conformer", MELCONF_MODEL, song,
+        out["melconf"], sessions["mel_band_conformer"] = timed(
+            "melconf", drive_cli, work, "mel_band_conformer", MELCONF_MODEL, song,
             expect(K2=2 * blocks * calls, K4=blocks * calls, K5=blocks * calls))
     apollo_calls, apollo_layers = _model_calls(APOLLO_CHUNK, APOLLO_BATCH), APOLLO_MODEL["layer"]
     apollo_counts = {"K6": 3 * apollo_layers * apollo_calls, "K7": apollo_layers * apollo_calls}
     with tempfile.TemporaryDirectory() as work:
-        out["apollo"], sessions["apollo"] = drive_cli(
-            work, "apollo", APOLLO_MODEL, song, expect(**apollo_counts),
+        out["apollo"], sessions["apollo"] = timed(
+            "apollo", drive_cli, work, "apollo", APOLLO_MODEL, song, expect(**apollo_counts),
             chunk=APOLLO_CHUNK, batch=APOLLO_BATCH, stem="restored")
-    out["chain"] = phase_chain(
-        sessions, song,
+    out["chain"] = timed(
+        "chain", phase_chain, sessions, song,
         expect(K1=layers * calls, K2=(layers + 2 * blocks) * calls, K4=blocks * calls,
                K5=blocks * calls, **apollo_counts))
+    out["jobs"] = timed("jobs", phase_jobs, sessions, song, expect(
+        K1=layers * calls, K2=(layers + 2 * blocks) * calls, K4=blocks * calls,
+        K5=blocks * calls))
+    out["int8"] = timed("int8", phase_int8, song, calls, layers, sessions["bs_roformer"])
     out["parity"] = [model_parity(mt, s.params, s.config, song) for mt, s in sessions.items()]
     per_call = {k: v // apollo_calls for k, v in apollo_counts.items()}
     got = {k: out["parity"][-1]["launches"][k] for k in per_call}
     if got != per_call:
         raise RuntimeError(f"apollo parity: launches {got} in one model call, expected {per_call}")
-    out["melband"] = phase_melband(song)
-    out["gates"] = phase_gates(song)
-    out["ssd_op"] = phase_ssd_op()
+    out["melband"] = timed("melband", phase_melband, song)
+    out["gates"] = timed("gates", phase_gates, song)
+    out["ssd_op"] = timed("ssd_op", phase_ssd_op)
     out["profile"] = {mt: phase_profile(mt, s, song) for mt, s in sessions.items()}
     # the sessions above stay loaded for the second chain: the widths' models
     # load one at a time beside them
-    out["widths"] = phase_widths(song, calls)
+    out["widths"] = timed("widths", phase_widths, song, calls)
     # bench.py's own chain pair: SCNet's vocals (stem 3) and the mel-band
     # conformer's -> ensemble + phase fix -> Apollo
-    out["scnet"], scnet_session = phase_scnet(song)
-    out["chain_scnet"] = phase_chain(
+    out["scnet"], scnet_session = timed("scnet", phase_scnet, song)
+    out["chain_scnet"] = timed(
+        "chain_scnet", phase_chain,
         {"scnet": scnet_session, "mel_band_conformer": sessions["mel_band_conformer"],
          "apollo": sessions["apollo"]}, song,
         expect(K2=2 * blocks * calls, K4=blocks * calls, K5=blocks * calls, **apollo_counts),
@@ -3595,14 +4014,17 @@ def main(argv=None) -> int:
     del scnet_session
     sessions.clear()
     torch.cuda.empty_cache()
-    out["new_paths"] = phase_new_paths(song, calls)
-    out["scnet_family"] = phase_scnet_family(song, calls)
-    out["melband_experimental"] = phase_melband_experimental(song)
-    out["mdx_demucs"] = phase_mdx_demucs(song)
-    out["bandit_segm"] = phase_bandit_segm(song)
-    out["swin_squim"] = phase_swin_squim(song)
-    out["app"] = phase_app(song)
-    out["train"] = phase_train()
+    out["new_paths"] = timed("new_paths", phase_new_paths, song, calls)
+    out["scnet_family"] = timed("scnet_family", phase_scnet_family, song, calls)
+    out["melband_experimental"] = timed("melband_experimental", phase_melband_experimental, song)
+    out["mdx_demucs"] = timed("mdx_demucs", phase_mdx_demucs, song)
+    out["export"] = timed("export", phase_export)
+    out["istft_repeats"] = timed("istft_repeats", istft_repeats)
+    out["bandit_segm"] = timed("bandit_segm", phase_bandit_segm, song)
+    out["swin_squim"] = timed("swin_squim", phase_swin_squim, song)
+    out["app"] = timed("app", phase_app, song)
+    out["train"] = timed("train", phase_train)
+    out["mesh"] = timed("mesh", phase_mesh, song, calls, layers)
     out["seconds"] = time.perf_counter() - t0
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3624,7 +4046,8 @@ def main(argv=None) -> int:
                 "K8": runs["bs_mamba2"]["k8_launches_by_dtype"]["bf16"],
                 "K8f32": runs["bs_mamba2_f32"]["k8_launches_by_dtype"]["f32"],
                 "K1scnet": out["scnet_family"]["scnet_tran"]["launches"]["K1"],
-                "K2scnet": out["scnet_family"]["scnet_tran"]["launches"]["K2"]}
+                "K2scnet": out["scnet_family"]["scnet_tran"]["launches"]["K2"],
+                "I8": out["int8"]["launches"]["I8"]}
     # the widths' rows: their CLI runs, or (K3 at D 48 and 96, K6 at d 1024) the
     # one model call of their GATE_PATHS entry
     widths = out["widths"]["runs"]

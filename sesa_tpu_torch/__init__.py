@@ -17,7 +17,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["get_device"]
+__all__ = ["get_device", "to_device"]
 
 
 def get_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -34,3 +34,17 @@ def get_device(device: Optional[Union[str, torch.device]] = None) -> torch.devic
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def to_device(array, device, dtype=None) -> torch.Tensor:
+    """A host array (numpy or a CPU tensor) as a tensor on ``device``. To
+    CUDA it is copied from pinned memory without waiting for the device's
+    queue: a copy from pageable memory synchronises the stream, and the
+    constant tables that models build per call (band indices, windows) would
+    then hold every dispatch behind the work queued before it."""
+    t = torch.as_tensor(array, dtype=dtype)
+    dev = torch.device(device)
+    if dev.type != "cuda" or torch.compiler.is_compiling() or torch.compiler.is_exporting():
+        return t.to(dev)  # a traced program (torch.export) keeps it as a constant
+    return t.pin_memory().to(dev, non_blocking=True)
+

@@ -31,6 +31,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from sesa_tpu_torch import to_device
 from sesa_tpu_torch.models import hyper_connections as HC
 from sesa_tpu_torch.models import roformer_core as core
 from sesa_tpu_torch.models.layers import rms_norm
@@ -160,7 +161,7 @@ def _fno_apply(p, x: torch.Tensor) -> torch.Tensor:
     ci, si = irdft_tables(t)
 
     def table(a):
-        return torch.as_tensor(a, device=x.device).to(x.dtype)
+        return to_device(a, x.device).to(x.dtype)
 
     cm, sm, cim, sim = table(c[:, :modes]), table(s[:, :modes]), table(ci[:modes]), table(si[:modes])
     xr = torch.einsum("btnd,tk->bknd", x, cm)

@@ -8,6 +8,12 @@ Parameters are plain dicts of tensors with the JAX package's names and
 torch layouts; converter keys follow the lucidrains module layout
 (``layers.{i}.{ff1,attn,conv,ff2,post_norm}``).
 
+Tensor parallelism (``parallel.shard_params`` with ``conformer_tp_rule``):
+the feed-forwards' and the attention's products run on DTensor shards; each
+of those branches starts with ``tp_input`` and ends in ``local_replicated``
+(one all-reduce of its partial sums), so the residual stream stays a plain
+tensor.
+
 Dispatch: on bf16 CUDA tensors ``use_fused_conformer`` chooses, per
 sub-module, kernel K2 (LayerNorm/SiLU/0.5 form) for both feed-forwards, K4
 for the attention and K5 for the conv where each takes the shape; a
@@ -23,11 +29,13 @@ import os
 import torch
 import torch.nn.functional as F
 
+from sesa_tpu_torch import to_device
 from sesa_tpu_torch.models.layers import kaiming_uniform, layer_norm, swish
 from sesa_tpu_torch.ops.attention import (conformer_attention_shape_ok,
                                           fused_conformer_attention, shaw_rel_index)
 from sesa_tpu_torch.ops.convblock import conformer_conv_shape_ok, conv_pad, fused_conformer_conv
 from sesa_tpu_torch.ops.ff import ff_shape_ok, fused_ff_residual
+from sesa_tpu_torch.parallel.mesh import local_replicated, per_head, replicated, tp_input
 
 MAX_POS_EMB = 512
 
@@ -95,32 +103,38 @@ def conformer_init(generator, dim, depth, **kwargs):
 # --------------------------------------------------------------------------
 
 def _ff_apply(p, x):
-    y = layer_norm(x, p["norm"])
+    y = layer_norm(tp_input(x, p), p["norm"])
     y = swish(y @ p["lin1"]["weight"].T + p["lin1"]["bias"])
-    return 0.5 * (y @ p["lin2"]["weight"].T + p["lin2"]["bias"])
+    return local_replicated(0.5 * (y @ p["lin2"]["weight"].T + p["lin2"]["bias"]))
 
 
 def _attn_apply(p, x, heads):
     """(b, n, d) -> the attention branch (no residual); Shaw bias with
     dist[i, j] = i - j and P from the table's own rows."""
     b, n, dim = x.shape
-    xn = layer_norm(x, p["norm"])
+    xn = layer_norm(tp_input(x, p), p["norm"])
     q = xn @ p["to_q"]["weight"].T
     kv = xn @ p["to_kv"]["weight"].T
     dh = q.shape[-1] // heads
     q = q.reshape(b, n, heads, dh).permute(0, 2, 1, 3)
-    k, v = kv.reshape(b, n, 2, heads, dh).permute(2, 0, 3, 1, 4)
+    # under tensor parallelism kv's rows are split across K and V: the
+    # product's output is made whole before the heads are split (per_head)
+    k, v = replicated(kv).reshape(b, n, 2, heads, dh).permute(2, 0, 3, 1, 4)
     scale = dh ** -0.5
 
     max_pos = (p["rel_pos_emb"].shape[0] - 1) // 2
-    dist = torch.as_tensor(shaw_rel_index(n, max_pos), device=x.device)
-    rel = p["rel_pos_emb"][dist]  # (n, n, dh)
-    pos_attn = torch.einsum("bhnd,nrd->bhnr", q, rel) * scale
-    sim = torch.einsum("bhid,bhjd->bhij", q, k) * scale + pos_attn
-    attn = torch.softmax(sim.float(), dim=-1).to(q.dtype)
-    out = torch.einsum("bhij,bhjd->bhid", attn, v)
+    dist = to_device(shaw_rel_index(n, max_pos), x.device)
+
+    def core(q, k, v, table):
+        rel = table[dist]  # (n, n, dh)
+        pos_attn = torch.einsum("bhnd,nrd->bhnr", q, rel) * scale
+        sim = torch.einsum("bhid,bhjd->bhij", q, k) * scale + pos_attn
+        attn = torch.softmax(sim.float(), dim=-1).to(q.dtype)
+        return torch.einsum("bhij,bhjd->bhid", attn, v)
+
+    out = per_head(core, q, k, v, shared=(p["rel_pos_emb"],))
     out = out.permute(0, 2, 1, 3).reshape(b, n, heads * dh)
-    return out @ p["to_out"]["weight"].T + p["to_out"]["bias"]
+    return local_replicated(out @ p["to_out"]["weight"].T + p["to_out"]["bias"])
 
 
 def _conv_apply(p, x):

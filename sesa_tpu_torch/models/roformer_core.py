@@ -11,6 +11,13 @@ only: bf16 tensors on CUDA run kernel K2 (``fused_ff_residual``) and, at the
 shapes ``use_fused_attention`` takes, kernel K1 (``fused_attention_block``);
 at other shapes the attention block is the unfused chain, whose ``sdpa``
 reaches kernel K3 for long sequences. f32 and the CPU run the plain chain.
+With ``SESA_INT8_ATTN`` set, K1 is refused and every softmax attention of
+``attention_apply`` runs ``sdpa_int8`` (kernel I8 on bf16 CUDA tensors), as
+in the JAX package.
+Tensor parallelism (``parallel.shard_params``, ``roformer_tp_rule``): the
+qkv / out and ff-in / ff-out products run on DTensor shards; each branch
+starts with ``tp_input`` and ends in ``local_replicated`` (one all-reduce),
+so the residual stream stays a plain tensor.
 ``transformer_apply_vr`` / ``_hc`` are the value-residual and
 hyper-connection stacks of the experimental roformers.
 """
@@ -22,10 +29,11 @@ import torch.nn.functional as F
 
 from sesa_tpu_torch.models import hyper_connections as HC
 from sesa_tpu_torch.models.layers import kaiming_uniform, rms_norm
-from sesa_tpu_torch.ops.attention import (fused_attention_block, l2norm, sdpa,
-                                          use_fused_attention)
+from sesa_tpu_torch.ops.attention import (fused_attention_block, int8_attention_enabled,
+                                          l2norm, sdpa, sdpa_int8, use_fused_attention)
 from sesa_tpu_torch.ops.ff import fused_ff_residual, use_fused_ff
 from sesa_tpu_torch.ops.rope import apply_rope
+from sesa_tpu_torch.parallel.mesh import local_replicated, per_head, replicated, tp_input
 
 
 # --------------------------------------------------------------------------
@@ -103,11 +111,13 @@ def attention_apply(p, x, heads, rope=None, value_residual=None, return_values=F
     """
     lead = x.shape[:-2]
     n, dim = x.shape[-2:]
-    xn = rms_norm(x, p["norm_gamma"]).reshape(-1, n, dim)
+    xn = rms_norm(tp_input(x, p), p["norm_gamma"]).reshape(-1, n, dim)
     b = xn.shape[0]
     qkv = xn.reshape(b * n, dim) @ p["qkv_w"].T
     dim_head = qkv.shape[-1] // (3 * heads)
-    q, k, v = qkv.reshape(b, n, 3, heads, dim_head).permute(2, 0, 3, 1, 4)
+    # under tensor parallelism qkv's rows are split across q, k and v: the
+    # product's output is made whole before the heads are split (per_head)
+    q, k, v = replicated(qkv).reshape(b, n, 3, heads, dim_head).permute(2, 0, 3, 1, 4)
     orig_v = v
     if "vr_mix_w" in p:
         if value_residual is None:
@@ -115,14 +125,18 @@ def attention_apply(p, x, heads, rope=None, value_residual=None, return_values=F
         mix = torch.einsum("bnd,hd->bnh", xn, p["vr_mix_w"]) + p["vr_mix_b"]
         mix = torch.sigmoid(mix.permute(0, 2, 1))[..., None]  # (b, h, n, 1)
         v = v + (value_residual.reshape(v.shape) - v) * mix  # lerp
-    if rope is not None:
-        q = apply_rope(q, *rope)
-        k = apply_rope(k, *rope)
-    out = sdpa(q, k, v)  # (b, h, n, dh)
+    attend = sdpa_int8 if int8_attention_enabled() else sdpa  # int8: kernel I8
+
+    def core(q, k, v, *tables):
+        if tables:
+            q, k = apply_rope(q, *tables), apply_rope(k, *tables)
+        return attend(q, k, v)  # (b, h, n, dh)
+
+    out = per_head(core, q, k, v, shared=rope or ())
     gates = torch.einsum("bnd,hd->bnh", xn, p["gates_w"]) + p["gates_b"]
     out = out * torch.sigmoid(gates.permute(0, 2, 1))[..., None]
     out = out.permute(0, 2, 1, 3).reshape(b * n, heads * dim_head) @ p["out_w"].T
-    out = out.reshape(lead + (n, dim))
+    out = local_replicated(out.reshape(lead + (n, dim)))
     if return_values:
         return out, orig_v
     return out
@@ -145,7 +159,7 @@ def linear_attention_apply(p, x, heads, scale=8.0):
     """XCiT-style linear attention (reference bs_roformer.py:124-175)."""
     lead = x.shape[:-2]
     n, dim = x.shape[-2:]
-    xn = rms_norm(x, p["norm_gamma"]).reshape(-1, n, dim)
+    xn = rms_norm(tp_input(x, p), p["norm_gamma"]).reshape(-1, n, dim)
     b = xn.shape[0]
     qkv = xn @ p["qkv_w"].T
     dim_head = qkv.shape[-1] // (3 * heads)
@@ -153,19 +167,19 @@ def linear_attention_apply(p, x, heads, scale=8.0):
     q, k, v = qkv.reshape(b, n, 3, heads, dim_head).permute(2, 0, 3, 4, 1)
     q = l2norm(q) * torch.exp(p["temperature"])
     k = l2norm(k)
-    out = sdpa(q, k, v, scale=scale)  # (b, h, dh, n)
+    out = per_head(lambda a, b_, c: sdpa(a, b_, c, scale=scale), q, k, v)  # (b, h, dh, n)
     out = out.permute(0, 3, 1, 2).reshape(b, n, heads * dim_head) @ p["out_w"].T
-    return out.reshape(lead + (n, dim))
+    return local_replicated(out.reshape(lead + (n, dim)))
 
 
 def ff_apply(p, x):
     shape = x.shape
-    xn = rms_norm(x, p["norm_gamma"]).reshape(-1, shape[-1])
+    xn = rms_norm(tp_input(x, p), p["norm_gamma"]).reshape(-1, shape[-1])
     h = xn @ p["lin1_w"].T + p["lin1_b"]
     # tanh-GELU under bf16, exact erf in f32 (sesa_tpu roformer_core.py:205-207)
     h = F.gelu(h, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
     h = h @ p["lin2_w"].T + p["lin2_b"]
-    return h.reshape(shape)
+    return local_replicated(h.reshape(shape))
 
 
 def ff_apply_residual(p, x):

@@ -68,6 +68,9 @@ SIGNATURES = {
     "vmem_attention": {
         "sesa_vmem_attn": [_P] * 4 + [_I] + [_L] * 16 + [_I] * 4 + [_F, _P],
     },
+    "int8_attention": {
+        "sesa_int8_attn": [_P] * 8 + [_L] * 9 + [_I] * 5 + [_F, _P],
+    },
     "ssd": {
         "sesa_ssd": [_P] * 6 + [_I] + [_L] * 4 + [_I] * 6 + [_L, _P],
     },
@@ -171,6 +174,19 @@ def refuse_autograd(kernel: str, *inputs) -> None:
             "no backward for its Pallas kernel either), and an input requires grad under "
             "grad mode; run it under torch.no_grad(), or train the model in f32, whose "
             "path launches no kernel (bs_mamba2's f32 path launches K8)")
+
+
+def refuse_export(kernel: str) -> None:
+    """Raise ``ValueError`` naming ``kernel`` when ``torch.export`` traces a
+    launch of it: a kernel called through ``ctypes`` is no op the trace can
+    record (its fake tensors hold no memory to hand the kernel). Each
+    wrapper calls this on the non-CPU path, where it would launch; the plain
+    versions that CPU tensors run export as they are."""
+    if torch.compiler.is_exporting():
+        raise ValueError(
+            f"{kernel}: torch.export cannot trace the hand-written CUDA kernel (a ctypes "
+            "call); export on the CPU, where its plain version runs, or a path that "
+            "launches no kernel (the f32 forward of every model but bs_mamba2)")
 
 
 def check_tensor(kernel: str, name: str, t, shape, dtype) -> None:

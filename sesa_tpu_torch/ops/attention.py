@@ -8,10 +8,12 @@ with the value-residual modes of the experimental roformers.
 ``fused_conformer_attention`` is kernel K4: the conformer attention block
 (LayerNorm, qkv, attention with the Shaw relative-position bias, out
 projection with bias, residual), planned by ``k4_plan``. ``fused_rope_attention`` is kernel K7: rope
-and attention over the qkv projection's packed output. On a CUDA tensor each
+and attention over the qkv projection's packed output. ``sdpa_int8`` is
+kernel I8 (``csrc/int8_attention.cu``), the int8 attention that
+``SESA_INT8_ATTN`` turns on; it replaces no TPU kernel. On a CUDA tensor each
 launches its hand-written kernel or chain (``csrc/attention.cu``,
 ``csrc/vmem_attention.cu``, ``csrc/conformer_attention.cu``,
-``csrc/rope_attention.cu``); on a CPU tensor
+``csrc/rope_attention.cu``, ``csrc/int8_attention.cu``); on a CPU tensor
 it runs its ``*_plain`` version, which repeats the TPU kernel's arithmetic
 with its bf16 rounding points.
 """
@@ -19,6 +21,7 @@ with its bf16 rounding points.
 from __future__ import annotations
 
 import math
+import os
 import weakref
 from typing import Optional
 
@@ -201,6 +204,7 @@ def vmem_attention(q, k, v, scale):
     """
     if q.device.type == "cpu":
         return vmem_attention_plain(q, k, v, scale)
+    _build.refuse_export("vmem_attention (K3)")
     _build.refuse_autograd("vmem_attention (K3)", q, k, v)
     s, d = q.shape[-2:]
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16) or not (q.shape == k.shape == v.shape) \
@@ -226,6 +230,131 @@ def vmem_attention(q, k, v, scale):
 
 
 vmem_attention.launches = 0
+
+
+def int8_attention_enabled() -> bool:
+    """``SESA_INT8_ATTN`` set: every roformer attention runs :func:`sdpa_int8`
+    (``models/roformer_core.py`` ``attention_apply``) and K1 is refused, as
+    in the JAX package (sesa_tpu/ops/attention.py:723,
+    sesa_tpu/models/roformer_core.py:137)."""
+    return bool(os.environ.get("SESA_INT8_ATTN"))
+
+
+def _quant_rows(x: torch.Tensor):
+    """Per-row symmetric int8 codes of x as f32 values, and the f32 scales:
+    s = max(max|x| / 127, 1e-8), codes clip(round_half_even(x / s), ±127).
+    A non-finite row gives a non-finite scale (amax propagates NaN)."""
+    xf = x.float()
+    s = (xf.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    # clamp_min keeps a NaN scale NaN; the codes stay f32 (a NaN cast to int8
+    # is undefined), the scale carries the NaN into the scores
+    return torch.clamp(torch.round(xf / s), -127.0, 127.0), s
+
+
+def sdpa_int8_plain(q, k, v, scale=None):
+    """Int8 attention in plain PyTorch with the rounding points of the JAX
+    ``sdpa_int8`` (sesa_tpu/ops/attention.py:84-103): the k mean summed in
+    f32 and rounded to k's dtype, k less its mean in that dtype, per-row
+    int8 codes and scales of q and of the centred k, the scores as
+    f32(q8·k8ᵀ)·(qs·ksᵀ)·scale, an f32 softmax rounded to v's dtype, and
+    P·V in v's dtype with f32 sums. The int8 product runs as an f32 matmul
+    of the codes, which is exact (TF32 included): the codes need 7 bits and
+    |Σ| <= 127²·D < 2²⁴ for D <= 1040. Leading dims run in slices that keep
+    the f32 scores near 256 MB."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    f32 = torch.float32
+    km = k.float().mean(-2, keepdim=True).to(k.dtype)
+    q8, qs = _quant_rows(q)
+    k8, ks = _quant_rows(k - km)
+    lead, (n, d), m = q.shape[:-2], q.shape[-2:], k.shape[-2]
+    q8, qs = q8.reshape(-1, n, d), qs.reshape(-1, n, 1)
+    k8, ks = k8.reshape(-1, m, d), ks.reshape(-1, m, 1)
+    v3 = v.reshape(-1, m, v.shape[-1])
+    step = max(1, 2 ** 26 // (n * m))
+    outs = []
+    for s0 in range(0, q8.shape[0], step):
+        sl = slice(s0, s0 + step)
+        sim = (q8[sl] @ k8[sl].transpose(-1, -2)) * (qs[sl] * ks[sl].transpose(-1, -2)) * scale
+        p = torch.softmax(sim, dim=-1).to(v.dtype)
+        outs.append((p.to(f32) @ v3[sl].to(f32)).to(v.dtype))
+    return torch.cat(outs).reshape(lead + (n, v.shape[-1]))
+
+
+def int8_attention_shape_ok(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """The inputs kernel I8 takes: bf16 q, k and v of one shape (..., n, D)
+    with 1 <= D <= 128 and n >= 1, on one launch's grid."""
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16 and q.shape == k.shape == v.shape
+            and q.ndim >= 3):
+        return False
+    n, d = q.shape[-2:]
+    return 1 <= d <= 128 and n >= 1 and q.numel() // (n * d) * -(-n // 64) <= 2 ** 31 - 1
+
+
+def _strides3(t: torch.Tensor):
+    """(b, h, s) element strides of a 4-D (b, h, n, d) view."""
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def sdpa_int8(q, k, v, scale=None):
+    """Int8 attention over (..., heads, seq, dim_head), the SageAttention
+    analogue (reference attend_sage.py): kernel I8 (``csrc/int8_attention.cu``),
+    which stands beside K3 and replaces no TPU kernel (the JAX ``sdpa_int8``
+    is plain JAX).
+
+    CPU tensors run :func:`sdpa_int8_plain`. On CUDA, f32 inputs also run
+    the plain version: an explicit dtype gate, as K1's gate refuses f32 in
+    both packages (f32 is the parity and rescue mode). bf16 inputs must be a
+    shape :func:`int8_attention_shape_ok` takes; anything else raises. q
+    and k are read where they lie (any strides with a unit stride along D);
+    v too where its strides are multiples of 8 and its base 16-byte aligned,
+    else it is copied (and D padded to a multiple of 8). The output is
+    contiguous. Each launch adds one to ``sdpa_int8.launches``.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu" or (q.dtype == torch.float32 and k.dtype == torch.float32
+                                  and v.dtype == torch.float32):
+        return sdpa_int8_plain(q, k, v, scale)
+    _build.refuse_export("sdpa_int8 (I8)")
+    _build.refuse_autograd("sdpa_int8 (I8)", q, k, v)
+    if not int8_attention_shape_ok(q, k, v) or not scale > 0:
+        raise ValueError(f"sdpa_int8: unsupported q {q.dtype} {tuple(q.shape)}, k {k.dtype} "
+                         f"{tuple(k.shape)}, v {v.dtype} {tuple(v.shape)}, scale {scale} (the "
+                         "kernel takes bf16 tensors of one shape, dim_head 1 to 128)")
+    if not q.device.type == k.device.type == v.device.type == "cuda":
+        raise ValueError(f"sdpa_int8: q, k and v must lie on CUDA; got {q.device}, "
+                         f"{k.device}, {v.device}")
+    n, d = q.shape[-2:]
+    lead = q.shape[:-2]
+
+    def as4(t):
+        t = t if t.ndim == 4 else t.reshape((-1, 1) + t.shape[-2:])
+        return t if t.stride(-1) == 1 else t.contiguous()
+
+    q4, k4, v4 = as4(q), as4(k), as4(v)
+    if d % 8 or any(s % 8 for s in _strides3(v4)) or v4.data_ptr() % 16:
+        v4 = F.pad(v4, (0, -d % 8)).contiguous()
+    b, h = q4.shape[:2]
+    dh = core_width(d)
+    dev = q.device
+    q8 = torch.empty((b * h * n * dh,), dtype=torch.int8, device=dev)
+    k8 = torch.empty_like(q8)
+    qs = torch.empty((b * h * n,), dtype=torch.float32, device=dev)
+    ks = torch.empty_like(qs)
+    out = torch.empty((b, h, n, d), dtype=q.dtype, device=dev)
+    lib = _build.load("int8_attention")
+    _build.check(lib.sesa_int8_attn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(),
+                                    q8.data_ptr(), k8.data_ptr(), qs.data_ptr(), ks.data_ptr(),
+                                    *_strides3(q4), *_strides3(k4), *_strides3(v4), b, h, n, d,
+                                    dh, float(scale),
+                                    torch.cuda.current_stream(dev).cuda_stream),
+                 "sesa_int8_attn")
+    sdpa_int8.launches += 1
+    return out.reshape(lead + (n, d))
+
+
+sdpa_int8.launches = 0
 
 
 def l2norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -366,11 +495,14 @@ def attention_block_shape_ok(b: int, n: int, d: int, heads: int, dh: int) -> boo
 
 def use_fused_attention(x: torch.Tensor, heads: int, dim_head: int) -> bool:
     """The gate of kernel K1, on device, dtype and shape only: a CUDA bf16
-    x (..., n, d) of a shape :func:`attention_block_shape_ok` takes. The
-    roformer stacks run the unfused chain (``attention_apply``) for
+    x (..., n, d) of a shape :func:`attention_block_shape_ok` takes, unless
+    ``SESA_INT8_ATTN`` is set (:func:`int8_attention_enabled`: the int8
+    attention runs unfused, as the JAX gate ``_use_fused`` refuses K1 then).
+    The roformer stacks run the unfused chain (``attention_apply``) for
     everything else."""
     n, d = x.shape[-2:]
     return (x.device.type == "cuda" and x.dtype == torch.bfloat16
+            and not int8_attention_enabled()
             and attention_block_shape_ok(x.numel() // max(n * d, 1), n, d, heads, dim_head))
 
 
@@ -398,6 +530,7 @@ def fused_attention_block(x, gamma, wqkv, wg, bg, wo, heads, scale, rope=None, v
     if x.device.type == "cpu":
         return fused_attention_block_plain(x, gamma, wqkv, wg, bg, wo, heads, scale, rope,
                                            vr=vr, add_residual=add_residual)
+    _build.refuse_export("fused_attention_block (K1)")
     _build.refuse_autograd("fused_attention_block (K1)", x, gamma, wqkv, wg, bg, wo, rope, vr)
     b, n, d = x.shape
     hd = wqkv.shape[0] // 3
@@ -642,6 +775,7 @@ def fused_conformer_attention(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo, heads, s
     if x.device.type == "cpu":
         return fused_conformer_attention_plain(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo,
                                                heads, scale)
+    _build.refuse_export("fused_conformer_attention (K4)")
     _build.refuse_autograd("fused_conformer_attention (K4)", x, ln_w, ln_b, wqkv, rel_pos_emb,
                            wo, bo)
     b, n, d = x.shape
@@ -857,6 +991,7 @@ def fused_rope_attention(qkv, heads, scale, rope=None):
     """
     if qkv.device.type == "cpu":
         return fused_rope_attention_plain(qkv, heads, scale, rope)
+    _build.refuse_export("fused_rope_attention (K7)")
     _build.refuse_autograd("fused_rope_attention (K7)", qkv, rope)
     b, n, packed = qkv.shape
     dh = packed // (3 * heads)

@@ -16,6 +16,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from sesa_tpu_torch import to_device
 from sesa_tpu_torch.models.layers import kaiming_uniform, rms_norm
 
 
@@ -77,7 +78,7 @@ def contiguous_band_feats(widths: Sequence[int]) -> List[np.ndarray]:
 
 
 def _index(idx, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(idx, dtype=np.int64), device=device)
+    return to_device(np.asarray(idx, dtype=np.int64), device)
 
 
 # --------------------------------------------------------------------------
@@ -161,5 +162,5 @@ def mask_estimator_apply(plan: BandPlan, params, x: torch.Tensor) -> torch.Tenso
     flatz = torch.cat([flat, flat.new_zeros(flat.shape[:-1] + (1,))], dim=-1)
     out = flatz.index_select(-1, _index(plan.gather_idx.reshape(-1), x.device))
     out = out.reshape(flat.shape[:-1] + plan.gather_idx.shape).sum(-1)
-    cov = torch.as_tensor(np.maximum(plan.coverage, 1e-8), device=x.device)
+    cov = to_device(np.maximum(plan.coverage, 1e-8), x.device)
     return out / cov

@@ -138,6 +138,7 @@ def fused_conformer_conv(x, p):
     """
     if x.device.type == "cpu":
         return fused_conformer_conv_plain(x, p)
+    _build.refuse_export("fused_conformer_conv (K5)")
     _build.refuse_autograd("fused_conformer_conv (K5)", x, p)
     b, n, d = x.shape
     w1, b1, taps, scale, shift, w2, b2 = conv_weights(p, x.dtype)
@@ -242,6 +243,7 @@ def fused_apollo_conv(x, p):
     """
     if x.device.type == "cpu":
         return fused_apollo_conv_plain(x, p)
+    _build.refuse_export("fused_apollo_conv (K6)")
     _build.refuse_autograd("fused_apollo_conv (K6)", x, p)
     b, n, d = x.shape
     w1, w2 = p["pw1_w"], p["pw2_w"]

@@ -117,6 +117,7 @@ def fused_ff_residual(x, gamma, w1, b1, w2, b2, *, beta=None, norm="rms", act="g
     if x.device.type == "cpu":
         return fused_ff_residual_plain(x, gamma, w1, b1, w2, b2, beta=beta, norm=norm,
                                        act=act, out_scale=out_scale)
+    _build.refuse_export("fused_ff_residual (K2)")
     _build.refuse_autograd("fused_ff_residual (K2)", x, gamma, w1, b1, w2, b2, beta)
     tokens, dim = x.shape
     hidden = w1.shape[0]

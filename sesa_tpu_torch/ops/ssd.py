@@ -250,6 +250,7 @@ def ssd_fused(x, a, b, c, chunk_size: int = 64):
     """
     if x.device.type == "cpu":
         return ssd_fused_plain(x, a, b, c, chunk_size)
+    _build.refuse_export("ssd_fused (K8)")
     _build.refuse_autograd("ssd_fused (K8)", x, a, b, c)
     if not use_fused_ssd(x, a, b, c, chunk_size):
         raise ValueError(f"ssd_fused: unsupported x {x.dtype} {tuple(x.shape)}, a "

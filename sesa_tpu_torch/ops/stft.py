@@ -1,8 +1,8 @@
 """RI-contract STFT / iSTFT (counterpart of sesa_tpu/ops/stft.py).
 
 The JAX package builds its transform from DFT matrices because the TPU has
-no FFT and no complex dtype. Here the transform is ``torch.stft`` /
-``torch.istft`` (cuFFT on the card) on complex64, while the public contract
+no FFT and no complex dtype. Here the transform is ``torch.stft`` and an
+inverse real FFT with overlap-add (cuFFT on the card) on complex64, while the public contract
 stays the JAX one: spectra are real tensors ``(..., F, frames, 2)`` with a
 trailing (real, imag) axis, and ``istft_ri`` takes ``length=``. The inverse
 ignores the imaginary parts of the DC and Nyquist bins, as the JAX one does.
@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from sesa_tpu_torch.ops.windows import hann_window
 
@@ -37,7 +38,9 @@ def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
     """Overlap-add ``(B, n_frames, frame_len)`` -> ``(B, frame_len + hop *
     (n_frames - 1))``. When ``hop`` divides the frame length this is k
     slice-adds over a ``(B, n_frames + k - 1, hop)`` accumulator, in the
-    order the JAX function adds; other hops use ``index_add_``."""
+    order the JAX function adds; other hops fold the frames (``F.fold``,
+    whose CUDA kernel sums each output sample's frames in one thread, in a
+    fixed order: deterministic, as ``torch.istft``'s overlap-add is)."""
     b, n_frames, frame_len = frames.shape
     if frame_len % hop == 0:
         k = frame_len // hop
@@ -46,10 +49,10 @@ def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
         for s in range(k):
             acc[:, s:s + n_frames] += fr[:, :, s]
         return acc.reshape(b, (n_frames + k - 1) * hop)
-    idx = (torch.arange(n_frames, device=frames.device)[:, None] * hop
-           + torch.arange(frame_len, device=frames.device)).reshape(-1)
-    sig = frames.new_zeros((b, frame_len + hop * (n_frames - 1)))
-    return sig.index_add_(1, idx, frames.reshape(b, n_frames * frame_len))
+    length = frame_len + hop * (n_frames - 1)
+    sig = F.fold(frames.transpose(1, 2), output_size=(1, length), kernel_size=(1, frame_len),
+                 stride=(1, hop))
+    return sig.reshape(b, length)
 
 
 def stft_ri(x: torch.Tensor, n_fft: int, hop_length: int,
@@ -88,7 +91,22 @@ def istft_ri(spec: torch.Tensor, n_fft: int, hop_length: int,
     if n_fft % 2 == 0:
         ri[:, -1, :, 1] = 0
     c = torch.view_as_complex(ri)
-    sig = torch.istft(c, n_fft, hop_length, win_length=win_length,
-                      window=window, center=center, normalized=normalized,
-                      onesided=True, length=length)
-    return sig.reshape(lead + sig.shape[-1:])
+    # torch.istft's inverse written out: torch.istft checks the window
+    # envelope on the host (a .item()), which would hold every dispatch
+    # behind the device's queue. Where the overlap-added square of the
+    # window vanishes, the JAX function divides by 1 (sesa_tpu/ops/stft.py
+    # :184-188), and so does this
+    frames_t = torch.fft.irfft(c, n=n_fft, dim=1, norm="ortho" if normalized else "backward")
+    win = window
+    if win_length < n_fft:  # centred in the frame, as torch pads it
+        left = (n_fft - win_length) // 2
+        win = torch.nn.functional.pad(win, (left, n_fft - win_length - left))
+    y = overlap_add((frames_t * win[:, None]).transpose(1, 2).contiguous(), hop_length)
+    env = overlap_add((win * win).expand(1, frames, n_fft).contiguous(), hop_length)[0]
+    start = n_fft // 2 if center else 0
+    end = start + length if length is not None else y.shape[-1] - (start if center else 0)
+    env = env[start:end]
+    y = y[:, start:end] / torch.where(env > 1e-11, env, 1.0)
+    if y.shape[-1] < end - start:  # a length past the frames: zeros, as torch.istft pads
+        y = torch.nn.functional.pad(y, (0, end - start - y.shape[-1]))
+    return y.reshape(lead + y.shape[-1:])

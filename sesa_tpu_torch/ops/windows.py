@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sesa_tpu_torch import to_device
+
 
 def fade_window(window_size: int, fade_size: int, dtype=torch.float32,
                 device="cpu") -> torch.Tensor:
@@ -18,11 +20,11 @@ def fade_window(window_size: int, fade_size: int, dtype=torch.float32,
     if fade_size > 0:  # w[-0:] would select (and clobber) the whole array
         w[:fade_size] = np.linspace(0.0, 1.0, fade_size)
         w[-fade_size:] = np.linspace(1.0, 0.0, fade_size)
-    return torch.as_tensor(w, dtype=dtype, device=device)
+    return to_device(w, device, dtype)
 
 
 def hann_window(win_length: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
     """Periodic Hann window, identical to ``torch.hann_window(n, periodic=True)``."""
     n = np.arange(win_length)
     w = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)
-    return torch.as_tensor(w, dtype=dtype, device=device)
+    return to_device(w, device, dtype)

@@ -15,7 +15,7 @@ from sesa_tpu_torch import get_device
 from sesa_tpu_torch.configs import load_config
 from sesa_tpu_torch.convert import convert_checkpoint, load_torch_state_dict
 from sesa_tpu_torch.models import get_model
-from sesa_tpu_torch.runtime.demix import DemixSpec, apply_tta, demix
+from sesa_tpu_torch.runtime.demix import TRANSPORTS, DemixSpec, apply_tta, demix
 from sesa_tpu_torch.tree import tree_map
 
 
@@ -86,15 +86,20 @@ class InferenceSession:
     # {compute dtype: the model's prepared weights}, for models with a
     # ``prepare`` step (casts and layout changes done once, not per call)
     _prepared: dict = dataclasses.field(default_factory=dict, repr=False)
+    # a parallel.make_mesh DeviceMesh: every rank separates with the same
+    # arguments, chunks split over its data axis (runtime.demix)
+    mesh: Optional[object] = None
 
     @classmethod
     def create(cls, model_type: str, config_path, checkpoint_path: str = "", *,
                chunk_size: Optional[int] = None, num_overlap: Optional[int] = None,
                batch_size: Optional[int] = None, num_channels: Optional[int] = None,
                compute_dtype: Optional[torch.dtype] = torch.bfloat16, device=None,
-               seed: int = 0) -> "InferenceSession":
+               mesh=None, seed: int = 0) -> "InferenceSession":
         """Load config and weights (or init from ``seed`` without a checkpoint)
-        and move the weights to ``device``: CUDA unless "cpu" is asked for."""
+        and move the weights to ``device``: CUDA unless "cpu" is asked for.
+        With ``mesh`` each rank holds the whole weights and separations split
+        their chunks over the mesh's data axis (sesa_tpu session.py:57-104)."""
         dev = get_device(device)
         config = load_config(model_type, config_path)
         model = get_model(model_type)
@@ -105,7 +110,7 @@ class InferenceSession:
             params = model.init(torch.Generator().manual_seed(seed), config)
         params = tree_map(lambda p: p.to(device=dev, dtype=torch.float32), params)
         spec = demix_spec(config, model_type, chunk_size, num_overlap, batch_size, num_channels)
-        return cls(model_type, config, params, spec, dev, compute_dtype)
+        return cls(model_type, config, params, spec, dev, compute_dtype, mesh=mesh)
 
     @property
     def instruments(self) -> List[str]:
@@ -163,7 +168,8 @@ class InferenceSession:
 
     def separate(self, mix: Audio, *, use_tta: bool = False,
                  progress_cb: Optional[Callable[[float], None]] = None,
-                 transport: str = "f32") -> Dict[str, Audio]:
+                 transport: str = "f32", mix_device: Optional[torch.Tensor] = None
+                 ) -> Dict[str, Audio]:
         """(channels, T) -> {instrument: (channels, T)} separated stems.
 
         Mirrors reference run_folder (inference.py:84-132): optional
@@ -172,16 +178,25 @@ class InferenceSession:
         in ``rescues`` (sesa_tpu session.py:212-220).
 
         ``mix`` is a numpy array or a tensor (one on the session's device is
-        used where it lies). The stems stay on the device until the end:
-        ``transport="f32"`` then copies them to numpy arrays,
-        ``transport="device"`` returns the f32 tensors, so that a chain of
-        stages never crosses to the host. The rescue check reads one flag
-        from the device either way.
+        used where it lies). ``mix_device`` (from ``runtime.upload_mix``) is
+        the same song already on the device, shared by several sessions: the
+        statistics come from ``mix``, the demix from ``mix_device``, and a
+        channel fix-up that changes the shape drops it.
+
+        ``transport="f32"`` (the default, bf16 sessions included: over PCIe
+        the f32 copy is cheap, ROADMAP.md §3) keeps the stems on the device
+        until the end and copies them to numpy arrays; ``"int16"`` moves
+        each slab as scaled int16 (about 90 dB below its peak) and returns
+        numpy arrays; ``"device"`` returns the f32 tensors, so that a chain
+        of stages never crosses to the host. The rescue check reads one flag
+        from the device, or the numpy stems of an int16 run. The rescue and
+        its TTA run with an exact transport.
         """
-        if transport not in ("f32", "device"):
-            raise NotImplementedError(f"transport={transport!r} is not ported (ROADMAP.md "
-                                      "queue 1: int16 slab transport)")
+        if transport not in TRANSPORTS:
+            raise ValueError(f"transport must be one of {TRANSPORTS}, got {transport!r}")
         mix = self._as_channels(mix)
+        if mix_device is not None and tuple(mix_device.shape) != tuple(mix.shape):
+            mix_device = None  # the channel fix-up changed the shape: demix uploads mix
 
         norm = affine = None
         if bool((self.config.get("inference", {}) or {}).get("normalize", False)):
@@ -190,20 +205,33 @@ class InferenceSession:
             norm = {"mean": float(mono.mean()), "std": float(std)}
             affine = (norm["mean"], norm["std"])
 
-        kw = dict(device=self.device, affine=affine, transport="device")
+        # the engine's transport: int16 as asked, else the stems stay on the
+        # device until the end
+        engine = "int16" if transport == "int16" else "device"
+        kw = dict(device=self.device, mesh=self.mesh, affine=affine)
+        src = mix if mix_device is None else mix_device
         apply_fn = self._model_apply(self.compute_dtype)
-        stems = demix(apply_fn, self.params, mix, self.spec, progress_cb=progress_cb, **kw)
+        stems = demix(apply_fn, self.params, src, self.spec, progress_cb=progress_cb,
+                      transport=engine, **kw)
         lossy = self.compute_dtype not in (None, torch.float32)
-        if lossy and not bool(torch.isfinite(stems).all()):
+        finite = (np.isfinite(stems).all() if isinstance(stems, np.ndarray)
+                  else bool(torch.isfinite(stems).all()))
+        if lossy and not finite:
             print("non-finite output under bf16; retrying in float32")
             self.rescues += 1
             self.compute_dtype = None
             apply_fn = self._model_apply(None)
-            stems = demix(apply_fn, self.params, mix, self.spec, progress_cb=progress_cb, **kw)
+            engine = "device"  # the rescue is exact end to end, TTA included
+            stems = demix(apply_fn, self.params, src, self.spec, progress_cb=progress_cb,
+                          transport=engine, **kw)
         if use_tta:
-            stems = apply_tta(apply_fn, self.params, mix, stems, self.spec, **kw)
+            stems = apply_tta(apply_fn, self.params, src, stems, self.spec, transport=engine,
+                              **kw)
         # final scrub after the rescue decision (reference utils.py:459)
-        stems = torch.nan_to_num(stems)
+        if isinstance(stems, np.ndarray):
+            stems = np.nan_to_num(stems)
+        else:
+            stems = torch.nan_to_num(stems)
         if norm is not None:
             stems = denormalize_audio(stems, norm)
         if transport == "f32":
@@ -213,10 +241,12 @@ class InferenceSession:
     def separate_with_extras(self, mix: Audio, *, use_tta: bool = False,
                              extract_instrumental: bool = False,
                              demud_phaseremix_inst: bool = False,
-                             progress_cb=None, transport: str = "f32") -> Dict[str, Audio]:
+                             progress_cb=None, transport: str = "f32",
+                             mix_device: Optional[torch.Tensor] = None) -> Dict[str, Audio]:
         """separate() plus the reference CLI's derived outputs (reference
         inference.py:103-126): instrumental = mix − vocals, and the demud
-        phase-remix re-separation."""
+        phase-remix re-separation. ``mix_device`` serves the first
+        separation only, as in the JAX session."""
         mix_orig = self._as_channels(mix)
         if transport == "device":  # the derived stems are sums with the stems' kind
             mix_orig = torch.as_tensor(mix_orig, device=self.device)
@@ -224,7 +254,7 @@ class InferenceSession:
             mix_orig = mix_orig.cpu().numpy()
         kw = dict(use_tta=use_tta, transport=transport)
 
-        waveforms = self.separate(mix_orig, progress_cb=progress_cb, **kw)
+        waveforms = self.separate(mix_orig, progress_cb=progress_cb, mix_device=mix_device, **kw)
         instruments = list(waveforms)
         instr = "vocals" if "vocals" in instruments else instruments[0]
         if demud_phaseremix_inst:

@@ -19,6 +19,11 @@ validation :363-433) as the JAX package has it, in eager PyTorch:
   backward pass runs under the f32 net's TF32 policy (off) too; the model's
   ``apply`` is called directly, with no prepared-weight cache and no
   ``inference_mode``;
+- with a mesh (``parallel.make_mesh``) every rank runs its share of the
+  batch, the gradients and the loss are averaged over the data axis, and a
+  layout rule splits the transformer weights over the model axis as
+  DTensors (``parallel.shard_params``; with a model axis of size 1 they
+  stay plain tensors); checkpoints are written whole;
 - validation runs the port's chunked overlap-add engine
   (:func:`sesa_tpu_torch.runtime.demix`) under ``torch.no_grad`` and the
   chunk-median metrics of :mod:`sesa_tpu_torch.metrics`;
@@ -38,6 +43,7 @@ the CPU only until both packages have a backward kernel.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -51,6 +57,7 @@ from sesa_tpu_torch import get_device
 from sesa_tpu_torch import losses as losses_mod
 from sesa_tpu_torch.configs import AttrDict
 from sesa_tpu_torch.ops.prec import net_precision
+from sesa_tpu_torch.parallel.mesh import is_dtensor
 from sesa_tpu_torch.tree import tree_map
 
 __all__ = [
@@ -262,8 +269,17 @@ class TrainOptimizer:
         self._factory = factory
         self.optimizer: Optional[torch.optim.Optimizer] = None
 
-    def init(self, leaves: Sequence[torch.Tensor]) -> torch.optim.Optimizer:
-        self.optimizer = self._factory(list(leaves))
+    def init(self, leaves: Sequence[torch.Tensor], foreach: Optional[bool] = None
+             ) -> torch.optim.Optimizer:
+        """``foreach=False`` steps torch's Adam, AdamW and SGD one tensor at a
+        time: their multi-tensor kernels refuse a list that mixes DTensors
+        with plain tensors (a tensor-parallel trainer's leaves); the optax
+        rules step one tensor at a time anyway."""
+        kw = {}
+        cls = getattr(self._factory, "func", self._factory)
+        if foreach is not None and not (isinstance(cls, type) and issubclass(cls, _OptaxRule)):
+            kw["foreach"] = foreach
+        self.optimizer = self._factory(list(leaves), **kw)
         return self.optimizer
 
     def step(self, count: int, lr_scale: float = 1.0) -> None:
@@ -434,6 +450,10 @@ def _unflatten(flat: Dict[str, Any]):
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array; a DTensor is gathered whole first (a
+    collective: every rank of its mesh calls this)."""
+    if is_dtensor(t):
+        t = t.full_tensor()
     return t.detach().cpu().numpy()
 
 
@@ -459,15 +479,20 @@ def _optimizer_payload(optimizer: torch.optim.Optimizer):
 
 
 def save_checkpoint(path: str, params, optimizer: Optional[torch.optim.Optimizer] = None,
-                    step: int = 0, extra: Optional[Dict[str, Any]] = None) -> str:
+                    step: int = 0, extra: Optional[Dict[str, Any]] = None,
+                    optimizer_payload=None) -> str:
     """Write params (+ the optimizer's state and the step) as one ``.npz``,
     through ``path + ".tmp"`` and ``os.replace``. Param names are the JAX
-    package's (dotted paths), so its ``load_checkpoint`` reads the params."""
+    package's (dotted paths), so its ``load_checkpoint`` reads the params.
+    ``optimizer_payload`` is ``_optimizer_payload``'s result, gathered
+    already (a sharded trainer's), in place of ``optimizer``."""
     payload = {"step": np.asarray(step), "format": np.asarray(_FORMAT)}
     payload.update({f"params/{k}": _host(v) if isinstance(v, torch.Tensor) else np.asarray(v)
                     for k, v in _flatten(params).items()})
     if optimizer is not None:
-        arrays, desc = _optimizer_payload(optimizer)
+        optimizer_payload = _optimizer_payload(optimizer)
+    if optimizer_payload is not None:
+        arrays, desc = optimizer_payload
         payload.update(arrays)
         payload["opt_json"] = np.asarray(json.dumps(desc))
     if extra:
@@ -543,6 +568,11 @@ def _restore_optimizer(optimizer: torch.optim.Optimizer, opt_state) -> None:
                 raise ValueError(f"checkpoint optimizer state {key} of parameter {i} has "
                                  f"shape {a.shape}, the parameter {tuple(params[i].shape)}")
             st[key] = torch.from_numpy(np.array(a))
+            if is_dtensor(params[i]) and key != "step":  # a moment sits where its param sits
+                from torch.distributed.tensor import distribute_tensor
+
+                st[key] = distribute_tensor(st[key].to(params[i].device),
+                                            params[i].device_mesh, params[i].placements)
         state[i] = st
     optimizer.load_state_dict({"state": state, "param_groups": desc["param_groups"]})
 
@@ -550,6 +580,16 @@ def _restore_optimizer(optimizer: torch.optim.Optimizer, opt_state) -> None:
 # ---------------------------------------------------------------------------
 # Trainer
 # ---------------------------------------------------------------------------
+
+def _tp_context(mesh):
+    """``implicit_replication`` with a mesh (the plain constants a tensor-
+    parallel branch reads meet its DTensors), else nothing."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
 
 def _model_type(model) -> Optional[str]:
     from sesa_tpu_torch.models import MODEL_TYPES
@@ -571,8 +611,14 @@ class Trainer:
         bs_roformer.py:586-622).
       optimizer: a :class:`TrainOptimizer` or an optimizer config dict
         (``parse_optimizer_config``). Default Adam(1e-4).
-      mesh, param_rule: not ported (``parallel/mesh.py``, ROADMAP.md queue
-        1); anything but None raises ``NotImplementedError``.
+      mesh: a ``parallel.make_mesh`` DeviceMesh; every rank builds the same
+        trainer and calls it with the same global batch. The batch's dim 0
+        splits over the mesh's "data" axis (``ValueError`` unless it
+        divides); gradients and the loss are averaged over that axis, so the
+        step is the single-device step up to summation order.
+      param_rule: a ``parallel`` layout rule for tensor parallelism over the
+        "model" axis (default with a mesh: ``roformer_tp_rule``, as in the
+        JAX package); it is kept for :meth:`load`.
       augmentor: an optional ``data.StemAugmentor`` run on each host batch.
       seed: seeds ``init`` when ``params`` is None.
       params: the port's parameter tree (e.g. from ``params_from_jax``).
@@ -585,11 +631,9 @@ class Trainer:
 
     def __init__(self, model, config, *, loss=None, optimizer=None, mesh=None,
                  param_rule=None, augmentor=None, seed: int = 0, params=None, device=None):
-        if mesh is not None or param_rule is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=..., param_rule=...): sesa_tpu_torch has no parallel/mesh.py "
-                "yet (ROADMAP.md queue 1); train on one device")
         self.device = get_device(device)
+        self.mesh = mesh
+        self._param_rule = param_rule
         if isinstance(model, str):
             from sesa_tpu_torch.models import get_model
 
@@ -616,11 +660,17 @@ class Trainer:
 
         if params is None:
             params = model.init(torch.Generator().manual_seed(seed), self.config)
-        self.params = tree_map(
-            lambda p: torch.as_tensor(p).detach().to(self.device, torch.float32, copy=True)
-            .requires_grad_(True), params)
+        params = tree_map(lambda p: torch.as_tensor(p).detach().to(self.device, torch.float32,
+                                                                   copy=True), params)
+        if mesh is not None:
+            from sesa_tpu_torch.parallel import shard_params
+
+            params = shard_params(mesh, params, rule=param_rule)
+        self.params = tree_map(lambda p: p.requires_grad_(True), params)
         self._leaves = list(_flatten(self.params).values())
-        self.tx.init(self._leaves)
+        # torch's foreach kernels take no DTensor beside plain tensors
+        self.tx.init(self._leaves,
+                     foreach=False if any(is_dtensor(p) for p in self._leaves) else None)
         self.step = 0
 
     # -- stem plumbing -----------------------------------------------------
@@ -652,20 +702,62 @@ class Trainer:
         """For ReduceLROnPlateau-style host-driven LR control."""
         self._lr_scale = float(scale)
 
+    def _data_axis(self):
+        """(group, size, coordinate) of the mesh's data axis."""
+        data = self.mesh["data"]
+        return data.get_group(), data.size(), data.get_local_rank()
+
+    def _share(self, mix, target):
+        """This rank's share of the global batch along dim 0."""
+        _, size, coord = self._data_axis()
+        if mix.shape[0] % size:
+            raise ValueError(f"batch of {mix.shape[0]} must be divisible by the mesh data "
+                             f"axis ({size})")
+        n = mix.shape[0] // size
+        return mix[coord * n:(coord + 1) * n], target[coord * n:(coord + 1) * n]
+
+    def _average_over_data(self, loss):
+        """Every gradient and the loss averaged over the data axis: each
+        rank's share is equal, so the mean of the ranks' means is the global
+        mean. A DTensor gradient is first brought to its parameter's layout
+        (a partial sum over the model axis is reduced), then its local shard
+        is averaged. A data axis of one rank averages nothing."""
+        import torch.distributed as dist
+
+        group, size, _ = self._data_axis()
+        if size == 1 and not any(is_dtensor(p) for p in self._leaves):
+            return loss
+        with torch.no_grad():
+            for p in self._leaves:
+                if is_dtensor(p) and p.grad.placements != p.placements:
+                    p.grad = p.grad.redistribute(placements=p.placements)
+                local = p.grad.to_local() if is_dtensor(p.grad) else p.grad
+                dist.all_reduce(local, group=group)
+                local.div_(size)
+            loss = loss.detach().clone()
+            dist.all_reduce(loss, group=group)
+        return loss / size
+
     def train_batch(self, item: Dict[str, Any]) -> float:
         """One step: augment on the host, upload, forward + loss + backward
-        under the f32 TF32 policy, optimizer step; returns the loss."""
+        under the f32 TF32 policy, optimizer step; returns the loss. With a
+        mesh, each rank runs its share of the batch and the gradients and
+        the loss are averaged over the data axis before the step."""
         if self.augmentor is not None:
             item = self.augmentor(item)
         mix, target = self.make_batch(item)
+        if self.mesh is not None:
+            mix, target = self._share(mix, target)
         for p in self._leaves:
             p.grad = None
-        with torch.enable_grad(), net_precision(None):
+        with torch.enable_grad(), net_precision(None), _tp_context(self.mesh):
             loss = self.loss_fn(self.model.apply(self.params, self.config, mix), target)
             loss.backward()
         for p in self._leaves:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.mesh is not None:
+            loss = self._average_over_data(loss)
         self.tx.step(self.step, self._lr_scale)
         self.step += 1
         return float(loss.detach())
@@ -700,9 +792,9 @@ class Trainer:
             spec = DemixSpec(chunk_size=int(audio_cfg.get("chunk_size", 131072)),
                              num_overlap=2, batch_size=2,
                              num_stems=len(self.target_stems()))
-        with torch.no_grad():
+        with torch.no_grad(), _tp_context(self.mesh):
             est = demix(lambda p, x: self.model.apply(p, self.config, x), self.params, mix,
-                        spec, device=self.device)
+                        spec, device=self.device, mesh=self.mesh)
         window = int(window_seconds * int(audio_cfg.get("sample_rate", 44100)))
         fn = {"snr": chunk_median_snr, "si_snr": chunk_median_si_snr,
               "sdr": chunk_median_sdr}[metric]
@@ -713,7 +805,20 @@ class Trainer:
         return out
 
     def save(self, path: str, extra: Optional[Dict[str, Any]] = None) -> str:
-        return save_checkpoint(path, self.params, self.tx.optimizer, self.step, extra=extra)
+        """The checkpoint an unsharded trainer writes. With a mesh every rank
+        calls this (the shards are gathered whole), rank 0 of the mesh writes,
+        and all return once the file is there."""
+        if self.mesh is None:
+            return save_checkpoint(path, self.params, self.tx.optimizer, self.step, extra=extra)
+        import torch.distributed as dist
+
+        params = tree_map(_host, self.params)
+        arrays, desc = _optimizer_payload(self.tx.optimizer)
+        if dist.get_rank() == int(self.mesh.mesh.flatten()[0]):
+            save_checkpoint(path, params, None, self.step, extra=extra,
+                            optimizer_payload=(arrays, desc))
+        dist.barrier()
+        return path
 
     def load(self, path: str, optimizer_state: bool = True) -> None:
         """Params (copied into the trainer's tensors), step and, with
@@ -730,6 +835,11 @@ class Trainer:
             return src
 
         loaded = tree_map(copy, self.params, params)
+        if self.mesh is not None:  # re-shard with the trainer's own rule
+            from sesa_tpu_torch.parallel import shard_params
+
+            loaded = shard_params(self.mesh, tree_map(lambda t: t.to(self.device), loaded),
+                                  rule=self._param_rule)
         with torch.no_grad():
             for dst, src in zip(self._leaves, _flatten(loaded).values()):
                 dst.copy_(src)

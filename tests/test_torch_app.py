@@ -240,6 +240,7 @@ def test_download_callback_matches_jax(homes, tmp_path, monkeypatch, url):
 
 class FakeSession:
     sample_rate = SR
+    device = torch.device("cpu")  # where the port's auto ensemble uploads the song
 
     def separate_with_extras(self, mix, use_tta=False, extract_instrumental=False,
                              demud_phaseremix_inst=False, progress_cb=None, mix_device=None):

@@ -65,6 +65,22 @@ def test_istft_ri_matches_jax(normalized, length):
     np.testing.assert_allclose(_np(got), np.asarray(ref), atol=5e-5, rtol=1e-4)
 
 
+def test_istft_ri_non_dividing_hop_matches_jax():
+    """A hop that does not divide n_fft (441 into 2048) takes the folded
+    overlap-add; the same spectrum gives the JAX result and the same bits on
+    a second call."""
+    rng = np.random.default_rng(5)
+    n_fft, hop = 2048, 441
+    spec = rng.standard_normal((2, n_fft // 2 + 1, 30, 2)).astype(np.float32)
+    w = np.array(JS.hann_window(n_fft))
+    ref = JS.istft_ri(jnp.asarray(spec), n_fft, hop, jnp.asarray(w), length=12000)
+    got = istft_ri(torch.from_numpy(spec), n_fft, hop, torch.from_numpy(w), length=12000)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(_np(got), np.asarray(ref), atol=5e-5, rtol=1e-4)
+    again = istft_ri(torch.from_numpy(spec), n_fft, hop, torch.from_numpy(w), length=12000)
+    assert torch.equal(got, again)
+
+
 def test_stft_round_trip():
     x = np.random.default_rng(4).standard_normal((2, 2, 44100)).astype(np.float32)
     w = hann_window(2048)

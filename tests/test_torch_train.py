@@ -557,15 +557,22 @@ def test_validate_track():
 
 
 def test_trainer_device_and_mesh():
+    """CUDA by default. ``mesh`` and ``param_rule`` are ported
+    (tests/test_torch_parallel.py drives them on four gloo ranks): without a
+    mesh a rule is kept (for ``load``) and the parameters stay plain tensors;
+    a mesh needs a process group first."""
     if torch.cuda.is_available():
         assert _trainer(device=None).device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             _trainer(device=None)
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        _trainer(mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        _trainer(param_rule=lambda path, leaf: None)
+    trainer = _trainer(param_rule=lambda path, leaf: None)
+    assert trainer.mesh is None and trainer._param_rule is not None
+    assert all(type(p) is torch.Tensor for p in _flatten(trainer.params).values())
+    from sesa_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        _trainer(mesh=make_mesh(1, device_type="cpu"))
 
 
 # ---------------------------------------------------------------------------
@@ -617,6 +624,8 @@ GUARDED = {
         [_meta(1, 64, 2, 64, dtype=torch.float32), _meta(1, 64, 2, dtype=torch.float32),
          _meta(1, 64, 1, 128, dtype=torch.float32), _meta(1, 64, 1, 128, dtype=torch.float32)],
         {}), (0,)),
+    "sdpa_int8": ("I8", A.sdpa_int8, lambda: ([_meta(1, 2, 64, 64) for _ in range(3)], {}),
+                  (1,)),
 }
 
 
@@ -655,6 +664,21 @@ def test_kernel_wrappers_refuse_autograd(name):
     plain_args, kwargs = build()
     err = _call(fn, plain_args, kwargs)
     assert err is None or "no backward" not in str(err)
+    assert fn.launches == launches
+
+
+@pytest.mark.parametrize("name", list(GUARDED))
+def test_kernel_wrappers_refuse_export(name, monkeypatch):
+    """Under torch.export each wrapper raises ValueError naming its kernel
+    where it would launch (ops._build.refuse_export): a ctypes call is no
+    op the trace can record. Nothing launches."""
+    kernel, fn, build, _ = GUARDED[name]
+    launches = fn.launches
+    args, kwargs = build()
+    monkeypatch.setattr(torch.compiler, "is_exporting", lambda: True)
+    err = _call(fn, args, kwargs)
+    assert isinstance(err, ValueError) and "torch.export cannot trace" in str(err), err
+    assert name in str(err) and kernel in str(err)
     assert fn.launches == launches
 
 
