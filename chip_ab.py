@@ -1,14 +1,15 @@
-"""Time kernels K1 to K8 of two trees of the repository against each other on
-one NVIDIA GPU, in turns.
+"""Time kernels K1 to K8 and I8 of two trees of the repository against each
+other on one NVIDIA GPU, in turns.
 
     git archive <commit> | tar -x -C chip_parent    # the base tree (gitignored)
     python3 chip_ab.py --base chip_parent --pairs 4
     python3 chip_ab.py --base chip_parent --pairs 3 --kernels K1,K6
     python3 chip_ab.py --base chip_parent --pairs 2 --kernels CLI
+    python3 chip_ab.py --base chip_parent --pairs 3 --kernels I8
 
 Each turn is a subprocess that imports ``sesa_tpu_torch`` from one tree
 (``--base`` or this checkout), builds that tree's libraries of the kernels
-asked for (``--kernels``, default all eight), makes the inputs of
+asked for (``--kernels``, default K1 to K8 and I8), makes the inputs of
 ``chip_smoke.py``'s kernels phase from one seed at the main paths' shapes (K1
 at the flagship's time leg b 372 x n 690 and freq leg b 4140 x n 62 in mode 0
 and the time leg in mode 2, d 512, 8 heads x 64; K2 at the flagship's 256,680
@@ -18,7 +19,9 @@ K5 at the mel-band conformer's time leg b 360 x n 690 and freq leg b 4140 x n
 60, d 384 (K4: 8 heads x 64, P 512; K5: e 768, k 31); K6 at
 Apollo's b 320 x n 1901, d 256 -> 1024, k 7; K7 at Apollo's b 7604 x n 80,
 8 heads x 32, full rope; K8 at bs_mamba2's band_rnn B 684
-x L 704 and band_comm B 8280 x L 64, H 8, in bf16 and in f32), checks each
+x L 704 and band_comm B 8280 x L 64, H 8, in bf16 and in f32; I8 at the
+flagship's legs, BH 2976 x n 690 and BH 33120 x n 62, D 64, through strided
+views, and each of its stages alone where the tree has them), checks each
 kernel against its plain version, and times it with CUDA events, beside the
 library yardsticks (cuBLAS + SDPA, the F.linear composites, SDPA under each
 backend, LayerNorm + cuBLAS + SDPA with the Shaw bias as a mask, the cuDNN
@@ -26,9 +29,10 @@ conv composites, rope in torch ops + SDPA, the einsum scan ``ssd_einsum``).
 K1's, K4's, K5's, K6's and K7's rows also give device time by kernel
 (torch.profiler) in each tree's first turn. Turns run base, new, new, base,
 base, new, ... so that drift of the card falls on both trees. ``--kernels
-CLI`` times two main paths end to end instead (``cli_paths``: the flagship
-and the mel-band conformer through each tree's ``cli.main``, their warm
-real-time factor and one model call's device busy time). Prints each
+CLI`` times three main paths end to end instead (``cli_paths``: the flagship,
+the mel-band conformer and the int8 flagship through each tree's
+``cli.main``, their warm real-time factor and one model call's device busy
+time). Prints each
 turn, the median and range of each kernel by tree, and last the card's name
 and power limit; writes everything to chiprun_out/chip_ab.json.
 """
@@ -50,11 +54,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROWS = {"K1": ["K1_time", "K1_freq", "K1m2_time"], "K2": ["K2", "K2ln"], "K3": ["K3"],
         "K4": ["K4_time", "K4_freq"], "K5": ["K5_time", "K5_freq"], "K6": ["K6"], "K7": ["K7"],
         "K8": [f"K8_{leg}_{tag}" for leg in ("band_rnn", "band_comm") for tag in ("bf16", "f32")],
-        # not a kernel: two main paths end to end (cli_paths), with no yardstick
-        "CLI": [f"{path}_{metric}" for path in ("flagship", "melconf")
+        # the flagship's two legs, and each stage alone where the tree has them
+        "I8": ["I8_time", "I8_freq", "I8_time_prepass", "I8_time_attention",
+               "I8_freq_attention"],
+        # not a kernel: three main paths end to end (cli_paths), with no yardstick
+        "CLI": [f"{path}_{metric}" for path in ("flagship", "melconf", "int8")
                 for metric in ("rtf_warm", "warm_s", "busy_ms", "idle_share")]}
 # the libraries each entry of ROWS builds
-BUILDS = {"CLI": ["K1", "K2", "K4", "K5"]}
+BUILDS = {"CLI": ["K1", "K2", "K4", "K5", "I8"]}
 
 
 def worker(tree: str, kernels, breakdown: bool) -> None:
@@ -90,18 +97,36 @@ def worker(tree: str, kernels, breakdown: bool) -> None:
         k3(cs, gen, dev, res, tree)
     if "K8" in kernels:
         k8(cs, dev, res, tree)
+    if "I8" in kernels:
+        i8(cs, dev, res, tree)
     if "CLI" in kernels:
         cli_paths(cs, res)
     print("AB " + json.dumps(res), flush=True)
 
 
 def cli_paths(cs, res):
-    """The flagship (bs_roformer) and the mel-band conformer through the
-    tree's cli.main on chip_smoke.py's 60 s song in bf16, as chip_smoke's
-    drive_cli configures them; then three warm separations on the session
-    (rtf_warm and warm_s from the fastest: demix, its segments and copies
-    included) and one model call traced by chip_smoke.phase_profile (device
-    busy time, the kernels' sum, and the idle share of the traced span)."""
+    """The flagship (bs_roformer), the mel-band conformer and the int8
+    flagship (bs_roformer with SESA_INT8_ATTN=1: I8 in every attention
+    layer) through the tree's cli.main on chip_smoke.py's 60 s song in bf16,
+    as chip_smoke's drive_cli configures them; then three warm separations
+    on the session (rtf_warm and warm_s from the fastest: demix, its
+    segments and copies included) and one model call traced by
+    chip_smoke.phase_profile (device busy time, the kernels' sum, and the
+    idle share of the traced span)."""
+    song = cs._song(cs.SONG_S)
+    for key, model_type, model_cfg in (("flagship", "bs_roformer", cs.FLAGSHIP_MODEL),
+                                       ("melconf", "mel_band_conformer", cs.MELCONF_MODEL),
+                                       ("int8", "bs_roformer", cs.FLAGSHIP_MODEL)):
+        if key == "int8":
+            os.environ["SESA_INT8_ATTN"] = "1"
+        try:
+            cli_path(cs, res, key, model_type, model_cfg, song)
+        finally:
+            os.environ.pop("SESA_INT8_ATTN", None)
+
+
+def cli_path(cs, res, key, model_type, model_cfg, song):
+    """One path of :func:`cli_paths`, its numbers under ``key``."""
     import tempfile
     import time
 
@@ -110,43 +135,39 @@ def cli_paths(cs, res):
     from sesa_tpu_torch import cli
     from sesa_tpu_torch.audio_io import write_audio
 
-    song = cs._song(cs.SONG_S)
-    for key, model_type, model_cfg in (("flagship", "bs_roformer", cs.FLAGSHIP_MODEL),
-                                       ("melconf", "mel_band_conformer", cs.MELCONF_MODEL)):
-        sessions = []
-        with tempfile.TemporaryDirectory() as work:
-            os.makedirs(os.path.join(work, "in"))
-            write_audio(os.path.join(work, "in", "song.wav"), song, cs.SR)
-            cfg = {"audio": {"chunk_size": cs.CHUNK, "num_channels": 2, "sample_rate": cs.SR},
-                   "model": model_cfg,
-                   "inference": {"num_overlap": cs.OVERLAP, "batch_size": cs.BATCH,
-                                 "normalize": False},
-                   "training": {"instruments": ["vocals", "other"],
-                                "target_instrument": "vocals"}}
-            with open(os.path.join(work, "config.json"), "w") as f:
-                json.dump(cfg, f)
-            rc = cli.main(["--model_type", model_type, "--config_path",
-                           os.path.join(work, "config.json"), "--input_folder",
-                           os.path.join(work, "in"), "--store_dir", os.path.join(work, "out"),
-                           "--compute_dtype", "bf16"], session_out=sessions)
-        if rc != 0:
-            raise RuntimeError(f"{model_type}: cli.main returned {rc}")
-        session = sessions[0]
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            session.separate(song)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        if session.rescues:
-            raise RuntimeError(f"{model_type}: {session.rescues} bf16 -> f32 rescues")
-        prof = cs.phase_profile(model_type, session, song)
-        res.update({f"{key}_warm_s": min(walls), f"{key}_rtf_warm": cs.SONG_S / min(walls),
-                    f"{key}_busy_ms": prof["device_busy_ms"],
-                    f"{key}_idle_share": prof["idle_share"]})
-        del session, sessions
-        torch.cuda.empty_cache()
+    sessions = []
+    with tempfile.TemporaryDirectory() as work:
+        os.makedirs(os.path.join(work, "in"))
+        write_audio(os.path.join(work, "in", "song.wav"), song, cs.SR)
+        cfg = {"audio": {"chunk_size": cs.CHUNK, "num_channels": 2, "sample_rate": cs.SR},
+               "model": model_cfg,
+               "inference": {"num_overlap": cs.OVERLAP, "batch_size": cs.BATCH,
+                             "normalize": False},
+               "training": {"instruments": ["vocals", "other"], "target_instrument": "vocals"}}
+        with open(os.path.join(work, "config.json"), "w") as f:
+            json.dump(cfg, f)
+        rc = cli.main(["--model_type", model_type, "--config_path",
+                       os.path.join(work, "config.json"), "--input_folder",
+                       os.path.join(work, "in"), "--store_dir", os.path.join(work, "out"),
+                       "--compute_dtype", "bf16"], session_out=sessions)
+    if rc != 0:
+        raise RuntimeError(f"{model_type}: cli.main returned {rc}")
+    session = sessions[0]
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.separate(song)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if session.rescues:
+        raise RuntimeError(f"{model_type}: {session.rescues} bf16 -> f32 rescues")
+    prof = cs.phase_profile(model_type, session, song)
+    res.update({f"{key}_warm_s": min(walls), f"{key}_rtf_warm": cs.SONG_S / min(walls),
+                f"{key}_busy_ms": prof["device_busy_ms"],
+                f"{key}_idle_share": prof["idle_share"]})
+    del session, sessions
+    torch.cuda.empty_cache()
 
 
 def k1(cs, dev, res, tree, breakdown):
@@ -348,6 +369,35 @@ def k8(cs, dev, res, tree):
             torch.cuda.empty_cache()
 
 
+def i8(cs, dev, res, tree):
+    """I8 at the flagship's two legs (time: 372 x 8 sequences of 690 frames;
+    freq: 4140 x 8 of 62 bands; dim_head 64) on the views the roformer hands
+    it (chip_smoke._k3_views), checked against sdpa_int8_plain; SDPA's
+    fastest backend on the same bf16 tensors is the yardstick. Where the
+    tree's wrapper exposes its stages (sdpa_int8_stages), each is timed
+    alone with CUDA events too."""
+    import torch
+
+    from sesa_tpu_torch.ops import attention as A
+
+    gen = torch.Generator().manual_seed(9)
+    heads, dh = cs.FLAGSHIP_MODEL["heads"], cs.FLAGSHIP_MODEL["dim_head"]
+    for leg, b, n in (("time", cs.BATCH * cs.BANDS, cs.FRAMES),
+                      ("freq", cs.BATCH * cs.FRAMES, cs.BANDS)):
+        key = f"I8_{leg}"
+        q, k, v = cs._k3_views(gen, dev, b, n, heads, dh)
+        cs.compare(f"{tree} {key}", A.sdpa_int8(q, k, v), A.sdpa_int8_plain(q, k, v),
+                   torch.zeros((), device=dev))
+        res[key] = cs.time_ms(lambda: A.sdpa_int8(q, k, v), reps=20, warmup=3)
+        lib = cs.k3_library(q, k, v, dh ** -0.5)
+        res[key + "_library"], res[key + "_library_name"] = lib["library_ms"], lib["library"]
+        if hasattr(A, "sdpa_int8_stages"):
+            for name, launch in A.sdpa_int8_stages(q, k, v):
+                res[f"{key}_{name}"] = cs.time_ms(launch, reps=20, warmup=3)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--base", help="the base tree (e.g. the parent commit, unpacked)")
@@ -398,8 +448,11 @@ def main() -> int:
         return f"{v['median']:.4f} [{v['lo']:.4f}-{v['hi']:.4f}]{unit}"
 
     for k in rows:
-        unit = "" if k.startswith(("flagship_", "melconf_")) else " ms"
-        line = f"{k}: base {cell(summary['base'][k], unit)}, new {cell(summary['new'][k], unit)}"
+        unit = "" if k.startswith(("flagship_", "melconf_", "int8_")) else " ms"
+        # a row one tree lacks (the stages of a kernel the base runs as one call)
+        got = {tree: cell(summary[tree][k], unit) if k in summary[tree] else "-"
+               for tree in ("base", "new")}
+        line = f"{k}: base {got['base']}, new {got['new']}"
         if k + "_library" in summary["new"]:
             line += f", library {cell(summary['new'][k + '_library'], unit)}"
         print(line)

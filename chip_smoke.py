@@ -199,16 +199,18 @@ and prints no result line):
    ``sesa_tpu_torch.gui`` imports (``GRADIO_AVAILABLE``) and ``python -m
    sesa_tpu_torch.main --help`` exits 0.
 19. the modules of the last slice, each in its place among the phases
-   above: I8 (``sdpa_int8``) in the kernels phase at the flagship's legs,
-   with small shapes, f32 through the plain version and a NaN kept to its
-   row; ``phase_jobs`` after the first chain, on its loaded flagship and
+   above: I8 (``sdpa_int8``) in the kernels phase at the flagship's legs
+   (the freq leg's fused route, the time leg's pre-pass and attention
+   kernel, each stage timed alone with CUDA events), with small shapes on
+   both routes, f32 through the plain version and a NaN kept to its row; ``phase_jobs`` after the first chain, on its loaded flagship and
    mel-band conformer sessions (one ``upload_mix``, two ``demix_start``
    back to back under PyTorch's sync debug mode with the card still busy
    when they return, ``collect_device(stems=)`` into
    ``ensemble_phase_fix_device`` equal to the demix chain, int16 within
    max / 32767, f32 ``collect`` equal to ``demix``); ``phase_int8`` after it
    (the flagship through ``cli.main`` with ``SESA_INT8_ATTN=1``: I8 72, K1
-   0, K2 72, 0 rescues, >= 25 dB against f32 beside the bf16 run's SNR);
+   0, K2 72, 0 rescues, >= 25 dB against f32 beside the bf16 run's SNR, its
+   warm separation's seconds beside the bf16 session's);
    ``phase_export`` after phase 14 (mdx23c at the InstVocHQ widths, one
    block a scale, exported with ``torch.export`` in f32, loaded, a batch of
    8 against the direct apply; bs_mamba2's trace, one block a stage, refused
@@ -1045,64 +1047,89 @@ PEAK_INT8_OPS = 1979e12
 
 def _i8_row(q, k, v, leg, key="I8"):
     """I8 on q, k, v (b, h, n, D) against its plain version, timed beside the
-    plain version and SDPA's fastest backend on the same bf16 tensors. The
-    bound: q, k, v read and o written once, against the int8 product at the
-    int8 peak plus P . V at the bf16 peak."""
+    plain version and SDPA's fastest backend on the same bf16 tensors, and
+    each of its stages (the tiles route's pre-pass and attention kernel, the
+    fused route's one kernel) timed alone with CUDA events. The bound: q, k,
+    v read and o written once, against the int8 product at the int8 peak
+    plus P . V at the bf16 peak."""
     import torch
 
-    from sesa_tpu_torch.ops.attention import sdpa_int8, sdpa_int8_plain
+    from sesa_tpu_torch.ops.attention import i8_plan, sdpa_int8, sdpa_int8_plain, sdpa_int8_stages
 
     b, heads, n, dh = q.shape
     bh = b * heads
+    route = i8_plan(q, k, v, torch.cuda.get_device_properties(q.device)
+                    .multi_processor_count)["route"]
     out = sdpa_int8(q, k, v)
     torch.cuda.synchronize()
-    err = compare(f"I8 {leg} leg (BH={bh}, n={n}, D={dh})", out, sdpa_int8_plain(q, k, v),
-                  torch.zeros((), device=q.device))
+    err = compare(f"I8 {leg} leg (BH={bh}, n={n}, D={dh}, {route} route)", out,
+                  sdpa_int8_plain(q, k, v), torch.zeros((), device=q.device))
     del out
     torch.cuda.empty_cache()
     t_ops = 2 * bh * n * n * dh / PEAK_INT8_OPS + 2 * bh * n * n * dh / PEAK_BF16_FLOPS
     t_bytes = 4 * 2 * bh * n * dh / PEAK_BYTES_S
+    stages = {name: time_ms(launch, reps=20, warmup=3)
+              for name, launch in sdpa_int8_stages(q, k, v)}
     row = dict(name=f"sdpa_int8 ({leg} leg, BH={bh}, n={n}, D={dh}, strided views)",
-                route="cuda", source="sesa_tpu_torch/csrc/int8_attention.cu",
-                replaces="none (beside K3; sesa_tpu/ops/attention.py:62 sdpa_int8 is plain JAX)",
-                max_abs_err=err, ms=time_ms(lambda: sdpa_int8(q, k, v)),
-                plain_ms=time_ms(lambda: sdpa_int8_plain(q, k, v), reps=2, warmup=1),
-                **k3_library(q, k, v, dh ** -0.5),
-                bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes", kernel=key)
-    log_breakdown(row, f"I8 {leg} leg", lambda: sdpa_int8(q, k, v))
+               route="cuda", source="sesa_tpu_torch/csrc/int8_attention.cu",
+               replaces="none (beside K3; sesa_tpu/ops/attention.py:62 sdpa_int8 is plain JAX)",
+               max_abs_err=err, ms=time_ms(lambda: sdpa_int8(q, k, v), reps=20, warmup=3),
+               plain_ms=time_ms(lambda: sdpa_int8_plain(q, k, v), reps=2, warmup=1),
+               **k3_library(q, k, v, dh ** -0.5),
+               bound_ms=1e3 * max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes", kernel=key,
+               i8_route=route, stages_ms=stages)
+    log(f"  I8 {leg} leg by stage ({route} route, CUDA events): "
+        + "; ".join(f"{name} {ms:.3f} ms" for name, ms in stages.items()))
     return row
 
 
 def i8_small(gen, dev):
-    """I8 at small shapes against its plain version: every core width (D 8 to
-    128, D 100 padded for V), n from 1 to past two tiles, views and
-    contiguous tensors, 3-D input; f32 runs the plain version (no launch); a
-    NaN in one query row reaches that row's output only."""
+    """I8 at small shapes against its plain version, on both routes: every
+    core width (D 8 to 128, D 100 padded for V), n from 1 to past two key
+    tiles (n <= 64 the fused route, beyond it the pre-pass and the tiles),
+    the freq leg's 62 and the time leg's 690, a sequence of 1600 (the
+    pre-pass without clusters), views and 3-D contiguous tensors; f32 runs
+    the plain version (no launch); on each route a NaN in one query row
+    reaches that row's output only."""
     import torch
 
-    from sesa_tpu_torch.ops.attention import sdpa_int8, sdpa_int8_plain
+    from sesa_tpu_torch.ops.attention import i8_plan, sdpa_int8, sdpa_int8_plain
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     zero = torch.zeros((), device=dev)
     for d in (8, 24, 32, 40, 64, 96, 100, 128):
-        for n in (1, 7, 64, 65, 130):
+        for n in (1, 7, 62, 64, 65, 130, 690):
             q, k, v = _k3_views(gen, dev, 3, n, 2, d)
-            compare(f"I8 small (b=3, h=2, n={n}, D={d}, views)", sdpa_int8(q, k, v),
+            route = i8_plan(q, k, v, sms)["route"]
+            if route != ("fused" if n <= 64 else "tiles"):
+                raise RuntimeError(f"I8: n={n} planned on the {route} route")
+            compare(f"I8 small (b=3, h=2, n={n}, D={d}, views, {route})", sdpa_int8(q, k, v),
                     sdpa_int8_plain(q, k, v), zero)
-    q, k, v = (torch.randn((5, 77, 64), generator=gen).to(dev, torch.bfloat16) for _ in range(3))
-    compare("I8 small 3-D contiguous (5, 77, 64)", sdpa_int8(q, k, v), sdpa_int8_plain(q, k, v),
-            zero)
-    before = sdpa_int8.launches
-    out = sdpa_int8(q.float(), k.float(), v.float())
-    if sdpa_int8.launches != before or out.dtype != torch.float32:
-        raise RuntimeError("I8: f32 inputs must run the plain version")
-    q = q.clone()
-    q[2, 5, 3] = float("nan")
-    out = sdpa_int8(q, k, v).float()
-    torch.cuda.synchronize()
-    bad = ~out.isfinite().all(-1)
-    if not bool(bad[2, 5]) or int(bad.sum()) != 1:
-        raise RuntimeError(f"I8: a NaN query gave {int(bad.sum())} non-finite rows")
+    # a sequence too long for the pre-pass's clusters (one block reads k twice)
+    q, k, v = _k3_views(gen, dev, 2, 1600, 2, 64)
+    if i8_plan(q, k, v, sms)["prepass"]["cluster"] != 1:
+        raise RuntimeError("I8: n=1600 planned on the pre-pass's clusters")
+    compare("I8 small (b=2, h=2, n=1600, D=64, views, tiles, one pre-pass block a sequence)",
+            sdpa_int8(q, k, v), sdpa_int8_plain(q, k, v), zero)
+    for n in (50, 77):
+        q, k, v = (torch.randn((5, n, 64), generator=gen).to(dev, torch.bfloat16)
+                   for _ in range(3))
+        route = i8_plan(q, k, v, sms)["route"]
+        compare(f"I8 small 3-D contiguous (5, {n}, 64), {route}", sdpa_int8(q, k, v),
+                sdpa_int8_plain(q, k, v), zero)
+        before = sdpa_int8.launches
+        out = sdpa_int8(q.float(), k.float(), v.float())
+        if sdpa_int8.launches != before or out.dtype != torch.float32:
+            raise RuntimeError("I8: f32 inputs must run the plain version")
+        q = q.clone()
+        q[2, 5, 3] = float("nan")
+        out = sdpa_int8(q, k, v).float()
+        torch.cuda.synchronize()
+        bad = ~out.isfinite().all(-1)
+        if not bool(bad[2, 5]) or int(bad.sum()) != 1:
+            raise RuntimeError(f"I8 ({route} route): a NaN query gave {int(bad.sum())} "
+                               "non-finite rows")
 
 
 def _k4_row(args, label, key):
@@ -2195,7 +2222,8 @@ def phase_int8(song, calls, layers, bf16_session):
     """The flagship through cli.main with SESA_INT8_ATTN=1 (popped after):
     I8 in every attention layer, K1 refused, K2 on every feed-forward, no
     rescue; its stems against an f32 run of the same weights without int8
-    (>= INT8_SNR_FLOOR_DB), printed beside the bf16 session's SNR."""
+    (>= INT8_SNR_FLOOR_DB), printed beside the bf16 session's SNR, and its
+    warm separation's seconds beside the bf16 session's, timed after it."""
     import numpy as np
     import torch
 
@@ -2212,13 +2240,20 @@ def phase_int8(song, calls, layers, bf16_session):
         os.environ.pop("SESA_INT8_ATTN", None)
     f32 = InferenceSession(session.model_type, session.config, session.params, session.spec,
                            session.device, compute_dtype=None).separate(song)["vocals"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     bf16 = bf16_session.separate(song)["vocals"]
+    torch.cuda.synchronize()
+    bf16_warm = time.perf_counter() - t0
     int8, f32, bf16 = (torch.from_numpy(np.ascontiguousarray(a)) for a in (int8, f32, bf16))
     res.update(snr_int8_vs_f32_db=snr_db(int8, f32), snr_bf16_vs_f32_db=snr_db(bf16, f32),
+               bf16_separate_warm_s=bf16_warm, bf16_rtf_warm=SONG_S / bf16_warm,
                finite=bool(torch.isfinite(int8).all()), card=gpu_line())
     log(f"  int8 flagship: {res['snr_int8_vs_f32_db']:.1f} dB against f32 "
         f"(bf16 without int8: {res['snr_bf16_vs_f32_db']:.1f} dB), I8 launches "
-        f"{res['launches']['I8']}, K1 {res['launches']['K1']}")
+        f"{res['launches']['I8']}, K1 {res['launches']['K1']}; warm separation "
+        f"{res['separate_warm_s']:.3f} s (rtf_warm {res['rtf_warm']:.1f}), bf16 without int8 "
+        f"{bf16_warm:.3f} s (rtf_warm {SONG_S / bf16_warm:.1f})")
     if not res["snr_int8_vs_f32_db"] >= INT8_SNR_FLOOR_DB:
         raise RuntimeError(f"int8 flagship: {res['snr_int8_vs_f32_db']:.1f} dB against f32, "
                            f"below {INT8_SNR_FLOOR_DB}")

@@ -69,7 +69,8 @@ SIGNATURES = {
         "sesa_vmem_attn": [_P] * 4 + [_I] + [_L] * 16 + [_I] * 4 + [_F, _P],
     },
     "int8_attention": {
-        "sesa_int8_attn": [_P] * 8 + [_L] * 9 + [_I] * 5 + [_F, _P],
+        "sesa_i8_prepass": [_P] * 3 + [_L] * 3 + [_I] * 9 + [_P],
+        "sesa_i8_attn": [_I] + [_P] * 6 + [_I] + [_L] * 16 + [_I] * 4 + [_F, _I, _I, _P],
     },
     "ssd": {
         "sesa_ssd": [_P] * 6 + [_I] + [_L] * 4 + [_I] * 6 + [_L, _P],

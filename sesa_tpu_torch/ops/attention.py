@@ -291,9 +291,132 @@ def int8_attention_shape_ok(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
     return 1 <= d <= 128 and n >= 1 and q.numel() // (n * d) * -(-n // 64) <= 2 ** 31 - 1
 
 
-def _strides3(t: torch.Tensor):
-    """(b, h, s) element strides of a 4-D (b, h, n, d) view."""
-    return t.stride(0), t.stride(1), t.stride(2)
+# I8's routes (csrc/int8_attention.cu): one kernel while one key tile of 64
+# holds the sequence, else the pre-pass and the attention kernel over key
+# tiles of 128
+_I8_ROUTES = {"fused": 0, "tiles": 1}
+_I8_FUSED_MAX_N, _I8_BK = 64, 128
+# the pre-pass (csrc PRE_CLUSTER, PRE_STAGE_MAX): a cluster of 4 blocks a
+# sequence, each keeping its rows of k in at most 48 KiB of shared memory (4
+# blocks an SM); a sequence too long for that takes one block and reads k
+# twice
+_I8_PRE_CLUSTER, _I8_PRE_STAGE_MAX = 4, 49152
+
+
+def _i8_smem(route: str, dh: int) -> dict:
+    """I8's dynamic shared memory by buffer at core width ``dh``: the layouts
+    of ``csrc/int8_attention.cu`` ``FusedCfg`` and ``TilesCfg`` (``total``
+    adds the mbarriers and 1024 bytes of alignment slack)."""
+    ncw = 2 if dh == 128 else 3
+    q8, staging = 64 * dh, 64 * (dh + 8) * 2
+    if route == "fused":
+        stages = {32: 8, 64: 6, 128: 3}[dh]
+        buffers = {"qkv stages": stages * 3 * 64 * dh * 2,
+                   "q8, k8, staging": ncw * (2 * q8 + staging),
+                   "scales, mean": ncw * (64 + 64 + 5 * dh) * 4}
+        bars = 2 * stages
+    else:
+        stages, qbuf = (2, 1) if dh == 128 else (3, 2)
+        buffers = {"q": qbuf * 64 * ncw * dh * 2, "k codes": stages * _I8_BK * dh,
+                   "v": stages * _I8_BK * dh * 2, "q8, staging": ncw * (q8 + staging),
+                   "k scales": stages * _I8_BK * 4, "q scales": ncw * 64 * 4}
+        bars = 2 * qbuf + 3 * stages
+    return dict(buffers, total=sum(buffers.values()) + 8 * bars + 1024)
+
+
+def i8_plan(q, k, v, sms: int) -> dict:
+    """The host side of kernel I8: how it reads q, k, v (..., n, D), where it
+    writes, and what each launch gets on a card of ``sms`` SMs.
+
+    q, k and v are read as :func:`k3_plan` reads them: the roformer's
+    strided (b, h, n, d) views where they lie, through (d, s, h, b) tensor
+    maps, with the output laid out (b, n, h, d) and returned as its (b, h,
+    n, d) view; anything else contiguous (BH, n, D) through (d, s, bh) maps;
+    a width that is not a multiple of 8 zero-padded to one. The kernel runs
+    at ``dh``, the narrowest of 32, 64 and 128 that holds D.
+
+    - ``route`` "fused" for n <= 64: one kernel reads bf16 q, k and v once
+      and makes k's mean and both codes in shared memory; "tiles" beyond: a
+      ``prepass`` (``n_kt`` key tiles of 128 each a sequence, ``codes_bytes``
+      of code tile images and ``scales`` f32 key scales; a ``cluster`` of 4
+      blocks a sequence, each keeping its ``rows`` of k in ``smem`` bytes of
+      shared memory between its two passes, or where that passes 48 KiB one
+      block a sequence reading k twice; ``grid`` blocks), then the
+      attention kernel;
+    - ``grid``: one persistent block per SM, never more than the ``units``
+      (fused: sequences; tiles: (sequence, 64 × ``ncw`` queries) tiles);
+    - ``smem``: its dynamic shared memory, ``buffers`` by buffer;
+    - ``tensors``, ``rank``, ``dims``, ``strides``, ``out``,
+      ``out_strides``, ``result``, ``b``, ``h``: as :func:`k3_plan` gives
+      them.
+
+    ``csrc/int8_attention.cu`` refuses a plan that does not match."""
+    n = q.shape[-2]
+    tensors, rank, dims, strides, out, out_strides, result, b, h = k3_plan(q, k, v)
+    dh = core_width(dims[0])
+    route = "fused" if n <= _I8_FUSED_MAX_N else "tiles"
+    ncw = 2 if dh == 128 else 3
+    seqs = b * h
+    units = seqs if route == "fused" else seqs * -(-n // (64 * ncw))
+    smem = _i8_smem(route, dh)
+    plan = dict(route=route, route_id=_I8_ROUTES[route], dh=dh, ncw=ncw, units=units,
+                grid=min(units, sms), smem=smem["total"],
+                buffers={k_: v_ for k_, v_ in smem.items() if k_ != "total"},
+                tensors=tensors, rank=rank, dims=dims, strides=strides, out=out,
+                out_strides=out_strides, result=result, b=b, h=h, prepass=None)
+    if route == "tiles":
+        n_kt = -(-n // _I8_BK)
+        row, head, batch = strides[1] if rank == 4 else (strides[1][0], 0, strides[1][1])
+        # a block's share of the rows, in whole passes of its 256 threads
+        per_pass, share = 256 // (dh // 16), -(-n_kt * _I8_BK // _I8_PRE_CLUSTER)
+        rows = -(-share // per_pass) * per_pass
+        cluster = _I8_PRE_CLUSTER if rows * dh * 2 <= _I8_PRE_STAGE_MAX else 1
+        if cluster == 1:
+            rows = n_kt * _I8_BK
+        plan["prepass"] = dict(grid=seqs * cluster, cluster=cluster, rows=rows,
+                               smem=rows * dh * 2 if cluster > 1 else 0, n_kt=n_kt,
+                               codes_bytes=seqs * n_kt * _I8_BK * dh,
+                               scales=seqs * n_kt * _I8_BK, k_strides=(row, head, batch))
+    return plan
+
+
+def _i8_launches(q, k, v, scale):
+    """The C calls of one I8 run on CUDA q, k, v: ([(stage name, launch)],
+    the result to return). The wrapper runs them in turn; ``chip_smoke.py``
+    times each stage alone."""
+    if not int8_attention_shape_ok(q, k, v) or not scale > 0:
+        raise ValueError(f"sdpa_int8: unsupported q {q.dtype} {tuple(q.shape)}, k {k.dtype} "
+                         f"{tuple(k.shape)}, v {v.dtype} {tuple(v.shape)}, scale {scale} (the "
+                         "kernel takes bf16 tensors of one shape, dim_head 1 to 128)")
+    if not q.device.type == k.device.type == v.device.type == "cuda":
+        raise ValueError(f"sdpa_int8: q, k and v must lie on CUDA; got {q.device}, "
+                         f"{k.device}, {v.device}")
+    dev = q.device
+    n = q.shape[-2]
+    plan = i8_plan(q, k, v, torch.cuda.get_device_properties(dev).multi_processor_count)
+    (qt, kt, vt), rank, dims = plan["tensors"], plan["rank"], plan["dims"]
+    b, h, dh = plan["b"], plan["h"], plan["dh"]
+    lib = _build.load("int8_attention")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    codes = scales = None
+    stages = []
+    pre = plan["prepass"]
+    if pre is not None:
+        codes = torch.empty((pre["codes_bytes"],), dtype=torch.int8, device=dev)
+        scales = torch.empty((pre["scales"],), dtype=torch.float32, device=dev)
+        stages.append(("prepass", lambda: _build.check(lib.sesa_i8_prepass(
+            kt.data_ptr(), codes.data_ptr(), scales.data_ptr(), *pre["k_strides"], b, h, n,
+            dims[0], dh, pre["n_kt"], pre["cluster"], pre["rows"], pre["smem"], stream),
+            "sesa_i8_prepass")))
+    dims4 = tuple(dims) + (1,) * (4 - rank)
+    flat = [x for st in plan["strides"] for x in tuple(st) + (0,) * (4 - rank)]
+    out = plan["out"]
+    stages.append(("attention", lambda: _build.check(lib.sesa_i8_attn(
+        plan["route_id"], qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), out.data_ptr(),
+        None if codes is None else codes.data_ptr(), None if scales is None else scales.data_ptr(),
+        rank, *dims4, *flat, *plan["out_strides"], b, h, n, dh, float(scale), plan["grid"],
+        plan["smem"], stream), "sesa_i8_attn")))
+    return stages, plan["result"]
 
 
 def sdpa_int8(q, k, v, scale=None):
@@ -305,11 +428,14 @@ def sdpa_int8(q, k, v, scale=None):
     CPU tensors run :func:`sdpa_int8_plain`. On CUDA, f32 inputs also run
     the plain version: an explicit dtype gate, as K1's gate refuses f32 in
     both packages (f32 is the parity and rescue mode). bf16 inputs must be a
-    shape :func:`int8_attention_shape_ok` takes; anything else raises. q
-    and k are read where they lie (any strides with a unit stride along D);
-    v too where its strides are multiples of 8 and its base 16-byte aligned,
-    else it is copied (and D padded to a multiple of 8). The output is
-    contiguous. Each launch adds one to ``sdpa_int8.launches``.
+    shape :func:`int8_attention_shape_ok` takes; anything else raises. The
+    kernel rounds the probabilities to bf16 before normalising them (an
+    online softmax, as K3's core), where JAX and the plain version round
+    after: about one bf16 ulp apart. :func:`i8_plan` says how the kernel
+    reads q, k and v (the roformer's strided views where they lie) and where
+    it writes: for those views the output lies (b, n, h, d) in memory, the
+    layout the out projection reads, and is returned as its (b, h, n, d)
+    view. Each call adds one to ``sdpa_int8.launches``.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -318,40 +444,20 @@ def sdpa_int8(q, k, v, scale=None):
         return sdpa_int8_plain(q, k, v, scale)
     _build.refuse_export("sdpa_int8 (I8)")
     _build.refuse_autograd("sdpa_int8 (I8)", q, k, v)
-    if not int8_attention_shape_ok(q, k, v) or not scale > 0:
-        raise ValueError(f"sdpa_int8: unsupported q {q.dtype} {tuple(q.shape)}, k {k.dtype} "
-                         f"{tuple(k.shape)}, v {v.dtype} {tuple(v.shape)}, scale {scale} (the "
-                         "kernel takes bf16 tensors of one shape, dim_head 1 to 128)")
-    if not q.device.type == k.device.type == v.device.type == "cuda":
-        raise ValueError(f"sdpa_int8: q, k and v must lie on CUDA; got {q.device}, "
-                         f"{k.device}, {v.device}")
-    n, d = q.shape[-2:]
-    lead = q.shape[:-2]
-
-    def as4(t):
-        t = t if t.ndim == 4 else t.reshape((-1, 1) + t.shape[-2:])
-        return t if t.stride(-1) == 1 else t.contiguous()
-
-    q4, k4, v4 = as4(q), as4(k), as4(v)
-    if d % 8 or any(s % 8 for s in _strides3(v4)) or v4.data_ptr() % 16:
-        v4 = F.pad(v4, (0, -d % 8)).contiguous()
-    b, h = q4.shape[:2]
-    dh = core_width(d)
-    dev = q.device
-    q8 = torch.empty((b * h * n * dh,), dtype=torch.int8, device=dev)
-    k8 = torch.empty_like(q8)
-    qs = torch.empty((b * h * n,), dtype=torch.float32, device=dev)
-    ks = torch.empty_like(qs)
-    out = torch.empty((b, h, n, d), dtype=q.dtype, device=dev)
-    lib = _build.load("int8_attention")
-    _build.check(lib.sesa_int8_attn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(),
-                                    q8.data_ptr(), k8.data_ptr(), qs.data_ptr(), ks.data_ptr(),
-                                    *_strides3(q4), *_strides3(k4), *_strides3(v4), b, h, n, d,
-                                    dh, float(scale),
-                                    torch.cuda.current_stream(dev).cuda_stream),
-                 "sesa_int8_attn")
+    stages, result = _i8_launches(q, k, v, scale)
+    for _, launch in stages:
+        launch()
     sdpa_int8.launches += 1
-    return out.reshape(lead + (n, d))
+    return result
+
+
+def sdpa_int8_stages(q, k, v, scale=None):
+    """I8's launches on CUDA bf16 q, k, v as [(stage name, launch)]: the
+    pre-pass and the attention kernel on the tiles route, the attention
+    kernel alone on the fused route; each call of a launch runs that C entry
+    point once on buffers made here. For timing the stages apart; nothing is
+    counted in ``sdpa_int8.launches``."""
+    return _i8_launches(q, k, v, q.shape[-1] ** -0.5 if scale is None else scale)[0]
 
 
 sdpa_int8.launches = 0

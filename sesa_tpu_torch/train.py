@@ -412,7 +412,10 @@ def parse_loss_config(config: Dict[str, Any]) -> Callable:
 # Checkpoints: one flat npz
 # ---------------------------------------------------------------------------
 
-_FORMAT = "sesa_tpu_torch.train/1"
+_FORMAT = "sesa_tpu_torch.train/2"
+# the first format: optimizer state paired with the parameters by position
+# only (read still, as before)
+_FORMAT_BY_INDEX = "sesa_tpu_torch.train/1"
 
 
 def _flatten(tree, prefix=""):
@@ -457,10 +460,21 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def _optimizer_payload(optimizer: torch.optim.Optimizer):
+def _param_names(optimizer: torch.optim.Optimizer, params) -> List[str]:
+    """The dotted leaf name in ``params`` of each of ``optimizer``'s
+    parameters, in the optimizer's order (matched by identity)."""
+    by_id = {id(leaf): name for name, leaf in _flatten(params).items()}
+    names = [by_id.get(id(p)) for g in optimizer.param_groups for p in g["params"]]
+    if None in names:
+        raise ValueError("the optimizer steps a tensor that is not a leaf of the params")
+    return names
+
+
+def _optimizer_payload(optimizer: torch.optim.Optimizer, names: Sequence[str]):
     """The optimizer's state as ``opt/<param index>.<key>`` arrays and a JSON
-    description: its class, its param groups, and per param index the state
-    keys, which of them are tensors, and the plain values."""
+    description: its class, its param groups, the dotted leaf name of each
+    param index (``names``, in the optimizer's order), and per param index
+    the state keys, which of them are tensors, and the plain values."""
     sd = optimizer.state_dict()
     arrays, state = {}, {}
     for idx in sorted(sd["state"]):
@@ -474,7 +488,7 @@ def _optimizer_payload(optimizer: torch.optim.Optimizer):
                 entry["values"][key] = v
         state[str(idx)] = entry
     desc = {"class": type(optimizer).__name__, "param_groups": sd["param_groups"],
-            "state": state}
+            "names": list(names), "state": state}
     return arrays, desc
 
 
@@ -490,7 +504,7 @@ def save_checkpoint(path: str, params, optimizer: Optional[torch.optim.Optimizer
     payload.update({f"params/{k}": _host(v) if isinstance(v, torch.Tensor) else np.asarray(v)
                     for k, v in _flatten(params).items()})
     if optimizer is not None:
-        optimizer_payload = _optimizer_payload(optimizer)
+        optimizer_payload = _optimizer_payload(optimizer, _param_names(optimizer, params))
     if optimizer_payload is not None:
         arrays, desc = optimizer_payload
         payload.update(arrays)
@@ -529,7 +543,7 @@ def load_checkpoint(path: str, model=None, config=None, optimizer_state: bool = 
                     "moments and counts in other places and forms than torch.optim (and "
                     "RMSprop's trace after the LR), so it cannot resume a torch optimizer; "
                     "load with optimizer_state=False to take the params and step only")
-        elif "format" in z.files and str(z["format"]) != _FORMAT:
+        elif "format" in z.files and str(z["format"]) not in (_FORMAT, _FORMAT_BY_INDEX):
             raise ValueError(f"{path}: unknown checkpoint format {str(z['format'])!r}")
         elif optimizer_state and "opt_json" in z.files:
             opt_state = (json.loads(str(z["opt_json"])),
@@ -544,9 +558,16 @@ def load_checkpoint(path: str, model=None, config=None, optimizer_state: bool = 
     return params, opt_state, step, extra
 
 
-def _restore_optimizer(optimizer: torch.optim.Optimizer, opt_state) -> None:
-    """Load ``(description, arrays)`` into ``optimizer``; raise on any drift
-    of optimizer, parameter count or state shapes."""
+def _restore_optimizer(optimizer: torch.optim.Optimizer, opt_state,
+                       names: Sequence[str]) -> None:
+    """Load ``(description, arrays)`` into ``optimizer``, whose parameters
+    are the leaves ``names`` (in its order); raise on any drift of
+    optimizer, parameters or state shapes.
+
+    A description with ``names`` (format 2) pairs each saved state with the
+    live parameter of the same leaf name, whatever order either tree keeps
+    its keys in, and raises on a name missing from either side. One without
+    (format 1) pairs them by position."""
     desc, arrays = opt_state
     if desc["class"] != type(optimizer).__name__:
         raise ValueError(f"checkpoint optimizer {desc['class']} does not match the trainer's "
@@ -554,13 +575,32 @@ def _restore_optimizer(optimizer: torch.optim.Optimizer, opt_state) -> None:
     current = optimizer.state_dict()
     saved_ids = [i for g in desc["param_groups"] for i in g["params"]]
     ids = [i for g in current["param_groups"] for i in g["params"]]
-    if saved_ids != ids:
+    if len(saved_ids) != len(ids) or len(desc["param_groups"]) != len(current["param_groups"]):
         raise ValueError(f"checkpoint optimizer covers {len(saved_ids)} parameters, the "
                          f"trainer's {len(ids)}: optimizer config drift")
+    if "names" in desc:
+        saved, live = desc["names"], list(names)
+        missing, extra = sorted(set(live) - set(saved)), sorted(set(saved) - set(live))
+        if missing or extra or len(set(saved)) != len(saved) or len(saved) != len(saved_ids):
+            raise ValueError(f"checkpoint optimizer state does not match the trainer's "
+                             f"parameters by name: missing {missing[:5]}, extra {extra[:5]}")
+        where = {name: i for i, name in enumerate(live)}
+        index = {j: where[name] for j, name in enumerate(saved)}
+    else:
+        if saved_ids != ids:
+            raise ValueError("checkpoint optimizer groups its parameters otherwise than the "
+                             "trainer's: optimizer config drift")
+        index = {i: i for i in saved_ids}
+    groups = []
+    for g, cur in zip(desc["param_groups"], current["param_groups"]):
+        if sorted(index[i] for i in g["params"]) != sorted(cur["params"]):
+            raise ValueError("checkpoint optimizer groups its parameters otherwise than the "
+                             "trainer's: optimizer config drift")
+        groups.append(dict(g, params=cur["params"]))
     params = [p for g in optimizer.param_groups for p in g["params"]]
     state = {}
     for idx, entry in desc["state"].items():
-        i = int(idx)
+        i = index[int(idx)]
         st = dict(entry["values"])
         for key in entry["tensors"]:
             a = arrays[f"opt/{idx}.{key}"]
@@ -574,7 +614,7 @@ def _restore_optimizer(optimizer: torch.optim.Optimizer, opt_state) -> None:
                 st[key] = distribute_tensor(st[key].to(params[i].device),
                                             params[i].device_mesh, params[i].placements)
         state[i] = st
-    optimizer.load_state_dict({"state": state, "param_groups": desc["param_groups"]})
+    optimizer.load_state_dict({"state": state, "param_groups": groups})
 
 
 # ---------------------------------------------------------------------------
@@ -667,7 +707,9 @@ class Trainer:
 
             params = shard_params(mesh, params, rule=param_rule)
         self.params = tree_map(lambda p: p.requires_grad_(True), params)
-        self._leaves = list(_flatten(self.params).values())
+        flat = _flatten(self.params)
+        # the optimizer's parameters, in its order, and their dotted names
+        self._names, self._leaves = list(flat), list(flat.values())
         # torch's foreach kernels take no DTensor beside plain tensors
         self.tx.init(self._leaves,
                      foreach=False if any(is_dtensor(p) for p in self._leaves) else None)
@@ -813,7 +855,7 @@ class Trainer:
         import torch.distributed as dist
 
         params = tree_map(_host, self.params)
-        arrays, desc = _optimizer_payload(self.tx.optimizer)
+        arrays, desc = _optimizer_payload(self.tx.optimizer, self._names)
         if dist.get_rank() == int(self.mesh.mesh.flatten()[0]):
             save_checkpoint(path, params, None, self.step, extra=extra,
                             optimizer_payload=(arrays, desc))
@@ -844,5 +886,5 @@ class Trainer:
             for dst, src in zip(self._leaves, _flatten(loaded).values()):
                 dst.copy_(src)
         if opt_state is not None:
-            _restore_optimizer(self.tx.optimizer, opt_state)
+            _restore_optimizer(self.tx.optimizer, opt_state, self._names)
         self.step = step

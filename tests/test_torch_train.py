@@ -6,6 +6,7 @@ JAX Trainer, checkpoints both ways, and the kernels' autograd guard (meta
 tensors stand in for the card)."""
 
 import importlib
+import json
 
 import numpy as np
 import pytest
@@ -500,6 +501,99 @@ def test_checkpoint_refuses_drift(tmp_path):
     loaded, opt_state, step, extra = load_checkpoint(str(tmp_path / "p.npz"))
     assert (opt_state, step, extra) == (None, 42, {"k": 1})
     assert isinstance(loaded["stack"], list) and loaded["layer"]["w"].dtype == torch.float32
+
+
+ADAM = {"optimizer": {"name": "Adam", "kwargs": {"lr": 1e-2}}}
+
+
+def _orders():
+    """Two Adam trainers of tiny mdx23c on the same weights whose trees keep
+    their keys in other orders: ``init`` from the port's init (insertion
+    order), ``sorted`` from ``params_from_jax`` of the same weights as JAX
+    hands them (sorted keys)."""
+    cfg = AttrDict(_mdx_dict())
+    init = _trainer(optimizer=ADAM, seed=1)
+    as_jax = jax.tree.map(np.asarray, tree_map(lambda p: p.detach().numpy(), init.params))
+    other = _trainer(optimizer=ADAM, params=params_from_jax(as_jax, "mdx23c", cfg))
+    assert list(_flatten(init.params)) != list(_flatten(other.params))
+    return {"init": init, "sorted": other}
+
+
+def _moments(trainer):
+    """{leaf name: (exp_avg, exp_avg_sq)} of an Adam trainer."""
+    state = trainer.tx.optimizer.state
+    return {name: (state[p]["exp_avg"], state[p]["exp_avg_sq"])
+            for name, p in _flatten(trainer.params).items()}
+
+
+@pytest.mark.parametrize("src,dst", [("sorted", "init"), ("init", "sorted")])
+def test_optimizer_state_follows_leaf_names_across_key_orders(tmp_path, src, dst):
+    """A checkpoint of a trainer whose tree keeps JAX's sorted keys loads into
+    one built by the port's init (insertion order), and the other way: each
+    leaf gets its own Adam moments, exactly, and one more step gives the
+    same parameters on both."""
+    trainers = _orders()
+    a, b = trainers[src], trainers[dst]
+    for seed in (0, 1):
+        a.train_batch(_item(["vocals", "other"], 8064, seed=seed))
+    path = str(tmp_path / "ck.npz")
+    a.save(path)
+    b.load(path)
+    got, want = _moments(b), _moments(a)
+    assert got.keys() == want.keys() and b.step == 2
+    for name, (m, v) in want.items():
+        assert torch.equal(got[name][0], m) and torch.equal(got[name][1], v), name
+    batch = _item(["vocals", "other"], 8064, seed=5)
+    a.train_batch(batch)
+    b.train_batch(batch)
+    pa, pb = _flatten(a.params), _flatten(b.params)
+    for name, p in pa.items():
+        assert torch.equal(pb[name], p), name
+
+
+def _rewrite(path, out, fn):
+    """``path``'s arrays into ``out`` with ``fn`` applied to the optimizer
+    description and the format entry."""
+    with np.load(path, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    desc, fmt = fn(json.loads(str(arrays["opt_json"])), str(arrays["format"]))
+    arrays["opt_json"], arrays["format"] = np.asarray(json.dumps(desc)), np.asarray(fmt)
+    with open(out, "wb") as f:
+        np.savez(f, **arrays)
+    return out
+
+
+def test_format_1_checkpoint_pairs_the_state_by_position(tmp_path):
+    """A checkpoint of the first format (no leaf names) still loads into a
+    trainer of the same key order, its state paired by position."""
+    a = _trainer(optimizer=ADAM)
+    a.train_batch(_item(["vocals", "other"], 8064))
+    path = a.save(str(tmp_path / "ck.npz"))
+    old = _rewrite(path, str(tmp_path / "v1.npz"),
+                   lambda d, f: ({k: v for k, v in d.items() if k != "names"},
+                                 "sesa_tpu_torch.train/1"))
+    b = _trainer(optimizer=ADAM, seed=7)
+    b.load(old)
+    for name, (m, v) in _moments(a).items():
+        assert torch.equal(_moments(b)[name][0], m) and torch.equal(_moments(b)[name][1], v)
+
+
+@pytest.mark.parametrize("drift", ["missing", "extra"])
+def test_optimizer_state_refuses_a_missing_or_extra_name(tmp_path, drift):
+    """A saved name list that lacks a live leaf (one name twice) or holds one
+    the trainer does not have raises."""
+    a = _trainer(optimizer=ADAM)
+    a.train_batch(_item(["vocals", "other"], 8064))
+    path = a.save(str(tmp_path / "ck.npz"))
+
+    def edit(desc, fmt):
+        names = desc["names"]
+        names[1] = names[0] if drift == "missing" else "no.such.leaf"
+        return desc, fmt
+
+    bad = _rewrite(path, str(tmp_path / "bad.npz"), edit)
+    with pytest.raises(ValueError, match="by name"):
+        _trainer(optimizer=ADAM).load(bad)
 
 
 def test_train_step_holds_tf32_off_through_backward():
