@@ -34,19 +34,20 @@ and prints no result line):
    one token, several boxes along n and a partial head group, sequences
    beyond one tile, one and three chunks, an impulse the state must carry,
    fast decays); K7's row also gives its device time. Then the widths
-   (``width_rows``): K1 at 4 heads x 128 on the flagship's legs and at 8 x 48
-   on the mel-band roformer's, K3 at D 48 and 96 (BH 2976 x S 690), K4 at 8 x
-   48 on the mel-band conformer's legs, K6 at d 768 and 1024 (b 320 x n
+   (``width_rows``): K1 at 4 heads x 128, 16 x 32 and 8 x 96 (padded to
+   128) on the flagship's legs and at 8 x 48 on the mel-band roformer's, K3
+   at D 48 and 96 (BH 2976 x S 690), K4 at 8 x 48, 12 x 32 and 3 x 128 on
+   the mel-band conformer's legs, K6 at d 512, 768, 896 and 1024 (b 320 x n
    1901, k 7), each a timed row with its bound on the real widths, and
    small shapes of each at head widths from 8 to 128 and at d 576 to 1024.
    Then the shapes that K5, K7 and K8 took last, each a timed row against
-   its plain version with its bound: K5 at 33, 64, 65 and 129 taps on the
-   mel-band conformer's legs; K7 at 8 heads x 16, 24, 25 (rope 24, heads
-   repacked to 32; also timed on heads already padded) and 40 at Apollo's
-   shape (b 7604 x n 80); K8 at (H, P, N, chunk) = (16, 32, 128, 64), (8,
-   64, 256, 64), (8, 64, 128, 32), (8, 64, 128, 176) and (64, 8, 128, 8) at
-   band_rnn's B 684 x L 704, and band_comm's B 8280 x L 64 at chunk 32, in
-   bf16 and f32; and small shapes of each (K5 to 257 taps, K7 at head widths
+   its plain version with its bound: K5 at 33, 64, 65, 129 and 255 taps on
+   the mel-band conformer's legs; K7 at 8 heads x 16, 24, 25 (rope 24, heads
+   repacked to 32; also timed on heads already padded), 40, 64 and 112 at
+   Apollo's shape (b 7604 x n 80); K8 at (H, P, N, chunk) = (16, 32, 128,
+   64), (8, 64, 256, 64), (8, 64, 128, 32), (8, 64, 128, 176) and (64, 8,
+   128, 8) at band_rnn's B 684 x L 704, and band_comm's B 8280 x L 64 at
+   chunk 32, in bf16 and f32; and small shapes of each (K5 to 257 taps, K7 at head widths
    8 to 120 read as they lie or repacked, K8 with L, P and N padded or
    sliced).
    With ``--only``, phases 1-2 build and check just the kernels named.
@@ -66,7 +67,10 @@ and prints no result line):
    bench.py's ``bench_ensemble_pipeline``: the flagship's and the mel-band
    conformer's vocals kept on the card -> ``ensemble_phase_fix_device``
    (avg_wave + phase fix against the mix) -> Apollo, one host copy at the
-   end; the device ensemble + phase fix is held against the host functions.
+   end; the device ensemble + phase fix is held against the host functions,
+   and the phase fix and Apollo (through ``demix_start``) are queued again
+   under PyTorch's sync debug mode, which raises on a synchronising call,
+   their results equal to the first run's.
 7. model parity: one chunk batch through bs_roformer, mel_band_conformer and
    apollo with the kernels against the same call with the kernels' plain
    versions, both bf16 on the card (and against f32, for the record).
@@ -75,13 +79,18 @@ and prints no result line):
    kernels (K1, K2) and with their plain versions. Then the per-kernel
    choices off the main paths (``GATE_PATHS``, depth 1, one model call each
    with the kernels and with their plain versions): Apollo at feature_dim
-   384, 768 and 1024 (K7 at dim_head 48, 96 and 128, K6 at d 384, 768 and
-   1024), the mel-band conformer at dim_head 48 (K2, K5 and K4 on heads
-   padded to 64) and at conv kernels 33, 64, 65 and 129 (K2, K4 and K5), Apollo
-   at feature_dim 128, 192 (K6 and K7 at 8 x 16 and 8 x 24) and 200 (K7 alone,
-   8 x 25 on heads padded to 32), the
-   four-stream roformer at 8 heads x 48 and x 96 (K3 on its time legs);
-   launches as the choice predicts, parity as in 7. Then K8's sizes beside
+   384, 512, 768, 896 and 1024 (K7 at dim_head 48, 64, 96, 112 and 128, K6
+   at d 384 to 1024), the mel-band conformer at 12 heads x 32 (K4 on
+   flash_shaw's 32-wide tiles on the time leg), 8 x 48 (K4 on heads padded
+   to 64) and 3 x 128 (K4's mma route on both legs), each with K2 and K5,
+   and at conv kernels 33, 64, 65, 129 and 255 (K2, K4 and K5 in up to 8
+   register blocks of taps), Apollo at feature_dim 128, 192 (K6 and K7 at 8
+   x 16 and 8 x 24) and 200 (K7 alone, 8 x 25 on heads padded to 32), the
+   four-stream roformer at 8 heads x 48 and x 96 (K3 on its time legs), the
+   roformer at 16 x 32 (K1 on its 32-wide cores: flash_wgmma on the time
+   leg, flash_core on the freq leg) and 8 x 96 (K1 padded to 128), each
+   with K2; launches as the choice predicts (K1 in mode 0), the routes the
+   host plans take (``GATE_ROUTES``), parity as in 7. Then K8's sizes beside
    (64, 128, 64) through the public ``ssd`` op, one launch each with the
    counts set to 0 before. Then the widths of
    larger checkpoints at full depth (``WIDTH_PATHS``), each through
@@ -186,7 +195,8 @@ and prints no result line):
    ``device_trace`` of one flagship model call that names K1's norm kernel.
 18. training (``phase_train``): one SGD step of a tiny mdx23c and a tiny
    bs_roformer (tests/test_torch_train.py's configs) on the card against
-   the CPU, loss and every gradient leaf (1e-3 of the leaf's largest); the
+   the CPU, on a batch of one item and of two, loss and every gradient leaf
+   (1e-3 of the leaf's largest); the
    flagship at full width in f32 through ``sesa_tpu_torch.train.Trainer``
    (default loss, Adam 1e-4) on one seeded batch of 1 x 2 x 352,800, 2
    warm-up steps with hooks that read both TF32 flags inside the backward
@@ -372,7 +382,8 @@ SWIN_MODEL = dict(num_subbands=8, num_channels=128, act="gelu")
 SQUIM_SR, SQUIM_BATCH, SQUIM_S = 16000, 4, 10
 # phase_train: the tiny configs of tests/test_torch_train.py (tests/
 # test_mdx23c.py tiny_config, tests/test_roformer.py bs_model_cfg) for one
-# step on the card against the CPU, with a batch of TRAIN_TINY_SAMPLES; the
+# step on the card against the CPU, with a batch of 1 and of 2 items of
+# TRAIN_TINY_SAMPLES; the
 # flagship trains at full width on a batch of 1 x 2 x TRAIN_CHUNK in f32
 TRAIN_TINY = {
     "mdx23c": {"audio": dict(n_fft=512, hop_length=128, dim_f=256, num_channels=2,
@@ -872,9 +883,10 @@ K7_SMALL = ((13, 12, 1, 64, None), (13, 33, 3, 32, 8), (13, 130, 1, 64, 64),
             (13, 80, 8, 40, 40), (600, 33, 8, 56, 56), (13, 12, 8, 8, 8),
             (13, 80, 8, 25, 24), (13, 80, 8, 1, None), (13, 80, 8, 120, 120),
             (13, 80, 2, 72, 72))
-# K7 at Apollo's shape at other head widths: feature_dim 128, 192, 200 and
-# 320 (8 heads x 16, 24, 25 and 40), each with Apollo's rope 2 (dh // 2) wide
-K7_WIDTHS = (16, 24, 25, 40)
+# K7 at Apollo's shape at other head widths: feature_dim 128, 192, 200, 320,
+# 512 and 896 (8 heads x 16, 24, 25, 40, 64 and 112), each with Apollo's rope
+# 2 (dh // 2) wide
+K7_WIDTHS = (16, 24, 25, 40, 64, 112)
 # K8 beside bs_mamba2's (64, 128, 64): (H, P, N, chunk) at band_rnn's B 684 x
 # L 704 (h·P = 512), and band_comm's B 8280 x L 64 at chunk 32
 K8_SIZES = ((16, 32, 128, 64), (8, 64, 256, 64), (8, 64, 128, 32), (8, 64, 128, 176),
@@ -980,8 +992,8 @@ K5_SMALL = ((3, 100, 64, 7), (2, 33, 128, 8), (4, 64, 64, 31), (2, 300, 64, 31),
             (3, 130, 128, 32), (5, 1, 64, 31), (3, 100, 64, 33), (2, 33, 128, 64),
             (2, 300, 64, 65), (1, 17, 64, 129), (2, 5, 64, 257), (3, 130, 128, 96))
 # K5 past 32 taps at the mel-band conformer's legs: one odd and one even
-# count in two register blocks, three, and five
-K5_TAPS = (33, 64, 65, 129)
+# count in two register blocks, three, five and eight
+K5_TAPS = (33, 64, 65, 129, 255)
 
 
 def _k4_args(gen, b, n, d, heads, dh, max_pos, device):
@@ -1308,12 +1320,13 @@ def _k8_row(gen, dev, leg, bsz, l, h, p, n, chunk, dtype, key=None):
 def width_rows(gen, dev, want):
     """The kernels at the widths their cores run padded or that widened them,
     each against its plain version at a model path's shape: K1 at 4 heads x
-    128 on the flagship's legs and at 8 x 48 on the mel-band roformer's
-    (d 384); K3 at D 48 and 96 (BH 2976 x S 690, strided views as the
-    four-stream roformer hands them over); K4 at 8 x 48 on the mel-band
-    conformer's legs; K6 at d 768 and 1024 on Apollo's shape (b 320 x n
-    1901, k 7). Each row is timed beside the plain version and the library
-    composite, its bound counts the real widths; then the small shapes."""
+    128, 16 x 32 and 8 x 96 (padded to 128) on the flagship's legs and at 8
+    x 48 on the mel-band roformer's (d 384); K3 at D 48 and 96 (BH 2976 x S
+    690, strided views as the four-stream roformer hands them over); K4 at 8
+    x 48, 12 x 32 and 3 x 128 on the mel-band conformer's legs; K6 at d 512,
+    768, 896 and 1024 on Apollo's shape (b 320 x n 1901, k 7). Each row is
+    timed beside the plain version and the library composite, its bound
+    counts the real widths; then the small shapes."""
     import torch
 
     from sesa_tpu_torch.ops.attention import vmem_attention, vmem_attention_plain
@@ -1322,11 +1335,13 @@ def width_rows(gen, dev, want):
     rows = []
     zero = torch.zeros((), device=dev)
     if want("K1"):
+        flagship_legs = (("time", BATCH * BANDS, FRAMES), ("freq", BATCH * FRAMES, BANDS))
         for key, d, heads, dh, legs in (
-                ("K1dh128", FLAGSHIP_MODEL["dim"], 4, 128,
-                 (("time", BATCH * BANDS, FRAMES), ("freq", BATCH * FRAMES, BANDS))),
+                ("K1dh128", FLAGSHIP_MODEL["dim"], 4, 128, flagship_legs),
                 ("K1dh48", MELBAND_MODEL["dim"], 8, 48,
-                 (("time", BATCH * MEL_BANDS, FRAMES), ("freq", BATCH * FRAMES, MEL_BANDS)))):
+                 (("time", BATCH * MEL_BANDS, FRAMES), ("freq", BATCH * FRAMES, MEL_BANDS))),
+                ("K1dh32", FLAGSHIP_MODEL["dim"], 16, 32, flagship_legs),
+                ("K1dh96", FLAGSHIP_MODEL["dim"], 8, 96, flagship_legs)):
             for leg, b, n in legs:
                 args, rope = _k1_args(gen, b, n, d, heads, dh, dh, dev)
                 rows.append(_k1_row(args, rope, f"{heads} x {dh}, d={d}, {leg} leg", key))
@@ -1345,15 +1360,17 @@ def width_rows(gen, dev, want):
                     vmem_attention_plain(q, k, v, dh ** -0.5), zero)
         torch.cuda.synchronize()
     if want("K4"):
-        d, heads, dh, max_pos = MELCONF_MODEL["dim"], 8, 48, 512
-        for leg, b, n in (("time", BATCH * MEL_BANDS, FRAMES), ("freq", BATCH * FRAMES, MEL_BANDS)):
-            args = _k4_args(gen, b, n, d, heads, dh, max_pos, dev)
-            rows.append(_k4_row(args, f"{heads} x {dh}, {leg} leg", "K4dh48"))
-            del args
-            torch.cuda.empty_cache()
+        d, max_pos = MELCONF_MODEL["dim"], 512
+        for heads, dh in ((8, 48), (12, 32), (3, 128)):
+            for leg, b, n in (("time", BATCH * MEL_BANDS, FRAMES),
+                              ("freq", BATCH * FRAMES, MEL_BANDS)):
+                args = _k4_args(gen, b, n, d, heads, dh, max_pos, dev)
+                rows.append(_k4_row(args, f"{heads} x {dh}, {leg} leg", f"K4dh{dh}"))
+                del args
+                torch.cuda.empty_cache()
     if want("K6"):
         b, n = APOLLO_BPRIME * APOLLO_BANDS, APOLLO_FRAMES
-        for d in (768, 1024):
+        for d in (512, 768, 896, 1024):
             rows.append(_k6_row(gen, dev, b, n, d, 7, f"K6d{d}"))
             torch.cuda.empty_cache()
         for b, n, d, k in K6_WIDTHS_SMALL:
@@ -1845,6 +1862,7 @@ def model_parity(model_type, params, config, song, with_f32=True, label=None, dt
         kern = model.apply(params, config, chunks, compute_dtype=dtype)
         torch.cuda.synchronize()
         launches = read_counts()
+        k1_modes = list(counters()["K1"].launches_by_mode)
         saved = [getattr(m, a) for m, a, _ in swaps]
         for m, a, plain in swaps:
             setattr(m, a, plain)
@@ -1857,7 +1875,7 @@ def model_parity(model_type, params, config, song, with_f32=True, label=None, dt
     torch.cuda.empty_cache()
 
     res = dict(model_type=model_type, dtype=str(dtype).split(".")[-1], launches=launches,
-               snr_kernel_vs_plain_db=snr_db(kern, plain),
+               k1_launches_by_mode=k1_modes, snr_kernel_vs_plain_db=snr_db(kern, plain),
                finite=bool(torch.isfinite(kern).all()))
     if f32 is not None:
         res.update(snr_kernel_vs_f32_db=snr_db(kern, f32), snr_plain_vs_f32_db=snr_db(plain, f32))
@@ -2069,12 +2087,15 @@ def phase_chain(sessions, song, expected, first="bs_roformer", label="chain"):
     fix against the mix -> Apollo restoration, one host copy at the end.
     ``sessions`` holds those three. The first run is checked (launch counts,
     rescues, shape, finiteness, and the device ensemble + phase fix against
-    the host functions on the same stems); a second, warm run is timed."""
+    the host functions on the same stems); its phase fix and Apollo are
+    queued once more under the sync debug mode; a second, warm run is
+    timed."""
     import numpy as np
     import torch
 
     from sesa_tpu_torch.postprocess import (ensemble_phase_fix_device, ensemble_waveforms,
                                             phase_fix_arrays)
+    from sesa_tpu_torch.runtime import demix_start
 
     def run():
         mix = torch.from_numpy(song).cuda()
@@ -2130,7 +2151,32 @@ def phase_chain(sessions, song, expected, first="bs_roformer", label="chain"):
     if not snr >= CHAIN_FIX_SNR_FLOOR_DB:
         raise RuntimeError(f"{label}: device ensemble + phase fix is {snr:.1f} dB from the host "
                            f"functions, below {CHAIN_FIX_SNR_FLOOR_DB} dB")
-    del v1, v2, fixed
+
+    # the phase fix and Apollo's separation queued again under PyTorch's sync
+    # debug mode, which raises on a synchronising call (.item(), a pageable
+    # host-to-device copy): Apollo through demix_start on its session's
+    # prepared weights, as the session's separate runs it but without its
+    # rescue check (a read of the device); both against the run above
+    restorer = sessions["apollo"]
+    apply_fn = restorer._model_apply(restorer.compute_dtype)
+    mix = torch.from_numpy(song).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fixed_q = ensemble_phase_fix_device(mix, [v1, v2], SR, "avg_wave")
+        job = demix_start(apply_fn, restorer.params, fixed_q, restorer.spec, transport="device")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    restored_q = job.collect_device(stems=[0])[0].cpu()
+    sync_err = dict(phase_fix=float((fixed_q - fixed).abs().max()) / float(fixed.abs().max()),
+                    apollo=float((restored_q - torch.from_numpy(out)).abs().max())
+                    / float(np.abs(out).max()))
+    log(f"  {label}: phase fix and Apollo queued with no synchronising call; relative max "
+        f"|err| against the run above {sync_err}")
+    if not max(sync_err.values()) <= 1e-5:
+        raise RuntimeError(f"{label}: the phase fix and Apollo under the sync debug mode are "
+                           f"{sync_err} from the chain's run")
+    del v1, v2, fixed, fixed_q, restored_q
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2140,7 +2186,8 @@ def phase_chain(sessions, song, expected, first="bs_roformer", label="chain"):
     res = dict(models=[first, "mel_band_conformer", "apollo"], launches=launches,
                rescues=rescues, chain_warm_s=wall, rtf_chain=SONG_S / wall,
                peak_cuda_mem_gib=peak / 2 ** 30, phase_fix_device_vs_host_snr_db=snr,
-               phase_fix_full_band_snr_db=snr_full, phase_fix_share_within_1e_4=close)
+               phase_fix_full_band_snr_db=snr_full, phase_fix_share_within_1e_4=close,
+               sync_free_rel_err=sync_err)
     log(f"[{label}] {json.dumps(res)}")
     return res
 
@@ -2456,15 +2503,29 @@ GATE_PATHS = (("apollo_fd384", "apollo", dict(APOLLO_MODEL, feature_dim=384, lay
               ("bs_roformer_experimental_hc_dh48", "bs_roformer_experimental",
                dict(HC_MODEL, depth=1, dim_head=48)),
               ("bs_roformer_experimental_hc_dh96", "bs_roformer_experimental",
-               dict(HC_MODEL, depth=1, dim_head=96)))
-# the kernels each of them must take: Apollo at feature_dim 384, 768 and 1024
-# both (K7 at dim_head 48, 96 and 128, K6 at d 384, 768 and 1024), at 128 and
-# 192 both (K7 at 8 x 16 and 8 x 24), at 200 K7 alone (8 x 25 on heads padded
-# to 32, rope 24; K6 refuses d % 64); the conformer at dim_head 48 all three
-# (K4 on heads padded to 64), at 33, 64, 65 and 129 taps all three (K5 in two,
-# two, three and five register blocks of taps); the four-stream roformer at
+               dict(HC_MODEL, depth=1, dim_head=96)),
+              ("bs_roformer_dh32", "bs_roformer", dict(FLAGSHIP_MODEL, depth=1, heads=16,
+                                                       dim_head=32)),
+              ("bs_roformer_dh96", "bs_roformer", dict(FLAGSHIP_MODEL, depth=1, heads=8,
+                                                       dim_head=96)),
+              ("mel_band_conformer_dh32", "mel_band_conformer",
+               dict(MELCONF_MODEL, depth=1, heads=12, dim_head=32)),
+              ("mel_band_conformer_dh128", "mel_band_conformer",
+               dict(MELCONF_MODEL, depth=1, heads=3, dim_head=128)),
+              ("mel_band_conformer_k255", "mel_band_conformer",
+               dict(MELCONF_MODEL, depth=1, conv_kernel_size=255)),
+              ("apollo_fd512", "apollo", dict(APOLLO_MODEL, feature_dim=512, layer=1)),
+              ("apollo_fd896", "apollo", dict(APOLLO_MODEL, feature_dim=896, layer=1)))
+# the kernels each of them must take: Apollo at feature_dim 384, 512, 768, 896
+# and 1024 both (K7 at dim_head 48, 64, 96, 112 and 128, K6 at d 384 to
+# 1024), at 128 and 192 both (K7 at 8 x 16 and 8 x 24), at 200 K7 alone (8 x
+# 25 on heads padded to 32, rope 24; K6 refuses d % 64); the conformer at
+# dim_head 32, 48 and 128 all three (K4 at 12 x 32, on heads padded to 64, at
+# 3 x 128), at 33, 64, 65, 129 and 255 taps all three (K5 in two, two, three,
+# five and eight register blocks of taps); the four-stream roformer at
 # dim_head 48 and 96 K3 on its time legs (690 frames; the freq legs' 62 bands
-# are below K3's gate)
+# are below K3's gate); the roformer at 16 x 32 and 8 x 96 (padded to 128)
+# K1 and K2 on both legs
 GATE_KERNELS = {"apollo_fd384": {"K6", "K7"}, "apollo_fd768": {"K6", "K7"},
                 "apollo_fd1024": {"K6", "K7"}, "mel_band_conformer_dh48": {"K2", "K4", "K5"},
                 "mel_band_conformer_k33": {"K2", "K4", "K5"},
@@ -2474,23 +2535,53 @@ GATE_KERNELS = {"apollo_fd384": {"K6", "K7"}, "apollo_fd768": {"K6", "K7"},
                 "apollo_fd128": {"K6", "K7"}, "apollo_fd192": {"K6", "K7"},
                 "apollo_fd200": {"K7"},
                 "bs_roformer_experimental_hc_dh48": {"K3"},
-                "bs_roformer_experimental_hc_dh96": {"K3"}}
+                "bs_roformer_experimental_hc_dh96": {"K3"},
+                "bs_roformer_dh32": {"K1", "K2"}, "bs_roformer_dh96": {"K1", "K2"},
+                "mel_band_conformer_dh32": {"K2", "K4", "K5"},
+                "mel_band_conformer_dh128": {"K2", "K4", "K5"},
+                "mel_band_conformer_k255": {"K2", "K4", "K5"},
+                "apollo_fd512": {"K6", "K7"}, "apollo_fd896": {"K6", "K7"}}
+# the routes the host plans take for the entries that prove one, by leg
+# (time, freq; Apollo's band layer alone): K1's core (``k1_plan``: the
+# flash_wgmma tiles for n > 64, flash_core for n <= 64) and K4's
+# (``k4_plan``: flash_shaw's tiles for n > 64 at 32 and 64, else mma.sync) at
+# the core width, K5's register blocks of taps (``k5_plan``), K7's head width
+# (``k7_plan``)
+GATE_ROUTES = {"bs_roformer_dh32": ("K1 tiles at 32", "K1 short at 32"),
+               "bs_roformer_dh96": ("K1 tiles at 128", "K1 short at 128"),
+               "mel_band_conformer_dh32": ("K4 tiles at 32, K5 1 tap blocks",
+                                           "K4 mma at 32, K5 1 tap blocks"),
+               "mel_band_conformer_dh128": ("K4 mma at 128, K5 1 tap blocks",
+                                            "K4 mma at 128, K5 1 tap blocks"),
+               "mel_band_conformer_k255": ("K4 tiles at 64, K5 8 tap blocks",
+                                           "K4 mma at 64, K5 8 tap blocks"),
+               "apollo_fd512": ("K7 at 64",), "apollo_fd896": ("K7 at 112",)}
 
 
 def phase_gates(song):
     """One model call of each of GATE_PATHS (seeded weights) with the kernels
     and with their plain versions (model_parity: finite, >= 20 dB). The
     kernels launched are those the model's choice (``apollo_kernels``,
-    ``conformer_kernels``, the four-stream roformer's ``sdpa`` through K3's
-    gate) names for the call's shapes, each as often as the layers reach it,
-    and the choice is GATE_KERNELS."""
+    ``conformer_kernels``, the roformer's ``use_fused_attention`` and
+    ``use_fused_ff``, the four-stream roformer's ``sdpa`` through K3's gate)
+    names for the call's shapes, each as often as the layers reach it (K1 in
+    mode 0), the choice is GATE_KERNELS, and the routes the host plans take
+    are GATE_ROUTES where it names the entry."""
     import torch
 
     from sesa_tpu_torch.configs import AttrDict
     from sesa_tpu_torch.models import apollo, get_model
     from sesa_tpu_torch.models import conformer_core as cc
-    from sesa_tpu_torch.ops.attention import use_vmem_attention
+    from sesa_tpu_torch.ops.attention import (core_width, k1_plan, k4_plan, k7_plan,
+                                              use_fused_attention, use_vmem_attention)
+    from sesa_tpu_torch.ops.convblock import k5_plan
+    from sesa_tpu_torch.ops.ff import use_fused_ff
     from sesa_tpu_torch.tree import tree_map
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def x_like(b, n, d):  # a (b, n, d) bf16 tensor on the card for the gates, one element held
+        return torch.empty((1, 1, 1), device="cuda", dtype=torch.bfloat16).expand(b, n, d)
 
     out = []
     for label, model_type, model_cfg in GATE_PATHS:
@@ -2498,11 +2589,17 @@ def phase_gates(song):
         params = get_model(model_type).init(torch.Generator().manual_seed(5), config)
         params = tree_map(lambda p: p.cuda(), params)
         batch = _chunking(model_type)[1]
+        routes = ()
         if model_type == "apollo":
             n = model_cfg["feature_dim"]
             chosen = apollo.apollo_kernels("cuda", torch.bfloat16, APOLLO_BPRIME, APOLLO_FRAMES,
                                            APOLLO_BANDS, n)
             per_kernel = {"K7": model_cfg["layer"], "K6": 3 * model_cfg["layer"]}
+            dh = n // apollo.NUM_HEAD
+            plan = k7_plan(APOLLO_BPRIME * APOLLO_FRAMES, APOLLO_BANDS, apollo.NUM_HEAD, dh,
+                           2 * (dh // 2), sms)
+            if plan is not None:  # the band layer pads its weights' heads to the plan's width
+                routes = (f"K7 at {plan['width']}",)
         elif model_type == "bs_roformer_experimental":
             # the branches' sdpa: K3 where its gate takes a leg's (b, h, n, dh)
             dh = model_cfg["dim_head"]
@@ -2511,11 +2608,34 @@ def phase_gates(song):
                                                  dtype=torch.bfloat16)] * 3)
                 for n in (FRAMES, BANDS)) else set()
             per_kernel = {"K3": model_cfg["depth"] * model_cfg["time_transformer_depth"]}
+        elif model_type == "bs_roformer":
+            # K1 and K2 by the stacks' own gates on each leg's (b, n, d)
+            d, heads, dh = model_cfg["dim"], model_cfg["heads"], model_cfg["dim_head"]
+            legs = {}
+            for leg, b, n in (("time", batch * BANDS, FRAMES), ("freq", batch * FRAMES, BANDS)):
+                x = x_like(b, n, d)
+                w1 = params["layers"][0][leg]["layers"][0]["ff"]["lin1_w"]
+                legs[leg] = frozenset(k for k, ok in (("K1", use_fused_attention(x, heads, dh)),
+                                                      ("K2", use_fused_ff(x, w1))) if ok)
+                width = core_width(dh, heads)
+                core = k1_plan(b, n, d, heads, width, sms)["core"]
+                routes += (f"K1 {core['route']} at {width}",)
+            if len(set(legs.values())) != 1:
+                raise RuntimeError(f"{label}: the time and freq legs take {legs}")
+            chosen = legs["time"]
+            layers = 2 * model_cfg["depth"]  # a time and a freq transformer per layer
+            per_kernel = {"K1": layers, "K2": layers}
         else:
             dim, dh = model_cfg["dim"], model_cfg.get("dim_head", 64)
-            legs = {cc.conformer_kernels("cuda", torch.bfloat16, b, n, dim, 8, dh, 4 * dim,
-                                         2 * dim, model_cfg.get("conv_kernel_size", 31))
-                    for b, n in ((batch * MEL_BANDS, FRAMES), (batch * FRAMES, MEL_BANDS))}
+            heads, taps = model_cfg.get("heads", 8), model_cfg.get("conv_kernel_size", 31)
+            legs = set()
+            for b, n in ((batch * MEL_BANDS, FRAMES), (batch * FRAMES, MEL_BANDS)):
+                legs.add(cc.conformer_kernels("cuda", torch.bfloat16, b, n, dim, heads, dh,
+                                              4 * dim, 2 * dim, taps))
+                width = core_width(dh, heads)
+                core = k4_plan(b, n, dim, heads, width, sms)["core"]
+                tap_blocks = k5_plan(b, n, dim, 2 * dim, sms, taps)["dw"]["tap_blocks"]
+                routes += (f"K4 {core['route']} at {width}, K5 {tap_blocks} tap blocks",)
             if len(legs) != 1:
                 raise RuntimeError(f"{label}: the time and freq legs take {legs}")
             chosen = legs.pop()
@@ -2524,11 +2644,17 @@ def phase_gates(song):
         if chosen != GATE_KERNELS[label]:
             raise RuntimeError(f"{label}: the choice takes {sorted(chosen)}, expected "
                                f"{sorted(GATE_KERNELS[label])}")
+        if label in GATE_ROUTES and routes != GATE_ROUTES[label]:
+            raise RuntimeError(f"{label}: the plans take the routes {routes}, expected "
+                               f"{GATE_ROUTES[label]}")
         res = model_parity(model_type, params, config, song, with_f32=False, label=label)
         expected = expect(**{k: per_kernel[k] for k in chosen})
         if res["launches"] != expected:
             raise RuntimeError(f"{label}: launches {res['launches']}, expected {expected}")
-        res["kernels_chosen"] = sorted(chosen)
+        if res["k1_launches_by_mode"] != [expected["K1"], 0, 0]:
+            raise RuntimeError(f"{label}: K1 launches by mode {res['k1_launches_by_mode']}, "
+                               f"expected {expected['K1']} in mode 0")
+        res.update(kernels_chosen=sorted(chosen), routes=list(routes))
         out.append(res)
         del params
         torch.cuda.empty_cache()
@@ -3732,9 +3858,10 @@ def _train_item(seconds, batched=True):
     return {"audio": audio, "track": "train/seeded"}
 
 
-def _train_card_vs_cpu(model_type):
+def _train_card_vs_cpu(model_type, batch=1):
     """One SGD(1e-2) step of a tiny model on the card and on the CPU from the
-    same seeded params and batch: the loss and every gradient leaf."""
+    same seeded params and a batch of ``batch`` items (each its own draw of
+    the seeded generator): the loss and every gradient leaf."""
     import numpy as np
     import torch
 
@@ -3746,7 +3873,7 @@ def _train_card_vs_cpu(model_type):
                                                           "target_instrument": None}))
     params = get_model(model_type).init(torch.Generator().manual_seed(0), cfg)
     rng = np.random.default_rng(0)
-    audio = {s: (0.1 * rng.standard_normal((1, 2, TRAIN_TINY_SAMPLES[model_type])))
+    audio = {s: (0.1 * rng.standard_normal((batch, 2, TRAIN_TINY_SAMPLES[model_type])))
              .astype(np.float32) for s in ("vocals", "other")}
     audio["mixture"] = audio["vocals"] + audio["other"]
     item = {"audio": audio}
@@ -3760,13 +3887,14 @@ def _train_card_vs_cpu(model_type):
     (l_card, g_card), (l_cpu, g_cpu) = runs["cuda"], runs["cpu"]
     worst = max((float((g_card[k] - g_cpu[k]).abs().max())
                  / max(float(g_cpu[k].abs().max()), 1e-30), k) for k in g_cpu)
-    res = dict(model_type=model_type, loss_card=l_card, loss_cpu=l_cpu,
+    res = dict(model_type=model_type, batch=batch, loss_card=l_card, loss_cpu=l_cpu,
                loss_rel=abs(l_card - l_cpu) / abs(l_cpu), leaves=len(g_cpu),
                max_grad_rel=worst[0], worst_leaf=worst[1], bound=TRAIN_CARD_VS_CPU_REL)
     log(f"[train card vs cpu] {json.dumps(res)}")
     if not res["loss_rel"] <= TRAIN_CARD_VS_CPU_REL or not worst[0] <= TRAIN_CARD_VS_CPU_REL:
-        raise RuntimeError(f"{model_type}: a training step on the card is {worst[0]:.3g} "
-                           f"(leaf {worst[1]}) and {res['loss_rel']:.3g} (loss) from the CPU")
+        raise RuntimeError(f"{model_type} at batch {batch}: a training step on the card is "
+                           f"{worst[0]:.3g} (leaf {worst[1]}) and {res['loss_rel']:.3g} (loss) "
+                           "from the CPU")
     return res
 
 
@@ -3795,7 +3923,8 @@ def phase_train():
     from sesa_tpu_torch.train import Trainer, _flatten
 
     t_phase = time.perf_counter()
-    out = {"card_vs_cpu": [_train_card_vs_cpu(mt) for mt in TRAIN_TINY]}
+    out = {"card_vs_cpu": [_train_card_vs_cpu(mt, batch) for mt in TRAIN_TINY
+                           for batch in (1, 2)]}
 
     # the flagship at full width in f32: default loss, Adam 1e-4, one batch
     cfg = {"model": FLAGSHIP_MODEL, "audio": {"chunk_size": TRAIN_CHUNK, "sample_rate": SR},
@@ -4104,7 +4233,17 @@ def main(argv=None) -> int:
                      "K7dh16": gates["apollo_fd128"]["K7"],
                      "K7dh24": gates["apollo_fd192"]["K7"],
                      "K7dh25": gates["apollo_fd200"]["K7"],
-                     "K7dh40": widths["apollo_fd320"]["launches"]["K7"]})
+                     "K7dh40": widths["apollo_fd320"]["launches"]["K7"],
+                     # the routes no model had run before: their GATE_PATHS call
+                     "K1dh32": gates["bs_roformer_dh32"]["K1"],
+                     "K1dh96": gates["bs_roformer_dh96"]["K1"],
+                     "K4dh32": gates["mel_band_conformer_dh32"]["K4"],
+                     "K4dh128": gates["mel_band_conformer_dh128"]["K4"],
+                     "K5k255": gates["mel_band_conformer_k255"]["K5"],
+                     "K6d512": gates["apollo_fd512"]["K6"],
+                     "K6d896": gates["apollo_fd896"]["K6"],
+                     "K7dh64": gates["apollo_fd512"]["K7"],
+                     "K7dh112": gates["apollo_fd896"]["K7"]})
     # K8's other sizes: their launches through the public ssd op
     launches.update(out["ssd_op"])
     kernels = [dict(name=r["name"], route=r["route"], source=r["source"],

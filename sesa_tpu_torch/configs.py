@@ -28,10 +28,16 @@ class AttrDict(dict):
             raise AttributeError(name) from None
 
 
+def config_from_dict(data: dict) -> AttrDict:
+    """``data`` as an :class:`AttrDict`, the type :func:`load_config` returns
+    (sesa_tpu/configs.py ``config_from_dict``)."""
+    return AttrDict(data)
+
+
 def load_config(model_type: str, config: Union[str, dict]) -> AttrDict:
     """Load a config from a dict, a ``.json`` path or a ``.yaml``/``.yml`` path."""
     if isinstance(config, dict):
-        return AttrDict(config)
+        return config_from_dict(config)
     path = str(config)
     if path.lower().endswith((".yaml", ".yml")):
         try:

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sesa_tpu_torch import to_device
 from sesa_tpu_torch.models.layers import kaiming_uniform
 from sesa_tpu_torch.ops.attention import fused_rope_attention, k7_plan, padded_block_weights, sdpa
 from sesa_tpu_torch.ops.convblock import apollo_conv_shape_ok, fused_apollo_conv
@@ -116,8 +117,7 @@ def _apollo_rope(n_dim, seq_len, theta=10000.0):
 
 def _rope_tables(n_dim, seq_len, like):
     """The rope tables in the network dtype on the network's device."""
-    return tuple(torch.from_numpy(t).to(device=like.device, dtype=like.dtype)
-                 for t in _apollo_rope(n_dim, seq_len))
+    return tuple(to_device(t, like.device, like.dtype) for t in _apollo_rope(n_dim, seq_len))
 
 
 def _rotate_pairs(x):
@@ -289,7 +289,7 @@ def apply(params, config, x, compute_dtype=None):
     if not _is_prepared(params, compute_dtype):
         params = prepare(params, config, compute_dtype)
 
-    window = hann_window(win).to(x.device)
+    window = hann_window(win, device=x.device)
     spec = stft_ri(x.reshape(bp, nsample), win, stride, window)  # (B', F, T, 2)
     t = spec.shape[-2]
 

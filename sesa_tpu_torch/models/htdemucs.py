@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sesa_tpu_torch import to_device
 from sesa_tpu_torch.models import demucs_legacy
 from sesa_tpu_torch.models import layers as L
 from sesa_tpu_torch.ops.prec import net_precision
@@ -473,16 +474,16 @@ def _hdec_multi(p, x, skip, kw, ker, stride, chin, last):
     return out, None
 
 
-def _sin_embedding_1d(length, dim, max_period):
+def _sin_embedding_1d(length, dim, max_period, device):
     pos = np.arange(length)[:, None]
     half = dim // 2
     adim = np.arange(half)[None, :]
     phase = pos / (max_period ** (adim / (half - 1)))
-    return torch.as_tensor(np.concatenate([np.cos(phase), np.sin(phase)], axis=-1)[None],
-                           dtype=torch.float32)
+    return to_device(np.concatenate([np.cos(phase), np.sin(phase)], axis=-1)[None], device,
+                     torch.float32)
 
 
-def _sin_embedding_2d(d_model, height, width, max_period):
+def _sin_embedding_2d(d_model, height, width, max_period, device):
     pe = np.zeros((d_model, height, width))
     dm = d_model // 2
     div = np.exp(np.arange(0.0, dm, 2) * -(math.log(max_period) / dm))
@@ -492,7 +493,7 @@ def _sin_embedding_2d(d_model, height, width, max_period):
     pe[1:dm:2] = np.tile(np.cos(pos_w * div).T[:, None, :], (1, height, 1))
     pe[dm::2] = np.tile(np.sin(pos_h * div).T[:, :, None], (1, 1, width))
     pe[dm + 1::2] = np.tile(np.cos(pos_h * div).T[:, :, None], (1, 1, width))
-    return torch.as_tensor(pe[None], dtype=torch.float32)
+    return to_device(pe[None], device, torch.float32)
 
 
 def _mha(p, q, k, v, heads):
@@ -624,7 +625,7 @@ def apply(params, config, mix: torch.Tensor, compute_dtype=None) -> torch.Tensor
             x = x.reshape(bb, -1, fr0, t0)
             xt = _conv1x1(params["channel_upsampler_t"], xt)
         bb, cc, fr, t1 = x.shape
-        pos2d = _sin_embedding_2d(cc, fr, t1, kw["t_max_period"]).to(x.device)
+        pos2d = _sin_embedding_2d(cc, fr, t1, kw["t_max_period"], x.device)
         # token order (t1, fr): 'b c fr t1 -> b (t1 fr) c'
         tok = x.permute(0, 3, 2, 1).reshape(bb, t1 * fr, cc)
         pos_tok = pos2d.permute(0, 3, 2, 1).reshape(1, t1 * fr, cc)
@@ -634,7 +635,7 @@ def apply(params, config, mix: torch.Tensor, compute_dtype=None) -> torch.Tensor
 
         t2 = xt.shape[-1]
         tokt = L.layer_norm(xt.transpose(1, 2), ct["norm_in_t"])
-        pos_t = _sin_embedding_1d(t2, cc, kw["t_max_period"]).to(x.device)
+        pos_t = _sin_embedding_1d(t2, cc, kw["t_max_period"], x.device)
         tokt = tokt + (kw["t_weight_pos_embed"] * pos_t).to(tokt.dtype)
 
         parity = 1 if kw["t_cross_first"] else 0

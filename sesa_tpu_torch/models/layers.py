@@ -95,6 +95,10 @@ def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0) + alpha * torch.clamp_max(x, 0)
 
 
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x)
+
+
 def glu(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """torch nn.GLU: split in half along ``dim``, first · sigmoid(second)."""
     a, b = x.chunk(2, dim=dim)

@@ -731,12 +731,15 @@ def fused_conformer_attention_plain(x, ln_w, ln_b, wqkv, rel_pos_emb, wo, bo, he
 
     x (b, n, d); weights in torch (out, in) layout: wqkv (3·h·dh, d) = the
     rows of to_q then to_kv, wo (d, h·dh), bo (d,); rel_pos_emb the Shaw
-    table (2P + 1, dh). Products accumulate in f32. In the working dtype the
-    values are rounded where sesa_tpu/ops/attention.py
-    ``_conformer_attn_kernel`` rounds them: xn after LayerNorm·γ + β, qkv,
-    the table, p before P·V, the attention output and the output before the
-    residual add. Sequences run in slices that keep each (n, n) f32 tensor
-    near 256 MB.
+    table (2P + 1, dh). The bias of query i and key j is q_i · E[clip(i − j,
+    −P, P) + P], the distance i − j as the JAX code computes it
+    (sesa_tpu/models/conformer_core.py:119, the expanded table of
+    sesa_tpu/ops/attention.py:668; the comment at :573 there writes j − i).
+    Products accumulate in f32. In the working dtype the values are rounded
+    where sesa_tpu/ops/attention.py ``_conformer_attn_kernel`` rounds them:
+    xn after LayerNorm·γ + β, qkv, the table, p before P·V, the attention
+    output and the output before the residual add. Sequences run in slices
+    that keep each (n, n) f32 tensor near 256 MB.
     """
     dt = x.dtype
     b, n, d = x.shape

@@ -18,12 +18,45 @@ before ``irfft`` rather than left to the library.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 
 import numpy as np
 import torch
 
-__all__ = ["rdft", "irdft", "rdft_ortho", "irdft_ortho", "rdft_tables", "irdft_tables"]
+__all__ = ["rdft", "irdft", "rdft_ortho", "irdft_ortho", "rdft_tables", "irdft_tables",
+           "force_device_mats"]
+
+_tls = threading.local()
+
+
+def _min_device_n():
+    """The ``min_n`` of the innermost :func:`force_device_mats` of this
+    thread, or None outside one."""
+    return getattr(_tls, "device_mats_min_n", None)
+
+
+@contextlib.contextmanager
+def force_device_mats(min_n: int = 0):
+    """The JAX package's switch, kept for its callers: inside the ``with``
+    block this thread's setting is ``min_n``; blocks nest, and the old value
+    comes back on exit, also on an exception. Other threads do not see it.
+
+    In sesa_tpu it makes the DFT transforms build their tables on the device
+    for every n >= ``min_n`` instead of baking them into the program as
+    constants, which keeps a whole-song TPU executable small enough for its
+    remote compiler. The transforms here are cuFFT and read no DFT table, so
+    the setting changes no result."""
+    old = _min_device_n()
+    _tls.device_mats_min_n = min_n
+    try:
+        yield
+    finally:
+        if old is None:
+            del _tls.device_mats_min_n
+        else:
+            _tls.device_mats_min_n = old
 
 
 def rdft(x: torch.Tensor, norm: str = "backward") -> torch.Tensor:

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from sesa_tpu_torch.ops.windows import hann_window
 
-__all__ = ["hann_window", "stft_ri", "istft_ri", "frame_signal", "overlap_add"]
+__all__ = ["hann_window", "stft_ri", "istft_ri", "stft", "istft", "frame_signal", "overlap_add"]
 
 
 def _window(window, win_length, n_fft, like):
@@ -110,3 +110,19 @@ def istft_ri(spec: torch.Tensor, n_fft: int, hop_length: int,
     if y.shape[-1] < end - start:  # a length past the frames: zeros, as torch.istft pads
         y = torch.nn.functional.pad(y, (0, end - start - y.shape[-1]))
     return y.reshape(lead + y.shape[-1:])
+
+
+def stft(x: torch.Tensor, n_fft: int, hop_length: int, window: Optional[torch.Tensor] = None,
+         **kwargs) -> torch.Tensor:
+    """Complex-output wrapper over :func:`stft_ri`: ``(..., T)`` real ->
+    ``(..., n_fft // 2 + 1, frames)`` complex64."""
+    ri = stft_ri(x, n_fft, hop_length, window, **kwargs)
+    return torch.complex(ri[..., 0], ri[..., 1])
+
+
+def istft(spec: torch.Tensor, n_fft: int, hop_length: int, window: Optional[torch.Tensor] = None,
+          **kwargs) -> torch.Tensor:
+    """Complex-input wrapper over :func:`istft_ri`: ``(..., F, frames)``
+    complex -> ``(..., length)`` real."""
+    ri = torch.stack([spec.real, spec.imag], dim=-1)
+    return istft_ri(ri, n_fft, hop_length, window, **kwargs)

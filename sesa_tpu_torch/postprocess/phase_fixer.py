@@ -103,7 +103,7 @@ def _check_span(a: int, b: int) -> None:
 
 def _fix(src: torch.Tensor, tgt: torch.Tensor, sr, low_cutoff, high_cutoff, base_factor,
          scale_factor, length: int) -> torch.Tensor:
-    window = hann_window(N_FFT).to(src.device)
+    window = hann_window(N_FFT, device=src.device)
     s = stft_ri(src, N_FFT, HOP, window)
     t = stft_ri(tgt, N_FFT, HOP, window)
     fixed = blend_spectra(s, t, int(sr), float(low_cutoff), float(high_cutoff),

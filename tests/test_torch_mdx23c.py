@@ -29,7 +29,7 @@ from sesa_tpu_torch.convert.from_jax import params_from_jax
 from sesa_tpu_torch.models import get_model
 from sesa_tpu_torch.models import layers as L
 from sesa_tpu_torch.models import mdx23c, mdx23c_stht
-from sesa_tpu_torch.ops import stft
+from sesa_tpu_torch.ops.stft import frame_signal, overlap_add
 from sesa_tpu_torch.runtime.demix import DemixSpec, demix
 from tests.test_mdx23c import export_torch_state_dict, tiny_config
 
@@ -239,11 +239,11 @@ def test_stht_and_istht_match_jax(n_fft, hop, t):
 @pytest.mark.parametrize("frame_length,hop", [(256, 64), (200, 64), (7, 3)])
 def test_frame_signal_and_overlap_add_match_jax(frame_length, hop):
     x = np.random.default_rng(2).standard_normal((2, 3, 1000)).astype(np.float32)
-    frames = stft.frame_signal(torch.from_numpy(x), frame_length, hop)
+    frames = frame_signal(torch.from_numpy(x), frame_length, hop)
     ref = np.asarray(jax_frame_signal(jnp.asarray(x), frame_length, hop))
     np.testing.assert_array_equal(frames.numpy(), ref)
     flat = ref.reshape(-1, ref.shape[-2], frame_length)
-    got = stft.overlap_add(torch.from_numpy(flat.copy()), hop)
+    got = overlap_add(torch.from_numpy(flat.copy()), hop)
     np.testing.assert_allclose(got.numpy(), np.asarray(jax_overlap_add(jnp.asarray(flat), hop)),
                                atol=1e-5)
 

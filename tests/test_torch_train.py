@@ -416,6 +416,36 @@ def test_loss_sequence_matches_the_jax_trainer(jax_run):
     assert trainer.step == 5
 
 
+def test_batch_of_two_step_matches_the_jax_trainer():
+    """One SGD step of the tiny bs_roformer on a batch of two different items
+    against the JAX Trainer's jitted step on the same params: the loss, and
+    every leaf after the step, within GRAD_REL of the leaf's largest
+    movement (lr times the gradient) beside one f32 rounding of the leaf."""
+    d = {"model": bs_model_cfg(), "training": _training("vocals", "other")}
+    cfg = AttrDict(d)
+    p0 = tree_map(lambda p: p.numpy(), get_model("bs_roformer").init(
+        torch.Generator().manual_seed(2), cfg))
+    item = _item(("vocals", "other"), 2048, b=2, seed=4)
+    assert item["audio"]["mixture"].shape == (2, 2, 2048)
+    assert not np.allclose(item["audio"]["mixture"][0], item["audio"]["mixture"][1])
+    jt = jax_train.Trainer("bs_roformer", ConfigDict(d), loss=L1, optimizer=SGD,
+                           params=jax.tree.map(jnp.asarray, p0))
+    ref_loss = jt.train_batch(item)
+    ref = {k: np.asarray(v) for k, v in _flatten(
+        jax.tree.map(np.asarray, jax.device_get(jt.params))).items()}
+    trainer = Trainer("bs_roformer", cfg, loss=L1, optimizer=SGD,
+                      params=params_from_jax(p0, "bs_roformer", cfg), device="cpu")
+    loss = trainer.train_batch(item)
+    got = {k: v.detach().numpy() for k, v in _flatten(trainer.params).items()}
+    assert loss == pytest.approx(ref_loss, rel=1e-5)
+    start = {k: np.asarray(v) for k, v in _flatten(p0).items()}
+    assert got.keys() == ref.keys() == start.keys()
+    assert sum(bool(np.any(ref[k] != start[k])) for k in ref) >= 0.8 * len(ref)
+    for k in ref:
+        np.testing.assert_allclose(got[k], ref[k], rtol=OPT_RTOL,
+                                   atol=GRAD_REL * np.abs(ref[k] - start[k]).max(), err_msg=k)
+
+
 def test_load_the_jax_trainers_checkpoint(jax_run):
     cfg = AttrDict(jax_run["d"])
     params, opt_state, step, extra = load_checkpoint(jax_run["path"], "mdx23c", cfg,

@@ -7,24 +7,38 @@ those helpers, followed by the kernels' plain versions at the padded width,
 are held against the JAX package's Pallas kernels in interpret mode at the
 real width (K3 against its plain version unpadded: the Pallas kernel has no
 interpret mode), and K6's plain version at d 768 against its Pallas kernel.
-The JAX references are built once, by module-scoped fixtures."""
+The JAX references are built once, by module-scoped fixtures. Last, the
+head widths of the model paths that the card's ``GATE_PATHS``
+(chip_smoke.py) run through the kernels: the routes the host plans take
+there, and the roformer at 16 x 32 and 8 x 96 and the mel-band conformer at
+12 x 32 and 3 x 128 against the JAX models in f32."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from ml_collections import ConfigDict
+
+from sesa_tpu.models import bs_roformer as jax_bs
+from sesa_tpu.models import mel_band_conformer as jax_mbc
 from sesa_tpu.ops.attention import fused_attention_block as jax_fused_attention_block
 from sesa_tpu.ops.attention import fused_conformer_attention as jax_fused_conformer_attention
 from sesa_tpu.ops.convblock import fused_apollo_conv as jax_fused_apollo_conv
+from sesa_tpu_torch.configs import AttrDict
+from sesa_tpu_torch.models import bs_roformer, mel_band_conformer
 from sesa_tpu_torch.ops import attention as attn_ops
 from sesa_tpu_torch.ops.attention import (core_width, fused_attention_block_plain,
-                                          fused_conformer_attention_plain, k3_plan, pad_heads,
-                                          padded_block_weights, unpad_heads,
+                                          fused_conformer_attention_plain, k1_plan, k3_plan,
+                                          k4_plan, pad_heads, padded_block_weights, unpad_heads,
                                           vmem_attention_plain)
 from sesa_tpu_torch.ops.convblock import fused_apollo_conv_plain
 from sesa_tpu_torch.ops.rope import default_freqs, rope_tables
+from tests.oracles.layout_keygen import mel_band_conformer_state_dict
+from tests.test_roformer import bs_model_cfg, export_state_dict
+from tests.test_torch_conformer import _melconf_cfg, _random_bn
 
 
 @pytest.fixture(autouse=True)
@@ -251,3 +265,68 @@ def test_k6_plain_at_d768_matches_pallas(k6_case, dtype):
         np.testing.assert_allclose(got, refs["f32"], atol=3e-5, rtol=1e-4)
     else:
         _within_one_ulp(got, refs["bf16"])
+
+
+# ---------------------------------------------------------------------------
+# the head widths of the card's model paths (chip_smoke.py GATE_PATHS)
+# ---------------------------------------------------------------------------
+
+# (b, n, d, heads, dim_head, core width, route): the flagship's legs (372 x
+# 690 frames, 4140 x 62 bands) at 16 x 32 and 8 x 96, the mel-band
+# conformer's (360 x 690, 4140 x 60) at 12 x 32 and 3 x 128
+K1_MODEL_ROUTES = [(372, 690, 512, 16, 32, 32, "tiles"), (4140, 62, 512, 16, 32, 32, "short"),
+                   (372, 690, 512, 8, 96, 128, "tiles"), (4140, 62, 512, 8, 96, 128, "short")]
+K4_MODEL_ROUTES = [(360, 690, 384, 12, 32, 32, "tiles"), (4140, 60, 384, 12, 32, 32, "mma"),
+                   (360, 690, 384, 3, 128, 128, "mma"), (4140, 60, 384, 3, 128, 128, "mma")]
+
+
+@pytest.mark.parametrize("b,n,d,heads,dh,width,route", K1_MODEL_ROUTES)
+def test_k1_route_at_the_model_widths(b, n, d, heads, dh, width, route):
+    """K1 at 16 x 32 on its 32-wide cores (flash_wgmma for n > 64, flash_core
+    for n <= 64) and at 8 x 96 padded to 128."""
+    assert core_width(dh, heads) == width
+    assert k1_plan(b, n, d, heads, width, 132)["core"]["route"] == route
+
+
+@pytest.mark.parametrize("b,n,d,heads,dh,width,route", K4_MODEL_ROUTES)
+def test_k4_route_at_the_model_widths(b, n, d, heads, dh, width, route):
+    """K4 at 12 x 32 on flash_shaw's tiles for n > 64 and mma.sync for n <= 64;
+    at 3 x 128 on mma.sync at any n."""
+    assert core_width(dh, heads) == width
+    assert k4_plan(b, n, d, heads, width, 132)["core"]["route"] == route
+
+
+# end-to-end f32 tolerance of the JAX package against its torch oracles
+# (BASELINE.md:88), as tests/test_torch_bs_roformer.py and
+# tests/test_torch_conformer.py state it
+MODEL_ATOL, MODEL_RTOL = 5e-4, 1e-3
+
+
+@pytest.mark.parametrize("heads,dh", [(16, 32), (8, 96)])
+def test_bs_roformer_at_model_head_widths_matches_jax(heads, dh):
+    mcfg = bs_model_cfg(depth=1, heads=heads, dim_head=dh)
+    jcfg, cfg = ConfigDict({"model": mcfg}), AttrDict({"model": mcfg})
+    jparams = jax_bs.init(jax.random.PRNGKey(heads), jcfg)
+    sd = export_state_dict(jparams, jax_bs.spec_from_config(mcfg),
+                           transformer_norm_output=False, final_norm=True)
+    x = np.random.default_rng(1).standard_normal((2, 2, 2048)).astype(np.float32) * 0.3
+    ref = np.asarray(jax.jit(lambda p, a: jax_bs.apply(p, jcfg, a))(
+        jax_bs.convert_torch({k: v.numpy() for k, v in sd.items()}, jcfg), jnp.asarray(x)))
+    got = bs_roformer.apply(bs_roformer.convert_torch(sd, cfg), cfg, torch.from_numpy(x))
+    assert got.shape == ref.shape == (2, mcfg["num_stems"], 2, 2048)
+    np.testing.assert_allclose(got.numpy(), ref, atol=MODEL_ATOL, rtol=MODEL_RTOL)
+
+
+@pytest.mark.parametrize("heads,dh", [(12, 32), (3, 128)])
+def test_mel_band_conformer_at_model_head_widths_matches_jax(heads, dh):
+    mcfg = _melconf_cfg(depth=1, heads=heads, dim_head=dh)
+    jcfg, cfg = ConfigDict({"model": mcfg}), AttrDict({"model": mcfg})
+    sd = _random_bn(mel_band_conformer_state_dict(jcfg, seed=heads), 3)
+    x = np.random.default_rng(1).standard_normal((2, 2, 1280)).astype(np.float32) * 0.3
+    ref = np.asarray(jax.jit(lambda p, a: jax_mbc.apply(p, jcfg, a))(
+        jax_mbc.convert_torch(sd, jcfg), jnp.asarray(x)))
+    params = mel_band_conformer.convert_torch({k: torch.from_numpy(np.array(v))
+                                               for k, v in sd.items()}, cfg)
+    got = mel_band_conformer.apply(params, cfg, torch.from_numpy(x))
+    assert got.shape == ref.shape == (2, 1, 2, 1280)
+    np.testing.assert_allclose(got.numpy(), ref, atol=MODEL_ATOL, rtol=MODEL_RTOL)
