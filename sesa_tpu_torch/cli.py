@@ -73,6 +73,7 @@ def main(argv=None, session_out: list = None) -> int:
     args = build_parser().parse_args(argv)
 
     from sesa_tpu_torch.audio_io import read_audio, write_audio
+    from sesa_tpu_torch.runtime.profiling import ThroughputTracker
     from sesa_tpu_torch.runtime.session import InferenceSession
 
     if args.audio_path:
@@ -108,6 +109,9 @@ def main(argv=None, session_out: list = None) -> int:
     is_float = args.export_format.startswith("wav FLOAT")
     codec = "flac" if args.flac_file else "wav"
     subtype = ("FLOAT" if is_float else args.pcm_type) if codec == "flac" else "FLOAT"
+    # model calls a file takes: each separation thrice under TTA, demud twice
+    passes = (3 if args.use_tta else 1) * (2 if args.demud_phaseremix_inst else 1)
+    tracker = ThroughputTracker(sample_rate=session.sample_rate)
 
     for pi, path in enumerate(paths):
         try:
@@ -127,8 +131,10 @@ def main(argv=None, session_out: list = None) -> int:
             written = write_audio(os.path.join(store_dir, f"{base}_{instr}.{codec}"),
                                   est, sr, subtype=subtype)
             print(f"wrote {written}")
+        tracker.update(samples=mix.shape[-1], chunks=passes * session.spec.n_chunks(mix.shape[-1]))
 
     print(f"Elapsed: {time.time() - t0:.1f}s")
+    print(tracker.report())
     return 0
 
 

@@ -57,6 +57,7 @@ import torch.nn.functional as F
 
 from sesa_tpu_torch import get_device, to_device
 from sesa_tpu_torch.ops.windows import fade_window
+from sesa_tpu_torch.runtime.profiling import span
 
 # model_apply(params, chunks[B, ch, C]) -> [B, S, ch, C]
 ModelApply = Callable[..., torch.Tensor]
@@ -90,6 +91,13 @@ class DemixSpec:
     @property
     def fade_size(self) -> int:
         return self.chunk_size // 10
+
+    def n_chunks(self, length: int) -> int:
+        """The chunks a demix of a ``length``-sample song runs, the reflect
+        border included."""
+        if self.border > 0 and length > 2 * self.border:
+            length += 2 * self.border
+        return max(1, -(-length // self.step))
 
 
 def _windows(spec: DemixSpec) -> np.ndarray:
@@ -244,16 +252,19 @@ class DemixJob:
         spec = self.spec
         est = np.empty((spec.num_stems, spec.num_channels, self.hi - self.lo), dtype=np.float32)
         for slab, a, b, o in self._parts():
-            if slab.host is None:  # a "device" job collected on the host anyway
-                data = slab.data.cpu()
-                scale = None if slab.scale is None else slab.scale.cpu()
-            else:
-                if slab.done is not None:
-                    slab.done.synchronize()
-                data, scale = slab.host, slab.host_scale
+            with span("sesa.sync.to_host"):
+                if slab.host is None:  # a "device" job collected on the host anyway
+                    data = slab.data.cpu()
+                    scale = None if slab.scale is None else slab.scale.cpu()
+                else:
+                    if slab.done is not None:
+                        slab.done.synchronize()
+                    data, scale = slab.host, slab.host_scale
             part = data.numpy()[..., a:b]
             if scale is not None:
-                # the JAX collect's factor: a Python float, f32 in the product
+                # the JAX collect's factor: a Python float, f32 in the product;
+                # the scale is in host memory here (its copy is covered by the
+                # data's event), so reading it waits for nothing
                 part = part.astype(np.float32) * (float(scale) / 32767.0)
             est[..., o:o + b - a] = part
         return est
@@ -283,23 +294,24 @@ def demix_start(model_apply: ModelApply, params, mix, spec: DemixSpec, *, device
     if transport not in TRANSPORTS:
         raise ValueError(f"transport must be one of {TRANSPORTS}, got {transport!r}")
     dev = get_device(device)
-    if isinstance(mix, torch.Tensor):
-        mix_t = mix.to(device=dev, dtype=torch.float32)
-    else:
-        mix_t = upload_mix(mix, dev)
-    if mix_t.ndim != 2:
-        raise ValueError(f"mix must be (channels, T), got {tuple(mix_t.shape)}")
     group, share0, share1 = _mesh_share(mesh, spec.batch_size)
-    if affine is not None:
-        mix_t = (mix_t - float(affine[0])) / float(affine[1])
-    length_init = mix_t.shape[-1]
     c, step, border, b = spec.chunk_size, spec.step, spec.border, spec.batch_size
-    padded = border > 0 and length_init > 2 * border
-    if padded:
-        mix_t = F.pad(mix_t[None], (border, border), mode="reflect")[0]
+    with span("sesa.upload"):
+        if isinstance(mix, torch.Tensor):
+            mix_t = mix.to(device=dev, dtype=torch.float32)
+        else:
+            mix_t = upload_mix(mix, dev)
+        if mix_t.ndim != 2:
+            raise ValueError(f"mix must be (channels, T), got {tuple(mix_t.shape)}")
+        if affine is not None:
+            mix_t = (mix_t - float(affine[0])) / float(affine[1])
+        length_init = mix_t.shape[-1]
+        padded = border > 0 and length_init > 2 * border
+        if padded:
+            mix_t = F.pad(mix_t[None], (border, border), mode="reflect")[0]
     length = mix_t.shape[-1]
 
-    n_chunks = max(1, -(-length // step))
+    n_chunks = spec.n_chunks(length_init)
     n_batches = -(-n_chunks // b)
     n_segments = -(-n_batches // seg_batches)
     slab_len = seg_batches * b * step
@@ -312,41 +324,43 @@ def demix_start(model_apply: ModelApply, params, mix, spec: DemixSpec, *, device
     copy_stream = _copy_stream(dev) if transport != "device" else None
 
     slabs: List[Optional[_Slab]] = []
-    for si in range(n_segments):
-        for bi in range(si * seg_batches, min((si + 1) * seg_batches, n_batches)):
-            ids = range(bi * b + share0, min(bi * b + share1, n_chunks))
-            if len(ids):
-                chunks = torch.stack([_chunk(mix_t, i * step, c, spec.demucs_mode)
-                                      for i in ids])
-                out = model_apply(params, chunks).float()  # (B, S, ch, C)
-                for j, i in enumerate(ids):
-                    win = windows[1 if i == 0 else 2 if i == n_chunks - 1 else 0]
-                    result[..., i * step:i * step + c] += out[j] * win
-                    counter[i * step:i * step + c] += win
-            if progress_cb is not None:  # by batch (the JAX engine reports by segment)
-                progress_cb((bi + 1) / n_batches)
-        s0 = si * slab_len
-        needed = min(slab_len, hi - s0)
-        if needed <= 0 or s0 + needed <= lo:
-            # a slab wholly inside the reflect border (trailing when needed
-            # <= 0, leading at high overlap) carries no real samples
-            slabs.append(None)
-        else:
-            r = result[..., s0:s0 + needed]
-            cnt = counter[s0:s0 + needed]
-            if group is not None:  # sum the ranks' shares of the final span
-                r, cnt = r.contiguous(), cnt.contiguous()
-                torch.distributed.all_reduce(r, group=group)
-                torch.distributed.all_reduce(cnt, group=group)
-            est = torch.where(cnt > 0, r / torch.where(cnt > 0, cnt, 1.0), 0.0)
-            slab = _Slab(est)
-            if transport == "int16":
-                slab.data, slab.scale = _quant16(est)
-            if transport != "device":
-                if slab.scale is not None:  # first: the data's event then covers both
-                    slab.host_scale, _ = _copy_to_host(slab.scale, copy_stream)
-                slab.host, slab.done = _copy_to_host(slab.data, copy_stream)
-            slabs.append(slab)
+    with span("sesa.dispatch"):
+        for si in range(n_segments):
+            for bi in range(si * seg_batches, min((si + 1) * seg_batches, n_batches)):
+                ids = range(bi * b + share0, min(bi * b + share1, n_chunks))
+                if len(ids):
+                    chunks = torch.stack([_chunk(mix_t, i * step, c, spec.demucs_mode)
+                                          for i in ids])
+                    with span("sesa.model"):
+                        out = model_apply(params, chunks).float()  # (B, S, ch, C)
+                    for j, i in enumerate(ids):
+                        win = windows[1 if i == 0 else 2 if i == n_chunks - 1 else 0]
+                        result[..., i * step:i * step + c] += out[j] * win
+                        counter[i * step:i * step + c] += win
+                if progress_cb is not None:  # by batch (the JAX engine reports by segment)
+                    progress_cb((bi + 1) / n_batches)
+            s0 = si * slab_len
+            needed = min(slab_len, hi - s0)
+            if needed <= 0 or s0 + needed <= lo:
+                # a slab wholly inside the reflect border (trailing when needed
+                # <= 0, leading at high overlap) carries no real samples
+                slabs.append(None)
+            else:
+                r = result[..., s0:s0 + needed]
+                cnt = counter[s0:s0 + needed]
+                if group is not None:  # sum the ranks' shares of the final span
+                    r, cnt = r.contiguous(), cnt.contiguous()
+                    torch.distributed.all_reduce(r, group=group)
+                    torch.distributed.all_reduce(cnt, group=group)
+                est = torch.where(cnt > 0, r / torch.where(cnt > 0, cnt, 1.0), 0.0)
+                slab = _Slab(est)
+                if transport == "int16":
+                    slab.data, slab.scale = _quant16(est)
+                if transport != "device":
+                    if slab.scale is not None:  # first: the data's event then covers both
+                        slab.host_scale, _ = _copy_to_host(slab.scale, copy_stream)
+                    slab.host, slab.done = _copy_to_host(slab.data, copy_stream)
+                slabs.append(slab)
     return DemixJob(spec, slabs, slab_len, lo, hi, transport)
 
 

@@ -1,9 +1,10 @@
 """Throughput counters and device tracing (counterpart of
 sesa_tpu/runtime/profiling.py; reference benchmark_pytorch.py:44-153 and
 pytorch_backend.py:593-621 ``get_model_info``): a realtime-factor and
-chunks-per-second tracker that the demix progress callback can feed, a
-parameter count and size report over the port's parameter trees, and a
-context manager around ``torch.profiler`` that writes a Chrome trace.
+chunks-per-second tracker fed once a file's stems are in host memory, a
+parameter count and size report over the port's parameter trees, a context
+manager around ``torch.profiler`` that writes a Chrome trace, and the host
+spans that the session and demix record inside each call.
 """
 
 from __future__ import annotations
@@ -20,10 +21,14 @@ from sesa_tpu_torch.tree import tree_map
 
 @dataclass
 class ThroughputTracker:
-    """Track realtime factor and chunk throughput during separation."""
+    """Track realtime factor and chunk throughput during separation.
+
+    Feed it with :meth:`update` once a piece of work is in host memory (the
+    CLI: after each file's stems are written), never when the work has only
+    been queued on the device: the host clock would then time the enqueue."""
 
     sample_rate: int = 44100
-    started: float = field(default_factory=time.time)
+    started: float = field(default_factory=time.perf_counter)
     samples_done: int = 0
     chunks_done: int = 0
 
@@ -33,7 +38,7 @@ class ThroughputTracker:
 
     @property
     def elapsed(self) -> float:
-        return max(1e-9, time.time() - self.started)
+        return max(1e-9, time.perf_counter() - self.started)
 
     @property
     def rtf(self) -> float:
@@ -63,11 +68,29 @@ def get_model_info(params, model_type: str = "") -> dict:
     }
 
 
+def span(name: str):
+    """A host span around a phase of a call, for ``with span("sesa.upload"):``.
+
+    Recorded only while a ``torch.profiler`` runs (:func:`device_trace`, the
+    benchmark's traced runs); otherwise it costs under a microsecond. Names
+    are ``sesa.<phase>`` in ``[a-z._]``, never with ``::``, so that no
+    reader takes one for a harness span or a kernel.
+
+    It records a ``cpu_op`` event, on the device trace's clock, and nothing
+    on the device's timeline. ``torch.profiler.record_function`` is not used:
+    its ``user_annotation`` is mirrored onto the device timeline as a
+    ``gpu_user_annotation`` of the same name, which a trace reader counts as
+    device work."""
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
 @contextlib.contextmanager
 def device_trace(log_dir: str):
     """Profile a block with ``torch.profiler`` (CPU activity, and CUDA when a
     GPU is visible) and write it to ``log_dir`` as a Chrome trace
-    (``trace_<pid>_<ns>.json``; open it in Perfetto or chrome://tracing)."""
+    (``trace_<pid>_<ns>.json``; open it in Perfetto or chrome://tracing).
+    The trace holds the session's and demix's :func:`span` events as host
+    rows."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)

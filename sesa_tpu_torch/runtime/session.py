@@ -16,6 +16,7 @@ from sesa_tpu_torch.configs import load_config
 from sesa_tpu_torch.convert import convert_checkpoint, load_torch_state_dict
 from sesa_tpu_torch.models import get_model
 from sesa_tpu_torch.runtime.demix import TRANSPORTS, DemixSpec, apply_tta, demix
+from sesa_tpu_torch.runtime.profiling import span
 from sesa_tpu_torch.tree import tree_map
 
 
@@ -191,7 +192,17 @@ class InferenceSession:
         of stages never crosses to the host. The rescue check reads one flag
         from the device, or the numpy stems of an int16 run. The rescue and
         its TTA run with an exact transport.
+
+        Under a ``torch.profiler`` the call records its phases as host spans
+        (``runtime.profiling.span``): ``sesa.separate`` around it all,
+        demix's ``sesa.upload``, ``sesa.dispatch`` and ``sesa.model``, and a
+        ``sesa.sync.<what>`` span at each place where the host waits for
+        the device.
         """
+        with span("sesa.separate"):
+            return self._separate(mix, use_tta, progress_cb, transport, mix_device)
+
+    def _separate(self, mix, use_tta, progress_cb, transport, mix_device):
         if transport not in TRANSPORTS:
             raise ValueError(f"transport must be one of {TRANSPORTS}, got {transport!r}")
         mix = self._as_channels(mix)
@@ -201,8 +212,11 @@ class InferenceSession:
         norm = affine = None
         if bool((self.config.get("inference", {}) or {}).get("normalize", False)):
             mono = mix.mean(0)
-            std = mono.std(unbiased=False) if isinstance(mono, torch.Tensor) else mono.std()
-            norm = {"mean": float(mono.mean()), "std": float(std)}
+            if isinstance(mono, torch.Tensor):
+                with span("sesa.sync.stats"):
+                    norm = {"mean": float(mono.mean()), "std": float(mono.std(unbiased=False))}
+            else:
+                norm = {"mean": float(mono.mean()), "std": float(mono.std())}
             affine = (norm["mean"], norm["std"])
 
         # the engine's transport: int16 as asked, else the stems stay on the
@@ -214,8 +228,11 @@ class InferenceSession:
         stems = demix(apply_fn, self.params, src, self.spec, progress_cb=progress_cb,
                       transport=engine, **kw)
         lossy = self.compute_dtype not in (None, torch.float32)
-        finite = (np.isfinite(stems).all() if isinstance(stems, np.ndarray)
-                  else bool(torch.isfinite(stems).all()))
+        if isinstance(stems, np.ndarray):
+            finite = np.isfinite(stems).all()
+        else:
+            with span("sesa.sync.rescue"):
+                finite = bool(torch.isfinite(stems).all())
         if lossy and not finite:
             print("non-finite output under bf16; retrying in float32")
             self.rescues += 1
@@ -235,7 +252,8 @@ class InferenceSession:
         if norm is not None:
             stems = denormalize_audio(stems, norm)
         if transport == "f32":
-            stems = stems.cpu().numpy()
+            with span("sesa.sync.to_host"):
+                stems = stems.cpu().numpy()
         return {name: stems[i] for i, name in enumerate(self.instruments)}
 
     def separate_with_extras(self, mix: Audio, *, use_tta: bool = False,
@@ -246,25 +264,29 @@ class InferenceSession:
         """separate() plus the reference CLI's derived outputs (reference
         inference.py:103-126): instrumental = mix − vocals, and the demud
         phase-remix re-separation. ``mix_device`` serves the first
-        separation only, as in the JAX session."""
+        separation only, as in the JAX session. The derived stems are worked
+        out inside a ``sesa.extras`` span."""
         mix_orig = self._as_channels(mix)
         if transport == "device":  # the derived stems are sums with the stems' kind
-            mix_orig = torch.as_tensor(mix_orig, device=self.device)
+            with span("sesa.sync.upload"):  # from pageable memory: the stream drains first
+                mix_orig = torch.as_tensor(mix_orig, device=self.device)
         elif isinstance(mix_orig, torch.Tensor):
-            mix_orig = mix_orig.cpu().numpy()
+            with span("sesa.sync.to_host"):
+                mix_orig = mix_orig.cpu().numpy()
         kw = dict(use_tta=use_tta, transport=transport)
 
         waveforms = self.separate(mix_orig, progress_cb=progress_cb, mix_device=mix_device, **kw)
         instruments = list(waveforms)
         instr = "vocals" if "vocals" in instruments else instruments[0]
-        if demud_phaseremix_inst:
-            if not any(i.lower() == "instrumental" for i in instruments):
-                second = self.separate(mix_orig - 2 * waveforms[instr], **kw)
-                waveforms["instrumental_phaseremix"] = mix_orig + second[instr]
-            else:
-                mix_mod = 2 * waveforms[instr] - mix_orig
-                second = self.separate(mix_mod, **kw)
-                waveforms["instrumental_phaseremix"] = mix_orig + mix_mod - second[instr]
-        if extract_instrumental and "instrumental" not in waveforms:
-            waveforms["instrumental"] = mix_orig - waveforms[instr]
+        with span("sesa.extras"):
+            if demud_phaseremix_inst:
+                if not any(i.lower() == "instrumental" for i in instruments):
+                    second = self.separate(mix_orig - 2 * waveforms[instr], **kw)
+                    waveforms["instrumental_phaseremix"] = mix_orig + second[instr]
+                else:
+                    mix_mod = 2 * waveforms[instr] - mix_orig
+                    second = self.separate(mix_mod, **kw)
+                    waveforms["instrumental_phaseremix"] = mix_orig + mix_mod - second[instr]
+            if extract_instrumental and "instrumental" not in waveforms:
+                waveforms["instrumental"] = mix_orig - waveforms[instr]
         return waveforms
