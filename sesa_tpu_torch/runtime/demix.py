@@ -30,8 +30,15 @@ and handed on:
 :func:`demix` is ``demix_start(...).collect()``, except that
 ``transport="device"`` returns the f32 tensor on the device (the JAX
 ``demix`` returns numpy there: ROADMAP.md §3). :func:`upload_mix` puts a
-song on the device once for several separations, as 16-bit-exact int16
-where that is lossless.
+song on the device once for several separations: its exact f32 samples,
+copied in pieces through a fixed ring of pinned host slots on a stream of
+its own, so a call pays one host pass over the song and no pinned
+allocation. The JAX engine crosses 16-bit PCM as int16 to halve the bytes
+on its ~50 MB/s relay link; over PCIe the f32 copy of a 240 s song takes a
+few ms of the copy engine, far less than the host's scan that proves int16
+lossless, so the port copies the f32 bytes as they are. Demix's blend
+windows stay on the device per chunk size, demucs mode and device.
+:func:`upload_stats` counts how often each of these engages.
 
 With ``mesh`` (a ``parallel.make_mesh`` DeviceMesh) every rank of the mesh
 calls demix with the same arguments: the rank at data coordinate d runs
@@ -49,6 +56,8 @@ and short tails padded with zeros.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
 from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
@@ -65,6 +74,15 @@ ModelApply = Callable[..., torch.Tensor]
 # batches of chunks per segment: a slab is finalised after each segment
 _SEG_BATCHES = 8
 TRANSPORTS = ("f32", "int16", "device")
+# upload_mix's ring of pinned host slots, one ring per CUDA device: a song
+# crosses in pieces of one slot, so the copy engine moves piece k while the
+# host fills piece k+1, and no call allocates pinned memory after the first
+_RING_SLOTS = 4
+_SLOT_BYTES = 4 << 20
+
+# how often the staging and the windows' cache engage (upload_stats)
+_STATS = {"staging_allocs": 0, "staging_pieces": 0, "staging_waits": 0, "windows_built": 0}
+_LOCK = threading.RLock()  # the rings, every copy through them, _STATS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,29 +145,105 @@ def _chunk(mix: torch.Tensor, start: int, c: int, demucs_mode: bool = False) -> 
     return F.pad(sliced, (0, c - m))
 
 
+@functools.lru_cache(maxsize=16)
+def _windows_device(chunk_size: int, demucs_mode: bool, device: torch.device) -> torch.Tensor:
+    """:func:`_windows` on ``device``, built and uploaded once per key (the
+    JAX engine's ``_windows_device``; the fade is a tenth of the chunk).
+    Demix only reads it."""
+    windows = to_device(_windows(DemixSpec(chunk_size, demucs_mode=demucs_mode)), device)
+    with _LOCK:
+        _STATS["windows_built"] += 1
+    return windows
+
+
+def _device_key(dev: torch.device) -> torch.device:
+    """``dev`` with its index: "cuda" is the current CUDA device."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def upload_stats() -> dict:
+    """Counts since the process started: ``staging_allocs`` pinned slots
+    allocated, ``staging_pieces`` pieces copied through them,
+    ``staging_waits`` slots found still busy (each wait is a
+    ``sesa.sync.staging`` span), ``windows_built`` blend windows built."""
+    with _LOCK:
+        return dict(_STATS)
+
+
+class _StagingRing:
+    """A fixed ring of host slots through which a song crosses to one CUDA
+    device in pieces. ``alloc(n)`` makes a slot of n f32 (pinned memory) and
+    ``new_event()`` the event recorded after each piece's copy from it
+    (``query()`` whether that copy is done, ``synchronize()`` to wait for
+    it); tests hand in CPU stand-ins. Every slot is allocated here, once."""
+
+    def __init__(self, alloc: Callable[[int], torch.Tensor], new_event: Callable,
+                 slots: int = _RING_SLOTS, slot_elems: int = _SLOT_BYTES // 4):
+        self.slots = [(alloc(slot_elems), new_event()) for _ in range(slots)]
+        self.next = 0
+        with _LOCK:
+            _STATS["staging_allocs"] += slots
+
+    def copy(self, host: np.ndarray, dst: torch.Tensor) -> None:
+        """Queue the copy of ``host`` into ``dst`` (contiguous f32 of its
+        shape) on the current stream, a slot at a time. A slot is refilled
+        once its last copy is done; only a copy still running is waited for."""
+        src = torch.from_numpy(np.ascontiguousarray(host, dtype=np.float32).reshape(-1))
+        flat = dst.view(-1)
+        size = self.slots[0][0].numel()
+        with _LOCK:
+            for start in range(0, src.numel(), size):
+                n = min(size, src.numel() - start)
+                buf, done = self.slots[self.next]
+                self.next = (self.next + 1) % len(self.slots)
+                if not done.query():
+                    _STATS["staging_waits"] += 1
+                    with span("sesa.sync.staging"):
+                        done.synchronize()
+                buf[:n].copy_(src[start:start + n])
+                flat[start:start + n].copy_(buf[:n], non_blocking=True)
+                done.record()
+                _STATS["staging_pieces"] += 1
+
+
+_RINGS = {}  # device -> (_StagingRing, its copy stream)
+
+
+def _staging(dev: torch.device):
+    with _LOCK:
+        if dev not in _RINGS:
+            _RINGS[dev] = (_StagingRing(
+                lambda n: torch.empty(n, dtype=torch.float32, pin_memory=True),
+                torch.cuda.Event), torch.cuda.Stream(dev))
+        return _RINGS[dev]
+
+
 def upload_mix(mix, device=None) -> torch.Tensor:
     """A (channels, T) song on the device, once, for several demix calls.
 
-    Audio decoded from 16-bit PCM is exactly ``n / 32768``: it crosses as
-    int16 (half the bytes) and is rescaled on the device by 1/32768, which
-    is bit-exact since the scale is a power of two. Anything else crosses as
-    f32. On CUDA the copy is queued from pinned memory and does not wait for
-    the device's queue (sesa_tpu/runtime/demix.py:347-362, 629-640)."""
+    The f32 samples cross as they are, bit for bit, with no scan on the host
+    (the module docstring says why not as int16): on CUDA in pieces through
+    the device's ring of pinned slots (:class:`_StagingRing`) on a stream of
+    its own, so the copy neither allocates pinned memory nor waits behind
+    work queued on the caller's stream, which waits for it on the device;
+    on the CPU as a copy."""
     dev = get_device(device)
-    mix = np.asarray(mix, dtype=np.float32)
-    if mix.ndim != 2:
-        raise ValueError(f"mix must be (channels, T), got {mix.shape}")
-    scaled = mix * 32768.0
-    host = None
-    if np.all(np.abs(scaled) <= 32767):
-        as_int = scaled.astype(np.int16)
-        if np.array_equal(as_int.astype(np.float32), scaled):
-            host = torch.from_numpy(as_int)
-    exact16 = host is not None
-    if not exact16:
-        host = torch.from_numpy(mix)
-    out = to_device(host, dev) if dev.type == "cuda" else host.clone()
-    return out.float() * (1.0 / 32768.0) if exact16 else out
+    host = np.asarray(mix, dtype=np.float32)
+    if host.ndim != 2:
+        raise ValueError(f"mix must be (channels, T), got {host.shape}")
+    if dev.type != "cuda":
+        return torch.from_numpy(np.ascontiguousarray(host)).clone()
+    dev = _device_key(dev)
+    ring, stream = _staging(dev)
+    with torch.cuda.stream(stream):
+        out = torch.empty(host.shape, dtype=torch.float32, device=dev)
+        ring.copy(host, out)
+    consumer = torch.cuda.current_stream(dev)
+    consumer.wait_stream(stream)
+    out.record_stream(consumer)  # allocated on the ring's stream, used on the caller's
+    return out
 
 
 @dataclasses.dataclass
@@ -319,7 +413,7 @@ def demix_start(model_apply: ModelApply, params, mix, spec: DemixSpec, *, device
     l_buf = max((n_chunks - 1) * step + c, n_segments * slab_len)
     result = torch.zeros((spec.num_stems, spec.num_channels, l_buf), device=dev)
     counter = torch.zeros((l_buf,), device=dev)
-    windows = to_device(_windows(spec), dev)
+    windows = _windows_device(spec.chunk_size, spec.demucs_mode, _device_key(dev))
     lo, hi = (border, length - border) if padded else (0, length_init)
     copy_stream = _copy_stream(dev) if transport != "device" else None
 

@@ -180,9 +180,11 @@ class InferenceSession:
 
         ``mix`` is a numpy array or a tensor (one on the session's device is
         used where it lies). ``mix_device`` (from ``runtime.upload_mix``) is
-        the same song already on the device, shared by several sessions: the
-        statistics come from ``mix``, the demix from ``mix_device``, and a
-        channel fix-up that changes the shape drops it.
+        the same song already on the device, its f32 samples bit for bit,
+        shared by several sessions: the statistics come from ``mix``, the
+        demix from ``mix_device``, and a channel fix-up that changes the
+        shape drops it. A numpy ``mix`` crosses the same way, through the
+        device's pinned staging ring, with no host scan.
 
         ``transport="f32"`` (the default, bf16 sessions included: over PCIe
         the f32 copy is cheap, ROADMAP.md §3) keeps the stems on the device

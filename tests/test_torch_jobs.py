@@ -1,11 +1,16 @@
 """The port's demix job API (``demix_start``, ``DemixJob``, ``upload_mix``,
 ``seg_batches``, the int16 transport) held against sesa_tpu's on the CPU with
 the same simple model function (a scale plus a channel mix, as
-tests/test_demix.py's ``_mix_model_jax``), then the session's shared upload
-(``mix_device``) and the auto ensemble's single upload."""
+tests/test_demix.py's ``_mix_model_jax``), upload_mix's staging ring with
+CPU stand-ins for its pinned slots and events, the blend windows' cache,
+then the session's shared upload (``mix_device``) and the auto ensemble's
+single upload."""
 
 import importlib
 import os
+import sys
+import threading
+import tracemalloc
 
 import numpy as np
 import pytest
@@ -142,22 +147,156 @@ def test_collect_device_with_stems():
 
 
 def test_upload_mix_bit_exact_and_fallback(monkeypatch):
-    """16-bit PCM crosses as int16 and comes back bit for bit; arbitrary
-    floats and a 1.5x hot master cross as f32, unchanged. Both packages
-    upload the same values."""
+    """16-bit PCM, arbitrary floats and a 1.5x hot master all cross as f32
+    and come back bit for bit, equal to the JAX package's upload; numpy
+    makes no array of the song on the way, so no int16 copy."""
     rng = np.random.default_rng(0)
-    pcm = rng.integers(-32768, 32768, size=(2, 1000), dtype=np.int16)
+    pcm = rng.integers(-32768, 32768, size=(2, 100000), dtype=np.int16)
     as_f32 = pcm.astype(np.float32) / 32768.0
     crossed = []
     real = torch.from_numpy
     monkeypatch.setattr(torch, "from_numpy", lambda a: crossed.append(a.dtype) or real(a))
-    for mix, dtype in ((as_f32, np.int16), (rng.standard_normal((2, 1000)).astype(np.float32),
-                                            np.float32), (as_f32 * 1.5, np.float32)):
+    for mix in (as_f32, rng.standard_normal((2, 100000)).astype(np.float32), as_f32 * 1.5):
         crossed.clear()
-        up = pruntime.upload_mix(mix, device="cpu")
-        assert crossed == [dtype] and up.dtype == torch.float32
+        tracemalloc.start()
+        try:
+            up = pruntime.upload_mix(mix, device="cpu")
+            numpy_peak = tracemalloc.get_traced_memory()[1]
+        finally:
+            tracemalloc.stop()
+        assert crossed == [np.float32] and up.dtype == torch.float32
+        assert numpy_peak < mix.nbytes // 4  # an int16 copy alone is half the song's bytes
         np.testing.assert_array_equal(up.numpy(), mix)
         np.testing.assert_array_equal(up.numpy(), np.asarray(jax_demix._upload_mix(mix)))
+
+
+class _Event:
+    """A CUDA event's stand-in for the staging ring: after each ``record``
+    it reports its copy running for ``busy`` queries, or until waited on."""
+
+    def __init__(self, busy=0):
+        self.busy, self.left, self.waits = busy, 0, 0
+
+    def record(self):
+        self.left = self.busy
+
+    def query(self):
+        if self.left:
+            self.left -= 1
+            return False
+        return True
+
+    def synchronize(self):
+        self.left = 0
+        self.waits += 1
+
+
+def _stats_since(before):
+    now = port_demix.upload_stats()
+    return {k: now[k] - before[k] for k in now}
+
+
+def test_staging_ring_copies_piece_by_piece():
+    """A song longer than the ring crosses in slot-sized pieces, the last
+    one partial, bit for bit; the slots are allocated once, when the ring
+    is made, and reused by every later copy; a transposed view crosses as
+    its values."""
+    before = port_demix.upload_stats()
+    ring = port_demix._StagingRing(lambda n: torch.empty(n), _Event, slots=3, slot_elems=1000)
+    assert _stats_since(before)["staging_allocs"] == 3
+    slots = [buf.data_ptr() for buf, _ in ring.slots]
+    song = _mix(4567, 29)  # 9134 samples: 10 pieces, the last of 134
+    dst = torch.empty(song.shape)
+    ring.copy(song, dst)
+    np.testing.assert_array_equal(dst.numpy(), song)
+    assert _stats_since(before) == {"staging_allocs": 3, "staging_pieces": 10,
+                                    "staging_waits": 0, "windows_built": 0}
+    transposed, strided = np.ascontiguousarray(_mix(1700, 33).T).T, _mix(700, 37)[:, ::2]
+    assert not transposed.flags.c_contiguous and not strided.flags.c_contiguous
+    for mix in (_mix(1500, 31), transposed, strided):
+        dst = torch.empty(mix.shape)
+        ring.copy(mix, dst)
+        np.testing.assert_array_equal(dst.numpy(), mix)
+        np.testing.assert_array_equal(pruntime.upload_mix(mix, device="cpu").numpy(), mix)
+    assert _stats_since(before)["staging_allocs"] == 3
+    assert [buf.data_ptr() for buf, _ in ring.slots] == slots
+
+
+def test_staging_ring_waits_for_a_busy_slot():
+    """A slot whose last copy is still running is waited on before it is
+    refilled, inside a ``sesa.sync.staging`` span, and counted; a slot
+    whose copy is done is refilled at once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sesa_tpu_torch.runtime.profiling import span
+
+    before = port_demix.upload_stats()
+    ring = port_demix._StagingRing(lambda n: torch.empty(n), lambda: _Event(busy=1), slots=2,
+                                   slot_elems=100)
+    song = _mix(250, 41)  # 5 pieces through 2 slots: pieces 2, 3 and 4 find theirs busy
+    dst = torch.empty(song.shape)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with span("sesa.upload"):
+            ring.copy(song, dst)
+    np.testing.assert_array_equal(dst.numpy(), song)
+    assert [e.waits for _, e in ring.slots] == [2, 1]
+    assert _stats_since(before)["staging_waits"] == 3
+    waits = [e for e in prof.events() if e.name == "sesa.sync.staging"]
+    assert len(waits) == 3 and all(e.cpu_parent.name == "sesa.upload" for e in waits)
+    # events that report the copy done: no wait
+    ring = port_demix._StagingRing(lambda n: torch.empty(n), _Event, slots=2, slot_elems=100)
+    ring.copy(song, dst)
+    assert _stats_since(before)["staging_waits"] == 3
+
+
+def test_staging_ring_shared_by_threads():
+    """More threads than cores copy their own songs through one ring, with
+    the interpreter switching threads as often as it can: every song
+    arrives whole and every piece is counted."""
+    before = port_demix.upload_stats()
+    ring = port_demix._StagingRing(lambda n: torch.empty(n), _Event, slots=2, slot_elems=64)
+    songs = [_mix(1000 + 37 * i, 100 + i) for i in range(2 * (os.cpu_count() or 4) + 1)]
+    dsts = [torch.empty(s.shape) for s in songs]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=ring.copy, args=(s, d)) for s, d in zip(songs, dsts)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    for s, d in zip(songs, dsts):
+        np.testing.assert_array_equal(d.numpy(), s)
+    assert _stats_since(before)["staging_pieces"] == sum(-(-s.size // 64) for s in songs)
+
+
+def test_windows_cached_per_chunk_and_mode():
+    """Demix's blend windows are built once per (chunk size, demucs mode,
+    device): another batch size or stem count reuses them, another chunk
+    size or mode builds its own; the cached stack is the JAX engine's, and
+    demix with it warm matches the JAX engine."""
+    port_demix._windows_device.cache_clear()
+    before = port_demix.upload_stats()
+    mix = _mix(60000, 43)
+    jspec, spec = _specs(chunk_size=8192, num_overlap=2, batch_size=2, num_stems=2)
+    ref = jax_demix.demix(_mix_model_jax, None, mix, jspec)
+    for _ in range(2):
+        np.testing.assert_allclose(_start(mix, spec).collect(), ref, atol=ATOL)
+    assert _stats_since(before)["windows_built"] == 1
+    _start(mix, port_demix.DemixSpec(chunk_size=8192, batch_size=3, num_stems=2)).collect()
+    assert _stats_since(before)["windows_built"] == 1
+    for n, (chunk, demucs) in enumerate(((4096, False), (8192, True)), start=2):
+        jspec2, spec2 = _specs(chunk_size=chunk, batch_size=2, num_stems=2, demucs_mode=demucs)
+        np.testing.assert_allclose(
+            _start(mix, spec2).collect(), jax_demix.demix(_mix_model_jax, None, mix, jspec2),
+            atol=ATOL)
+        assert _stats_since(before)["windows_built"] == n
+        cached = port_demix._windows_device(chunk, demucs, torch.device("cpu"))
+        np.testing.assert_array_equal(cached.numpy(), jax_demix._windows(jspec2))
+    assert _stats_since(before)["windows_built"] == 3
 
 
 def test_affine_with_tta_matches_jax():

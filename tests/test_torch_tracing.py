@@ -27,7 +27,8 @@ PARENTS = {"sesa.separate": {None, "sesa.extras"}, "sesa.upload": {"sesa.separat
            "sesa.dispatch": {"sesa.separate"}, "sesa.model": {"sesa.dispatch"},
            "sesa.sync.rescue": {"sesa.separate"}, "sesa.sync.to_host": {"sesa.separate"},
            "sesa.sync.stats": {"sesa.separate"}, "sesa.sync.upload": {None},
-           "sesa.extras": {None}}
+           # a wait for a busy staging slot; None: upload_mix called directly
+           "sesa.sync.staging": {"sesa.upload", None}, "sesa.extras": {None}}
 
 
 @pytest.fixture(autouse=True)
@@ -97,7 +98,8 @@ def test_f32_call_spans_nest_and_count():
     counts = {n: _count(spans, n) for n in PARENTS}
     assert counts == {"sesa.separate": 1, "sesa.upload": 1, "sesa.dispatch": 1,
                       "sesa.model": BATCHES, "sesa.sync.rescue": 1, "sesa.sync.to_host": 1,
-                      "sesa.sync.stats": 0, "sesa.sync.upload": 0, "sesa.extras": 1}
+                      "sesa.sync.stats": 0, "sesa.sync.upload": 0, "sesa.sync.staging": 0,
+                      "sesa.extras": 1}
     assert sum(1 for n, _, _ in spans if n.startswith("sesa.sync.")) == 2
 
 
