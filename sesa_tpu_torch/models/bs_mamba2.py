@@ -29,6 +29,7 @@ from sesa_tpu_torch.models.bs_roformer import _make_take
 from sesa_tpu_torch.ops.prec import net_precision
 from sesa_tpu_torch.ops.ssd import ssd
 from sesa_tpu_torch.ops.stft import hann_window, istft_ri, stft_ri
+from sesa_tpu_torch.runtime.profiling import span
 from sesa_tpu_torch.tree import tree_map
 
 _EPS_F32 = float(np.finfo(np.float32).eps)
@@ -267,7 +268,10 @@ def apply(params, config, x, compute_dtype=None):
     ``compute_dtype=torch.bfloat16`` runs the band bottlenecks, the Mamba
     separators and the heads in bf16; the STFT, the iSTFT and the complex
     mask stay f32, and the SSD scan sums in f32 inside its kernel whatever
-    the dtype it is handed.
+    the dtype it is handed. Host spans (``runtime.profiling.span``) mark the
+    phases of a call: ``sesa.mamba.split`` (both bottleneck banks),
+    ``sesa.mamba.mask`` and ``sesa.mamba.map`` (the separator stacks, the
+    latter with ``in_conv``) and ``sesa.mamba.heads`` (the per-band heads).
     """
     with net_precision(compute_dtype) as dtype:
         kw = _model_kwargs(config)
@@ -297,41 +301,45 @@ def apply(params, config, x, compute_dtype=None):
             return torch.stack([bottleneck(p, o, w) for p, o, w in zip(bns, offsets, widths)],
                                dim=1)
 
-        feat_mask, feat_map = features(params["bn_mask"]), features(params["bn_map"])
+        with span("sesa.mamba.split"):
+            feat_mask, feat_map = features(params["bn_mask"]), features(params["bn_map"])
 
-        z = feat_mask.reshape(bsz, nch, nband * n, t)
-        for p in params["separator_mask"]:
-            z = _bsnet_apply(p, z, nband)
-        sep_mask = z.reshape(bsz * nch, nband, n, t)
+        with span("sesa.mamba.mask"):
+            z = feat_mask.reshape(bsz, nch, nband * n, t)
+            for p in params["separator_mask"]:
+                z = _bsnet_apply(p, z, nband)
+            sep_mask = z.reshape(bsz * nch, nband, n, t)
 
-        combined = torch.cat([feat_map, sep_mask], dim=2).reshape(bsz * nch * nband, 2 * n, t)
-        z = torch.tanh(_pointwise(combined, params["in_conv"])).reshape(bsz, nch, nband * n, t)
-        for p in params["separator_map"]:
-            z = _bsnet_apply(p, z, nband)
-        sep_map = z.reshape(bsz * nch, nband, n, t)
+        with span("sesa.mamba.map"):
+            combined = torch.cat([feat_map, sep_mask], dim=2).reshape(bsz * nch * nband, 2 * n, t)
+            z = torch.tanh(_pointwise(combined, params["in_conv"])).reshape(bsz, nch, nband * n, t)
+            for p in params["separator_map"]:
+                z = _bsnet_apply(p, z, nband)
+            sep_map = z.reshape(bsz * nch, nband, n, t)
 
-        est_parts = []
-        for i, (start, bw) in enumerate(zip(offsets, widths)):
-            sub_re = spec[:, start:start + bw, :, 0]  # (B', bw, T)
-            sub_im = spec[:, start:start + bw, :, 1]
+        with span("sesa.mamba.heads"):
+            est_parts = []
+            for i, (start, bw) in enumerate(zip(offsets, widths)):
+                sub_re = spec[:, start:start + bw, :, 0]  # (B', bw, T)
+                sub_im = spec[:, start:start + bw, :, 1]
 
-            # the masks apply to the f32 spectrum
-            out = _head_apply(params["mask"][i], sep_mask[:, i], k_out).float()
-            out = out.reshape(bsz * nch, 2, 2, k_out, bw, t)
-            m = out[:, 0] * torch.sigmoid(out[:, 1])  # (B', 2, K, bw, T)
-            m_re, m_im = m[:, 0], m[:, 1]
-            # the masks sum to one across the outputs (ts_bs_mamba2.py:280-284)
-            m_re = m_re - (m_re.sum(dim=1, keepdim=True) - 1.0) / k_out
-            m_im = m_im - m_im.sum(dim=1, keepdim=True) / k_out
-            est_re = sub_re[:, None] * m_re - sub_im[:, None] * m_im
-            est_im = sub_re[:, None] * m_im + sub_im[:, None] * m_re
+                # the masks apply to the f32 spectrum
+                out = _head_apply(params["mask"][i], sep_mask[:, i], k_out).float()
+                out = out.reshape(bsz * nch, 2, 2, k_out, bw, t)
+                m = out[:, 0] * torch.sigmoid(out[:, 1])  # (B', 2, K, bw, T)
+                m_re, m_im = m[:, 0], m[:, 1]
+                # the masks sum to one across the outputs (ts_bs_mamba2.py:280-284)
+                m_re = m_re - (m_re.sum(dim=1, keepdim=True) - 1.0) / k_out
+                m_im = m_im - m_im.sum(dim=1, keepdim=True) / k_out
+                est_re = sub_re[:, None] * m_re - sub_im[:, None] * m_im
+                est_im = sub_re[:, None] * m_im + sub_im[:, None] * m_re
 
-            out2 = _head_apply(params["map"][i], sep_map[:, i], k_out).float()
-            out2 = out2.reshape(bsz * nch, 2, 2, k_out, bw, t)
-            mp = out2[:, 0] * torch.sigmoid(out2[:, 1])
-            est_parts.append(torch.stack([est_re + mp[:, 0], est_im + mp[:, 1]], dim=-1))
+                out2 = _head_apply(params["map"][i], sep_map[:, i], k_out).float()
+                out2 = out2.reshape(bsz * nch, 2, 2, k_out, bw, t)
+                mp = out2[:, 0] * torch.sigmoid(out2[:, 1])
+                est_parts.append(torch.stack([est_re + mp[:, 0], est_im + mp[:, 1]], dim=-1))
 
-        est = torch.cat(est_parts, dim=2).reshape(bsz * nch * k_out, enc_dim, t, 2)
+            est = torch.cat(est_parts, dim=2).reshape(bsz * nch * k_out, enc_dim, t, 2)
         wav = istft_ri(est, kw["win"], kw["stride"], window, length=nsample)
         return wav.reshape(bsz, nch, k_out, nsample).transpose(1, 2)  # (B, K, ch, T)
 
