@@ -49,7 +49,13 @@ and prints no result line):
    128, 8) at band_rnn's B 684 x L 704, and band_comm's B 8280 x L 64 at
    chunk 32, in bf16 and f32; and small shapes of each (K5 to 257 taps, K7 at head widths
    8 to 120 read as they lie or repacked, K8 with L, P and N padded or
-   sliced).
+   sliced). Then the Mamba mixer's two kernels (MX: ``mamba_conv``, MC, and
+   ``mamba_gate_norm``, MG, ``csrc/mamba_mixer.cu``) at bs_mamba2's band_rnn
+   (684 x 690) and band_comm (8,280 x 57) in bf16 and f32, both directions,
+   against their plain versions, each timed beside its bytes bound at 3.35
+   TB/s, its plain version and the PyTorch sequence it replaces; small
+   shapes (d_model 32 to 256, rows read value by value, one step); and one
+   bs_mamba2 model call (48 launches of MC, MG and K8, parity as in 7).
    With ``--only``, phases 1-2 build and check just the kernels named.
 3. flagship: separates a generated 60 s stereo song through
    ``sesa_tpu_torch.cli.main`` with the flagship bs_roformer (dim 512,
@@ -106,7 +112,8 @@ and prints no result line):
    residual learning (K1 in modes 1 and 2, K2 at depth 0), the same with
    four residual streams (hyper-connections; K3 on the time legs), and
    ``bs_mamba2`` at the reference's defaults (57 bands, feature_dim 128, 8
-   mask and 4 map repeats, 4 stems; K8 48 times per model call); checks as
+   mask and 4 map repeats, 4 stems; K8 and the mixer's MC and MG 48 times
+   per model call); checks as
    in 3, then model parity as in 7. bs_mamba2 then runs once more with
    ``--compute_dtype f32`` (what a bf16 -> f32 rescue reruns), which launches
    K8's f32 form, with model parity in f32, its depth cut to 2 mask and 1 map
@@ -204,8 +211,9 @@ and prints no result line):
    peak CUDA memory; the loss must fall); ``save`` and ``load`` into a
    fresh trainer (params bit for bit, the next losses equal);
    ``validate_track`` of a 30 s seeded song through demix; a bs_mamba2
-   ``Trainer`` at K8's shape must raise the autograd guard with K8 not
-   launched, and ``ssd_fused`` under ``no_grad`` launches once; the UI:
+   ``Trainer`` at K8's shape must raise the autograd guard (the mixer's
+   conv, the first kernel it reaches) with no kernel launched, and
+   ``ssd_fused`` under ``no_grad`` launches once; the UI:
    ``sesa_tpu_torch.gui`` imports (``GRADIO_AVAILABLE``) and ``python -m
    sesa_tpu_torch.main --help`` exits 0.
 19. the modules of the last slice, each in its place among the phases
@@ -224,7 +232,7 @@ and prints no result line):
    ``phase_export`` after phase 14 (mdx23c at the InstVocHQ widths, one
    block a scale, exported with ``torch.export`` in f32, loaded, a batch of
    8 against the direct apply; bs_mamba2's trace, one block a stage, refused
-   by K8's wrapper naming K8), then ``istft_repeats`` (istft_ri twice on
+   by the mixer's conv wrapper naming it), then ``istft_repeats`` (istft_ri twice on
    the card at hops 512 and 441 into n_fft 2048: the same bits);
    ``phase_mesh`` after training (a world-size-1 NCCL group, ``make_mesh(1)``,
    the flagship's ``demix(mesh)`` and a mesh session equal to ``demix``, one
@@ -430,6 +438,11 @@ MESH_TRAIN_REL = 1e-5
 # K8 against its plain version: f32 sums in another order (and 3xTF32
 # products) in f32; in bf16 the output rounding on top
 SSD_F32_ATOL, SSD_F32_RTOL, SSD_BF16_REL = 2e-4, 1e-3, 0.05
+# the Mamba mixer's kernels against their plain versions: in f32 the same
+# products in another order (FMAs, the norm's sum across a warp), a few ulps
+# of the largest value; in bf16 each output may round one ulp (2^-8 of its
+# value) the other way
+MIXER_F32_REL, MIXER_BF16_REL = 1e-5, 2.0 ** -7
 # whole model, kernels vs plain versions, bf16 on the card
 MODEL_SNR_FLOOR_DB = 20.0
 # the chain's device ensemble + phase fix against the host functions, over
@@ -605,12 +618,13 @@ def counters():
                                               fused_rope_attention, sdpa_int8, vmem_attention)
     from sesa_tpu_torch.ops.convblock import fused_apollo_conv, fused_conformer_conv
     from sesa_tpu_torch.ops.ff import fused_ff_residual
+    from sesa_tpu_torch.ops.mamba import mamba_conv, mamba_gate_norm
     from sesa_tpu_torch.ops.ssd import ssd_fused
 
     return {"K1": fused_attention_block, "K2": fused_ff_residual, "K3": vmem_attention,
             "K4": fused_conformer_attention, "K5": fused_conformer_conv,
             "K6": fused_apollo_conv, "K7": fused_rope_attention, "K8": ssd_fused,
-            "I8": sdpa_int8}
+            "I8": sdpa_int8, "MC": mamba_conv, "MG": mamba_gate_norm}
 
 
 def reset_counts():
@@ -627,6 +641,12 @@ def read_counts():
 def expect(**counts):
     """Launch counts of every kernel: the given ones, 0 for the others."""
     return {k: counts.get(k, 0) for k in counters()}
+
+
+def _mamba_launches(mixers):
+    """bs_mamba2's launch counts for ``mixers`` Mamba-2 mixer calls: each
+    the mixer's conv, K8 and the mixer's gated norm once."""
+    return expect(K8=mixers, MC=mixers, MG=mixers)
 
 
 # ---------------------------------------------------------------------------
@@ -788,7 +808,7 @@ def k7_library(qkv, heads, scale, rope):
 # the library that holds each kernel (--only builds just those)
 LIBRARIES = {"K1": "attention", "K2": "ff", "K3": "vmem_attention", "K4": "conformer_attention",
              "K5": "convblock", "K6": "apollo_conv", "K7": "rope_attention", "K8": "ssd",
-             "I8": "int8_attention"}
+             "I8": "int8_attention", "MX": "mamba_mixer"}
 
 
 def phase_build(names=None):
@@ -1317,6 +1337,207 @@ def _k8_row(gen, dev, leg, bsz, l, h, p, n, chunk, dtype, key=None):
     return row
 
 
+# bs_mamba2's two legs of the Mamba mixer, (leg, B, L) at d_model 128:
+# band_rnn over 690 frames, band_comm over 57 bands
+MIXER_LEGS = (("band_rnn", BATCH * 2 * MAMBA_BANDS, FRAMES),
+              ("band_comm", BATCH * 2 * FRAMES, MAMBA_BANDS))
+
+
+def mixer_inputs(gen, d_model, bsz, l, dtype, device):
+    """A Mamba-2 mixer's parameters (mamba2_init's, moved off their init
+    values, A_log spread over [-4, 2]), its in projection's output zxbcdt ~
+    0.5 N and a scan output y ~ 0.5 N (B, Lp, H, 64) for the gate, drawn on
+    the card."""
+    import torch
+
+    from sesa_tpu_torch.models import bs_mamba2
+
+    p = bs_mamba2.mamba2_init(torch.Generator().manual_seed(d_model), d_model)
+    p = {k: (v + 0.1 * torch.randn(v.shape, generator=torch.Generator().manual_seed(i)))
+         for i, (k, v) in enumerate(p.items())}
+    p["A_log"] = torch.linspace(-4.0, 2.0, p["A_log"].shape[0])
+    p = {k: v.to(device, dtype) for k, v in p.items()}
+    cols, heads = p["in_proj"].shape[0], p["dt_bias"].shape[0]
+    zx = (0.5 * torch.randn((bsz, l, cols), generator=gen, device=gen.device)).to(dtype)
+    y = (0.5 * torch.randn((bsz, -(-l // 64) * 64, heads, 64), generator=gen,
+                           device=gen.device)).to(dtype)
+    return p, zx, y
+
+
+def compare_mixer(name, outs, refs):
+    """The mixer's outputs against their plain versions, each within
+    MIXER_F32_REL (f32) or MIXER_BF16_REL (bf16) of its largest value;
+    returns the largest |kernel - plain| over the outputs."""
+    import torch
+
+    bound = MIXER_BF16_REL if outs[0].dtype == torch.bfloat16 else MIXER_F32_REL
+    worst = worst_rel = 0.0
+    for o, r in zip(outs, refs):
+        o, r = o.float(), r.float()
+        if o.shape != r.shape or not bool(o.isfinite().all()):
+            raise RuntimeError(f"{name}: shape {tuple(o.shape)} against {tuple(r.shape)}, or "
+                               "a non-finite kernel output")
+        err = float((o - r).abs().max())
+        worst, worst_rel = max(worst, err), max(worst_rel, err / max(float(r.abs().max()), 1e-30))
+    log(f"  {name}: max |err| {worst:.4g}, over max |plain| {worst_rel:.4g} (bound {bound:.4g})")
+    if worst_rel > bound:
+        raise RuntimeError(f"{name}: kernel disagrees with its plain version")
+    return worst
+
+
+def mixer_torch_sequence(p, zx, y, chunk=64):
+    """The PyTorch sequence the mixer's kernels replace (bs_mamba2.py's
+    mamba2_apply before them), timed only here as a yardstick: (conv step,
+    gate step), each a function of no argument."""
+    import torch
+    import torch.nn.functional as F
+
+    bsz, l, _ = zx.shape
+    heads = p["dt_bias"].shape[0]
+    di = 64 * heads
+
+    def conv():
+        a = -torch.exp(p["A_log"])
+        dt = F.softplus(zx[..., -heads:] + p["dt_bias"])
+        xbc = zx[..., di:-heads]
+        xbc = F.conv1d(F.pad(xbc.transpose(1, 2), (3, 0)), p["conv_w"], p["conv_b"],
+                       groups=xbc.shape[-1]).transpose(1, 2)
+        xbc = xbc * torch.sigmoid(xbc)
+        x = xbc[..., :di].reshape(bsz, l, heads, 64)
+        b, c = xbc[..., None, di:di + 128], xbc[..., None, di + 128:]
+        lpad = -l % chunk
+        xs = F.pad(x, (0, 0, 0, 0, 0, lpad))
+        b, c = (F.pad(t, (0, 0, 0, 0, 0, lpad)) for t in (b, c))
+        dt = F.pad(dt, (0, 0, 0, lpad))
+        return xs * dt[..., None], a * dt, b, c, x
+
+    x = conv()[4]
+
+    def gate():
+        g = y[:, :l].contiguous() + x * p["D"][None, None, :, None]  # K8's slice copy
+        g = g.reshape(bsz, l, di)
+        z = zx[..., :di]
+        g = g * (z * torch.sigmoid(z))
+        g = g * torch.rsqrt(g.pow(2).mean(dim=-1, keepdim=True) + 1e-5)
+        return g * p["norm_w"]
+
+    return conv, gate
+
+
+def mixer_bytes(bsz, l, di, n, heads, dtype):
+    """Bytes the mixer's two steps need: the conv reads the xBC and dt
+    columns of L steps and writes x·dt, a·dt, b and c of Lp steps and x of
+    L; the gate reads y, x and z and writes a row, of L steps."""
+    import torch
+
+    el = 2 if dtype == torch.bfloat16 else 4
+    lp = -(-l // 64) * 64
+    conv = el * (bsz * l * (di + 2 * n + heads) + bsz * lp * (di + heads + 2 * n)
+                 + bsz * l * di)
+    return conv, el * 4 * bsz * l * di
+
+
+def _mixer_rows(gen, dev, leg, bsz, l, dtype):
+    """The mixer's two kernels at one leg of bs_mamba2 (d_model 128), both
+    directions against their plain versions, then timed (forward) beside
+    their plain versions and today's PyTorch sequence; the bound is the
+    bytes at PEAK_BYTES_S."""
+    import torch
+
+    from sesa_tpu_torch.ops.mamba import (mamba_conv, mamba_conv_plain, mamba_gate_norm,
+                                          mamba_gate_norm_plain)
+
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    p, zx, y = mixer_inputs(gen, 128, bsz, l, dtype, dev)
+    cargs = (zx, p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"])
+    errs = {}
+    for reverse in (False, True):
+        outs = mamba_conv(*cargs, reverse=reverse)
+        torch.cuda.synchronize()
+        errs[("conv", reverse)] = compare_mixer(
+            f"mamba_conv {tag} {leg} (B={bsz}, L={l}, reverse {reverse})", outs,
+            mamba_conv_plain(*cargs, reverse=reverse))
+        gargs = (y, outs[4], zx, p["D"], p["norm_w"])
+        got = mamba_gate_norm(*gargs, reverse=reverse)
+        torch.cuda.synchronize()
+        errs[("gate", reverse)] = compare_mixer(
+            f"mamba_gate_norm {tag} {leg} (B={bsz}, L={l}, reverse {reverse})", [got],
+            [mamba_gate_norm_plain(*gargs, reverse=reverse)])
+        del outs, got
+    x = mamba_conv(*cargs)[4]
+    gargs = (y, x, zx, p["D"], p["norm_w"])
+    torch_conv, torch_gate = mixer_torch_sequence(p, zx, y)
+    conv_bytes, gate_bytes = mixer_bytes(bsz, l, 512, 128, 8, dtype)
+    rows, fn_name = [], {"conv": "mamba_conv", "gate": "mamba_gate_norm"}
+    for key, fn, plain, library, nbytes in (
+            ("MC", lambda: mamba_conv(*cargs), lambda: mamba_conv_plain(*cargs), torch_conv,
+             conv_bytes),
+            ("MG", lambda: mamba_gate_norm(*gargs), lambda: mamba_gate_norm_plain(*gargs),
+             torch_gate, gate_bytes)):
+        step = "conv" if key == "MC" else "gate"
+        rows.append(dict(
+            name=f"{fn_name[step]} {tag} ({leg}, B={bsz}, L={l}, d_inner 512, state 128, "
+                 "8 heads)",
+            route="cuda", source="sesa_tpu_torch/csrc/mamba_mixer.cu",
+            replaces="none (XLA glue of sesa_tpu/models/bs_mamba2.py:79 mamba2_apply)",
+            max_abs_err=max(errs[step, False], errs[step, True]),
+            ms=time_ms(fn, reps=20, warmup=3), plain_ms=time_ms(plain, reps=5, warmup=1),
+            library_ms=time_ms(library, reps=5, warmup=1), **_bound(0, nbytes),
+            kernel=key if dtype == torch.bfloat16 else f"{key}f32"))
+    del p, zx, y, x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mixer_small(gen, dev):
+    """The mixer's kernels at small shapes against their plain versions:
+    d_model 32 and 64 (rows of zxbcdt too narrow for 16-byte loads in bf16,
+    the value-by-value path), 256 (four 8-column groups a lane in the gate),
+    one step, lengths that are and are not whole chunks, both directions,
+    f32 and bf16."""
+    import torch
+
+    from sesa_tpu_torch.ops.mamba import (mamba_conv, mamba_conv_plain, mamba_gate_norm,
+                                          mamba_gate_norm_plain)
+
+    for d_model, bsz, l in ((32, 3, 1), (32, 2, 70), (64, 5, 57), (128, 3, 130),
+                            (256, 2, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            p, zx, y = mixer_inputs(gen, d_model, bsz, l, dtype, dev)
+            cargs = (zx, p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"])
+            for reverse in (False, True):
+                outs = mamba_conv(*cargs, reverse=reverse)
+                compare_mixer(f"mamba_conv small {dtype} (d_model {d_model}, B={bsz}, L={l}, "
+                              f"reverse {reverse})", outs,
+                              mamba_conv_plain(*cargs, reverse=reverse))
+                gargs = (y, outs[4], zx, p["D"], p["norm_w"])
+                compare_mixer(f"mamba_gate_norm small {dtype} (d_model {d_model}, B={bsz}, "
+                              f"L={l}, reverse {reverse})",
+                              [mamba_gate_norm(*gargs, reverse=reverse)],
+                              [mamba_gate_norm_plain(*gargs, reverse=reverse)])
+    torch.cuda.synchronize()
+
+
+def mixer_model_call(dev):
+    """One bs_mamba2 model call of BATCH chunks at MAMBA_MODEL in bf16 with
+    the kernels against the same call with their plain versions
+    (model_parity): each mixer kernel and K8 launched 48 times (12 BSNets x
+    2 ResMambas x 2 directions)."""
+    import torch
+
+    from sesa_tpu_torch.configs import AttrDict
+    from sesa_tpu_torch.models import bs_mamba2
+
+    cfg = AttrDict({"model": MAMBA_MODEL})
+    params = tree_to_cuda(bs_mamba2.init(torch.Generator().manual_seed(0), cfg))
+    res = model_parity("bs_mamba2", params, cfg, _song(SONG_S), with_f32=False)
+    bsnets = MAMBA_MODEL["num_repeat_mask"] + MAMBA_MODEL["num_repeat_map"]
+    if res["launches"] != _mamba_launches(4 * bsnets):
+        raise RuntimeError(f"bs_mamba2 model call: launches {res['launches']}, expected "
+                           f"{_mamba_launches(4 * bsnets)}")
+    return res
+
+
 def width_rows(gen, dev, want):
     """The kernels at the widths their cores run padded or that widened them,
     each against its plain version at a model path's shape: K1 at 4 heads x
@@ -1683,6 +1904,17 @@ def phase_kernels(only=None):
                             ssd_fused_plain(*args, chunk_size=chunk))
         torch.cuda.synchronize()
 
+    if want("MX"):
+        # the Mamba mixer's kernels at bs_mamba2's two legs, bf16 (the
+        # session's path) and f32 (the rescue's), both directions; small
+        # shapes; then one model call: 48 launches of each
+        mix_gen = torch.Generator(device=dev).manual_seed(13)
+        for leg, bsz, l in MIXER_LEGS:
+            for dtype in (torch.bfloat16, torch.float32):
+                rows += _mixer_rows(mix_gen, dev, leg, bsz, l, dtype)
+        mixer_small(mix_gen, dev)
+        mixer_model_call(dev)
+
     if want("I8"):
         # I8 at the flagship's legs (time: 372 x 8 sequences of 690 frames;
         # freq: 4140 x 8 of 62 bands), on the views the roformer hands it
@@ -1818,8 +2050,9 @@ def _chunking(model_type):
 
 def _plain_swaps(model_type):
     """(module, attribute, plain version) for every kernel the model reaches."""
-    from sesa_tpu_torch.models import apollo, conformer_core, roformer_core
+    from sesa_tpu_torch.models import apollo, bs_mamba2, conformer_core, roformer_core
     from sesa_tpu_torch.ops import attention as attention_ops
+    from sesa_tpu_torch.ops import mamba as mamba_ops
     from sesa_tpu_torch.ops import ssd as ssd_ops
     from sesa_tpu_torch.ops.attention import (fused_attention_block_plain,
                                               fused_conformer_attention_plain,
@@ -1829,7 +2062,9 @@ def _plain_swaps(model_type):
     from sesa_tpu_torch.ops.ff import fused_ff_residual_plain
 
     if model_type.startswith("bs_mamba2"):  # ssd() looks ssd_fused up in its module
-        return [(ssd_ops, "ssd_fused", ssd_ops.ssd_fused_plain)]
+        return [(ssd_ops, "ssd_fused", ssd_ops.ssd_fused_plain),
+                (bs_mamba2, "mamba_conv", mamba_ops.mamba_conv_plain),
+                (bs_mamba2, "mamba_gate_norm", mamba_ops.mamba_gate_norm_plain)]
     if model_type.startswith("bs_roformer_experimental_hc"):  # so does sdpa() with K3
         return [(attention_ops, "vmem_attention", attention_ops.vmem_attention_plain)]
     if model_type.startswith("apollo"):
@@ -2313,7 +2548,7 @@ def phase_export():
     on the card (convert.export: torch.export with the parameter tree as an
     input), loaded, and one batch run on the card against the direct f32
     apply (within EXPORT_REL of max |apply|); bs_mamba2's export must raise
-    naming K8."""
+    naming the mixer's conv kernel."""
     import torch
 
     from sesa_tpu_torch.configs import AttrDict
@@ -2335,25 +2570,26 @@ def phase_export():
     torch.cuda.synchronize()
     err, scale = float((got - ref).abs().max()), float(ref.abs().max())
     # bs_mamba2 at the reference's widths, one block a stage (the trace stops
-    # at the first scan): its f32 forward on the card reaches K8, whose
-    # wrapper refuses the trace naming it (ops._build.refuse_export)
+    # at the first mixer): its f32 forward on the card reaches the mixer's
+    # conv kernel, whose wrapper refuses the trace naming it
+    # (ops._build.refuse_export)
     mcfg = AttrDict({"model": dict(MAMBA_MODEL, num_repeat_mask=1, num_repeat_map=1)})
     mparams = tree_to_cuda(bs_mamba2.init(torch.Generator().manual_seed(0), mcfg))
-    k8_before = read_counts()["K8"]
+    before = read_counts()
     try:
         export_model("bs_mamba2", mcfg, mparams, chunk_size=CHUNK)
         refusal = ""
     except ValueError as e:
         refusal = str(e)
-    if read_counts()["K8"] != k8_before:
-        raise RuntimeError("export: K8 launched during bs_mamba2's trace")
+    if read_counts() != before:
+        raise RuntimeError("export: a kernel launched during bs_mamba2's trace")
     del mparams
     res = dict(model_type="mdx23c", model=EXPORT_MDX_MODEL, batch=[MDX_BATCH, 2, MDX_CHUNK],
                bytes=len(blob),
                export_s=export_s, max_abs_err=err, ref_max=scale, equal=err == 0.0,
                bs_mamba2_refusal=refusal[:120], card=gpu_line())
     log(f"[export] {json.dumps(res)}")
-    if not err <= EXPORT_REL * scale or "ssd_fused (K8)" not in refusal:
+    if not err <= EXPORT_REL * scale or "mamba_conv:" not in refusal:
         raise RuntimeError(f"export: {res}")
     del got, ref, params
     torch.cuda.empty_cache()
@@ -2791,13 +3027,14 @@ def phase_new_paths(song, calls):
         # bands) are below K3's gate and take the einsum
         ("hc", "bs_roformer_experimental", HC_MODEL, expect(K3=depth * calls), {},
          expect(K3=depth)),
-        # per BSNet two ResMambas (band_rnn, band_comm) of two directions
-        ("bs_mamba2", "bs_mamba2", MAMBA_MODEL, expect(K8=4 * bsnets * calls),
-         dict(instruments=MAMBA_STEMS), expect(K8=4 * bsnets)),
+        # per BSNet two ResMambas (band_rnn, band_comm) of two directions,
+        # each the mixer's two kernels around K8
+        ("bs_mamba2", "bs_mamba2", MAMBA_MODEL, _mamba_launches(4 * bsnets * calls),
+         dict(instruments=MAMBA_STEMS), _mamba_launches(4 * bsnets)),
         # the same in f32, what a bf16 -> f32 rescue reruns: K8's f32 form,
         # at MAMBA_F32_MODEL's cut depth (three BSNets of twelve)
-        ("bs_mamba2_f32", "bs_mamba2", MAMBA_F32_MODEL, expect(K8=4 * f32_bsnets * calls),
-         dict(instruments=MAMBA_STEMS, compute_dtype="f32"), expect(K8=4 * f32_bsnets)),
+        ("bs_mamba2_f32", "bs_mamba2", MAMBA_F32_MODEL, _mamba_launches(4 * f32_bsnets * calls),
+         dict(instruments=MAMBA_STEMS, compute_dtype="f32"), _mamba_launches(4 * f32_bsnets)),
     ]
     out = {"runs": {}, "parity": [], "profile": {}}
     for key, model_type, model_cfg, expected, kw, per_call in paths:
@@ -4027,7 +4264,8 @@ def phase_train():
     del trainer
     torch.cuda.empty_cache()
 
-    # the guard: bs_mamba2 in f32 reaches K8, which has no backward
+    # the guard: bs_mamba2 in f32 reaches the mixer's kernels and K8, which
+    # have no backward; the mixer's conv comes first
     from sesa_tpu_torch.ops.ssd import ssd_fused
 
     mamba = Trainer("bs_mamba2", {"model": TRAIN_MAMBA_MODEL,
@@ -4040,9 +4278,9 @@ def phase_train():
         guard = str(e)
     else:
         raise RuntimeError("train guard: a bs_mamba2 step on the card did not raise")
-    k8_during = read_counts()["K8"]
-    if "ssd_fused (K8)" not in guard or "no backward" not in guard or k8_during:
-        raise RuntimeError(f"train guard: {guard!r}, K8 launches {k8_during}")
+    k8_during = read_counts()["K8"] + read_counts()["MC"] + read_counts()["MG"]
+    if "mamba_conv:" not in guard or "no backward" not in guard or k8_during:
+        raise RuntimeError(f"train guard: {guard!r}, K8 and mixer launches {k8_during}")
     gen = torch.Generator().manual_seed(5)
     x, a, b, c = (t.requires_grad_(True) for t in ssd_inputs(gen, 2, 128, 4, torch.float32,
                                                                mamba.device))
@@ -4209,6 +4447,10 @@ def main(argv=None) -> int:
                 "K7": out["apollo"]["launches"]["K7"],
                 "K8": runs["bs_mamba2"]["k8_launches_by_dtype"]["bf16"],
                 "K8f32": runs["bs_mamba2_f32"]["k8_launches_by_dtype"]["f32"],
+                "MC": runs["bs_mamba2"]["launches"]["MC"],
+                "MG": runs["bs_mamba2"]["launches"]["MG"],
+                "MCf32": runs["bs_mamba2_f32"]["launches"]["MC"],
+                "MGf32": runs["bs_mamba2_f32"]["launches"]["MG"],
                 "K1scnet": out["scnet_family"]["scnet_tran"]["launches"]["K1"],
                 "K2scnet": out["scnet_family"]["scnet_tran"]["launches"]["K2"],
                 "I8": out["int8"]["launches"]["I8"]}

@@ -8,10 +8,10 @@ are fixed at export. ``torch.export`` traces the PyTorch ops of the f32
 forward; it cannot trace a ``ctypes`` call into a hand-written kernel, so
 every kernel wrapper raises a ``ValueError`` that names its kernel when it
 would launch under ``torch.export`` (``ops._build.refuse_export``). Every
-model's f32 path launches none except bs_mamba2's, which reaches kernel K8
-at the shapes ``ops/ssd.py`` ``use_fused_ssd`` takes (f32 on CUDA):
-exporting bs_mamba2 on the card raises naming K8 (on the CPU its plain
-version runs and exports).
+model's f32 path launches none except bs_mamba2's, which reaches its Mamba
+mixer's kernels (``ops/mamba.py``) and kernel K8 on CUDA: exporting
+bs_mamba2 on the card raises naming the first, ``mamba_conv`` (on the CPU
+the plain versions run and export).
 """
 
 from __future__ import annotations
@@ -47,8 +47,8 @@ def export_model(model_type: str, config, params, chunk_size: int, batch_size: i
     ``torch.export``; returns the serialised program (``torch.export.save``),
     also written to ``path`` when given. Raises ``ValueError`` for a model
     whose f32 path on ``device`` launches a hand-written kernel (bs_mamba2's
-    K8 on CUDA; ``ops._build.refuse_export`` raises it where the wrapper
-    would launch)."""
+    mixer and K8 on CUDA; ``ops._build.refuse_export`` raises it where the
+    wrapper would launch)."""
     dev = get_device(device)
     from sesa_tpu_torch.configs import AttrDict
 

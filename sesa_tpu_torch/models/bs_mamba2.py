@@ -10,22 +10,26 @@ bands, TAC channel mixing) -> fused with the map features -> map branch ->
 per-band grouped heads give a sum-to-one complex mask (applied to the
 mixture) plus an additive complex map -> iSTFT.
 
-Mamba blocks run in both directions (forward, and backward on the flipped
-sequence, concatenated) with the chunked SSD scan of ``ops/ssd.py``, kernel
-K8 on CUDA; the in and out projections, the causal depthwise conv (a
-left-padded grouped conv), SiLU and the gated RMSNorm are torch calls, as
-they are XLA ops in the JAX package. The parameter tree is the JAX
-package's.
+Mamba blocks run in both directions (forward, and backward scanning from
+the sequence's end, concatenated). Between its in and out projections (torch
+matmuls, as XLA's in the JAX package) a Mamba-2 mixer runs three steps, each
+a hand-written kernel on CUDA: ``ops/mamba.py`` ``mamba_conv`` (the causal
+depthwise conv, SiLU, dt and the scan's operands; ``csrc/mamba_mixer.cu``),
+the chunked SSD scan of ``ops/ssd.py`` (kernel K8) and ``mamba_gate_norm``
+(the D skip, the gate and the RMSNorm; ``csrc/mamba_mixer.cu``). The backward
+direction reads and writes its rows in reverse, with no flipped copy. The
+norms, the ResMamba and TAC linears, the residual adds and the
+concatenation stay torch calls. The parameter tree is the JAX package's.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from sesa_tpu_torch.models import layers as L
 from sesa_tpu_torch.models.bs_roformer import _make_take
+from sesa_tpu_torch.ops.mamba import mamba_conv, mamba_gate_norm
 from sesa_tpu_torch.ops.prec import net_precision
 from sesa_tpu_torch.ops.ssd import ssd
 from sesa_tpu_torch.ops.stft import hann_window, istft_ri, stft_ri
@@ -87,54 +91,29 @@ def mamba2_init(generator, d_model):
     }
 
 
-def mamba2_apply(p, u):
-    """u (B, L, D) -> (B, L, D) (reference ex_bi_mamba2.py:55-95)."""
-    bsz, l, d_model = u.shape
-    d_inner = _EXPAND * d_model
-    nheads = d_inner // _HEADDIM
-
-    a = -torch.exp(p["A_log"])  # (H,)
+def mamba2_apply(p, u, reverse=False):
+    """u (B, L, D) -> (B, L, D) (reference ex_bi_mamba2.py:55-95). The glue
+    between the projections is ``ops/mamba.py``'s two steps around the scan.
+    ``reverse=True`` gives flip(mamba2_apply(p, flip(u))) along L without the
+    flips."""
     zxbcdt = u @ p["in_proj"].T
-    z = zxbcdt[..., :d_inner]
-    xbc = zxbcdt[..., d_inner:2 * d_inner + 2 * _D_STATE]
-    dt = F.softplus(zxbcdt[..., -nheads:] + p["dt_bias"])  # (B, L, H)
-
-    # causal depthwise conv over L: pad left d_conv - 1, nothing on the right
-    xbc = F.conv1d(F.pad(xbc.transpose(1, 2), (_D_CONV - 1, 0)), p["conv_w"], p["conv_b"],
-                   groups=xbc.shape[-1]).transpose(1, 2)
-    xbc = L.swish(xbc)
-
-    x = xbc[..., :d_inner].reshape(bsz, l, nheads, _HEADDIM)
-    b = xbc[..., d_inner:d_inner + _D_STATE][:, :, None, :]  # (B, L, 1, N)
-    c = xbc[..., d_inner + _D_STATE:][:, :, None, :]
-
-    # pad L to a chunk multiple: zero x, a and b add nothing to the state and
-    # decay it by exp(0) = 1, and the tail is dropped
-    lpad = -l % _CHUNK
-    xs, dt_p = x, dt
-    if lpad:
-        xs = F.pad(x, (0, 0, 0, 0, 0, lpad))
-        b = F.pad(b, (0, 0, 0, 0, 0, lpad))
-        c = F.pad(c, (0, 0, 0, 0, 0, lpad))
-        dt_p = F.pad(dt, (0, 0, 0, lpad))
-
-    y = ssd(xs * dt_p[..., None], a * dt_p, b, c, chunk_size=_CHUNK)[:, :l]
-    y = y + x * p["D"][None, None, :, None]
-    y = y.reshape(bsz, l, d_inner)
-
-    # gated RMSNorm (reference ex_bi_mamba2.py:13-21)
-    y = y * L.swish(z)
-    y = y * torch.rsqrt(y.pow(2).mean(dim=-1, keepdim=True) + 1e-5)
-    y = y * p["norm_w"]
+    # K8's operands, L zero-padded to a chunk multiple: zero x, a and b add
+    # nothing to the state and decay it by exp(0) = 1, and the tail is unread
+    xdt, adt, b, c, x = mamba_conv(zxbcdt, p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"],
+                                   reverse=reverse, chunk=_CHUNK)
+    y = ssd(xdt, adt, b, c, chunk_size=_CHUNK)
+    # the D skip and the gated RMSNorm (reference ex_bi_mamba2.py:13-21)
+    y = mamba_gate_norm(y, x, zxbcdt, p["D"], p["norm_w"], reverse=reverse)
     return y @ p["out_proj"].T
 
 
 def mamba_block_apply(p, x):
     """Both directions: concat(fwd(x) + x, flip(bwd(flip(x))) + x)
-    (reference ts_bs_mamba2.py:35-42)."""
+    (reference ts_bs_mamba2.py:35-42), the backward one scanning from the end
+    (``mamba2_apply``'s ``reverse``)."""
     fwd = mamba2_apply(p["forward"], x)
-    bwd = mamba2_apply(p["backward"], torch.flip(x, dims=[1]))
-    return torch.cat([fwd + x, torch.flip(bwd, dims=[1]) + x], dim=-1)
+    bwd = mamba2_apply(p["backward"], x, reverse=True)
+    return torch.cat([fwd + x, bwd + x], dim=-1)
 
 
 # --------------------------------------------------------------------------

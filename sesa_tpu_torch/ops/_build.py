@@ -75,6 +75,10 @@ SIGNATURES = {
     "ssd": {
         "sesa_ssd": [_P] * 6 + [_I] + [_L] * 4 + [_I] * 6 + [_L, _P],
     },
+    "mamba_mixer": {
+        "sesa_mamba_conv": [_P] * 10 + [_I] * 9 + [_P],
+        "sesa_mamba_gate": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -174,7 +178,7 @@ def refuse_autograd(kernel: str, *inputs) -> None:
             f"{kernel}: the hand-written CUDA kernel has no backward (the JAX package has "
             "no backward for its Pallas kernel either), and an input requires grad under "
             "grad mode; run it under torch.no_grad(), or train the model in f32, whose "
-            "path launches no kernel (bs_mamba2's f32 path launches K8)")
+            "path launches no kernel (bs_mamba2's f32 path launches its mixer's and K8)")
 
 
 def refuse_export(kernel: str) -> None:

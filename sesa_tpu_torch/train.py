@@ -37,8 +37,9 @@ validation :363-433) as the JAX package has it, in eager PyTorch:
 The hand-written CUDA kernels have no backward pass (the JAX package's
 Pallas kernels have none either): a wrapper raises when autograd would
 record its launch (``ops._build.refuse_autograd``). Every model's f32 path
-launches none, except bs_mamba2's, which reaches K8, so bs_mamba2 trains on
-the CPU only until both packages have a backward kernel.
+launches none, except bs_mamba2's, which reaches its Mamba mixer's kernels
+and K8, so bs_mamba2 trains on the CPU only until both packages have
+backward kernels.
 """
 
 from __future__ import annotations

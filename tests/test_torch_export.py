@@ -1,8 +1,8 @@
 """The port's ``convert.export`` (``torch.export`` in place of StableHLO)
 held against sesa_tpu's on tests/test_aux.py:87's mdx23c: export, load and
 call equal the port's ``apply`` and JAX's ``apply`` on weights carried from
-JAX; a trace that reaches a kernel's launch (bs_mamba2's K8, the one f32
-path that launches one) is refused naming the kernel."""
+JAX; a trace that reaches a kernel's launch (bs_mamba2's Mamba mixer and
+K8, the one f32 path that launches kernels) is refused naming the kernel."""
 
 import numpy as np
 import pytest
@@ -67,19 +67,38 @@ def test_export_load_call_matches_apply_and_jax(tmp_path):
     np.testing.assert_array_equal(load_exported(path)(params, xt).numpy(), got.numpy())
 
 
-def test_bs_mamba2_on_cuda_is_refused_naming_k8(monkeypatch):
-    """A trace that reaches a kernel wrapper's launch raises naming the
-    kernel (ops._build.refuse_export), before the wrapper touches memory.
-    Here bs_mamba2 is traced on the meta device, off the CPU path of the
-    wrappers, with K8's gate forced on as on CUDA: no tensor reaches a card."""
+def _mamba_on_meta(monkeypatch):
+    """A small bs_mamba2 whose export traces on the meta device, off the CPU
+    path of the wrappers: no tensor reaches a card."""
     import sesa_tpu_torch.convert.export as ex
     from sesa_tpu_torch.models import bs_mamba2
-    from sesa_tpu_torch.ops import ssd
 
     cfg = AttrDict({"model": dict(sr=44100, win=256, stride=64, feature_dim=16,
                                   num_repeat_mask=1, num_repeat_map=1, num_output=1)})
     params = bs_mamba2.init(torch.Generator().manual_seed(0), cfg)
     monkeypatch.setattr(ex, "get_device", lambda device=None: torch.device("meta"))
+    return cfg, params
+
+
+def test_bs_mamba2_on_cuda_is_refused_naming_k8(monkeypatch):
+    """A trace that reaches a kernel wrapper's launch raises naming the
+    kernel (ops._build.refuse_export), before the wrapper touches memory.
+    Here the mixer's steps around the scan run their plain versions, and
+    K8's gate is forced on as on CUDA."""
+    from sesa_tpu_torch.models import bs_mamba2
+    from sesa_tpu_torch.ops import mamba, ssd
+
+    cfg, params = _mamba_on_meta(monkeypatch)
+    monkeypatch.setattr(bs_mamba2, "mamba_conv", mamba.mamba_conv_plain)
+    monkeypatch.setattr(bs_mamba2, "mamba_gate_norm", mamba.mamba_gate_norm_plain)
     monkeypatch.setattr(ssd, "use_fused_ssd", lambda *args: True)
     with pytest.raises(ValueError, match=r"ssd_fused \(K8\): torch.export cannot trace"):
+        export_model("bs_mamba2", cfg, params, chunk_size=4096)
+
+
+def test_bs_mamba2_on_cuda_is_refused_naming_the_mixer(monkeypatch):
+    """The first kernel a bs_mamba2 trace reaches off the CPU is the mixer's
+    conv, whose wrapper refuses it the same way."""
+    cfg, params = _mamba_on_meta(monkeypatch)
+    with pytest.raises(ValueError, match=r"mamba_conv: torch.export cannot trace"):
         export_model("bs_mamba2", cfg, params, chunk_size=4096)
